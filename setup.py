@@ -7,8 +7,10 @@ setup(
         "TPU-native (JAX/XLA/Pallas) framework with the capabilities of "
         "EPFL-VILAB/omnidata: steerable multi-task vision dataset pipeline + models"
     ),
-    packages=find_packages(include=["omnidata_tpu", "omnidata_tpu.*"]),
-    package_data={"omnidata_tpu.native": ["*.cpp"]},
+    packages=find_packages(include=["omnidata_tpu", "omnidata_tpu.*",
+                                    "omnidata_tpu_torch", "omnidata_tpu_torch.*"]),
+    package_data={"omnidata_tpu.native": ["*.cpp"],
+                  "omnidata_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pillow", "scipy", "pyyaml"],

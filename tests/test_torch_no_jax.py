@@ -1,0 +1,48 @@
+"""The port imports torch and numpy, never JAX or the JAX package: an AST
+scan of every module of omnidata_tpu_torch and of the scripts that drive it
+on the card."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "omnidata_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_annotator.py"]
+_BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "omnidata_tpu")
+
+
+def banned_imports(source: str) -> list[str]:
+    """Absolute imports of JAX-family modules or of omnidata_tpu(.*); the
+    port's own package name only shares a prefix and is allowed."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [n for n in names if n.split(".")[0] in _BANNED]
+    return found
+
+
+def test_scan_catches_banned_and_allows_the_port():
+    assert banned_imports("import jax.numpy as jnp") == ["jax.numpy"]
+    assert banned_imports("from omnidata_tpu.mesh import raster") == [
+        "omnidata_tpu.mesh"]
+    assert banned_imports("import omnidata_tpu") == ["omnidata_tpu"]
+    assert banned_imports("def f():\n    from jax import lax") == ["jax"]
+    assert banned_imports(
+        "import omnidata_tpu_torch\nfrom omnidata_tpu_torch.mesh import raster\n"
+        "from .core import cameras\nimport torch") == []
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) >= 15
+    assert all(p.exists() for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_no_jax(path):
+    assert banned_imports(path.read_text()) == []

@@ -1,0 +1,190 @@
+"""omnidata_tpu_torch.mesh.raster and mesh.raster_kernels against the JAX
+package. The JAX raster kernel runs as its own tests run it on the CPU:
+Pallas in interpret mode.
+
+Tolerances, from float32 arithmetic that the two frameworks order and
+fuse differently:
+- admission lists: exactly equal for the same overlap matrix;
+- bboxes: rtol 1e-4, atol 1e-3 px;
+- kernel and renderer: `valid` equal, and `face` equal where both are
+  valid, on >= 99.9% of pixels; t within 1e-4 where the faces agree;
+  interpolated attributes within 1e-4.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from omnidata_tpu.mesh import from_arrays, room, uv_sphere
+from omnidata_tpu.mesh import raster as jraster
+from omnidata_tpu.mesh.pallas_raster import raster_tiles_pallas_chunklist
+from omnidata_tpu_torch.mesh import raster as traster
+from omnidata_tpu_torch.mesh import raster_kernels as tk
+
+from _torch_port_util import both_cameras, look_at_np, port_mesh
+
+torch.set_num_threads(1)
+
+RES = 64
+CHUNK = 64
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """Room + dense sphere (about 4k faces, 64 chunks of 64) and two views:
+    walls give short exact lists, the sphere long ones."""
+    r = room(size=6.0, height=3.0)
+    s = uv_sphere(radius=0.7, center=(0.6, 0.1, 1.2), n_lat=32, n_lon=64)
+    vs = np.concatenate([np.asarray(r.vertices), np.asarray(s.vertices)])
+    fs = np.concatenate([np.asarray(r.faces[: r.num_faces]),
+                         np.asarray(s.faces[: s.num_faces]) + r.vertices.shape[0]])
+    jmesh = from_arrays(vs, fs)
+    locs = np.array([[1.1, 0.5, 1.4], [-0.8, 0.9, 1.6]], np.float32)
+    tgts = np.array([[0.3, 0.0, 1.0], [0.5, -0.3, 0.8]], np.float32)
+    jcam, tcam = both_cameras(locs, look_at_np(locs, tgts),
+                              np.array([1.2, 1.0], np.float32), RES)
+    return jmesh, port_mesh(jmesh), jcam, tcam
+
+
+def _face_agreement(tv, tf, jv, jf):
+    """Fraction of pixels where valid agrees and, if valid, face agrees."""
+    tv, tf, jv, jf = (np.asarray(a) for a in (tv, tf, jv, jf))
+    same = (tv == jv) & (~jv | (tf == jf))
+    return float(same.mean()), jv & tv & (tf == jf)
+
+
+def test_face_screen_bboxes_match_jax(scene):
+    jmesh, tmesh, jcam, tcam = scene
+    lo, hi, live = traster.face_screen_bboxes(tcam, tmesh)
+    for k in range(2):
+        cam_k = jraster.Camera(jcam.location[k], jcam.R[k], jcam.fov[k], RES)
+        jlo, jhi, jlive = jraster.face_screen_bboxes(cam_k, jmesh)
+        np.testing.assert_array_equal(live[k].numpy(), np.asarray(jlive))
+        m = np.asarray(jlive)
+        assert m.sum() > 100
+        np.testing.assert_allclose(lo[k].numpy()[m], np.asarray(jlo)[m],
+                                   rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(hi[k].numpy()[m], np.asarray(jhi)[m],
+                                   rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("hier, ccap, expand_bcap", [
+    (False, 48, None), (False, 4, None), (True, 4, None), (True, 48, 1),
+])
+def test_admission_lists_match_jax(hier, ccap, expand_bcap):
+    """Same overlap matrix -> identical ids and counts, in every encoding
+    (exact, scan-all, block mode)."""
+    rng = np.random.RandomState(7)
+    rows, n_chunks = 40, 70
+    dens = rng.uniform(0.0, 0.3, (rows, 1))
+    overlap = rng.rand(rows, n_chunks) < dens
+    overlap[:5] = False  # empty rows
+    counts_true = overlap.sum(-1)
+    want_ids, want_counts = jraster.admission_lists(
+        jnp.asarray(overlap), jnp.asarray(counts_true), ccap, hier,
+        expand_bcap=expand_bcap)
+    ids, counts = traster.admission_lists(
+        torch.as_tensor(overlap), torch.as_tensor(counts_true), ccap, hier,
+        expand_bcap=expand_bcap)
+    assert ids.dtype == torch.int32 and counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+
+
+def _kernel_inputs(tmesh, tcam, tile):
+    """Mixed admission lists (exact, scan-all and block-mode rows, ccap 4)
+    plus rays and the scene pack with the vertex normals as attributes."""
+    flat = traster.prepare_raster(tcam, tmesh, tile, CHUNK, tmesh.vertex_normals,
+                                  ccap=4, hier_min_chunks=10**9)
+    blk = traster.prepare_raster(tcam, tmesh, tile, CHUNK, tmesh.vertex_normals,
+                                 ccap=4, hier_min_chunks=1)
+    use_blk = blk.counts <= -2
+    ids = torch.where(use_blk[:, None], blk.ids, flat.ids).contiguous()
+    counts = torch.where(use_blk, blk.counts, flat.counts).contiguous()
+    return ids, counts, flat.origins, flat.pack, flat.dir_planes, flat.tiles_per_view
+
+
+def test_kernel_reference_matches_pallas_interpret(scene):
+    """The plain version of the raster kernel + decode against the Pallas
+    chunk-list kernel (interpret mode) on identical lists and inputs."""
+    _, tmesh, _, tcam = scene
+    tile = 16
+    ids, counts, origins, pack, dirs, T = _kernel_inputs(tmesh, tcam, tile)
+    c = counts.numpy()
+    assert (c >= 0).any() and (c == -1).any() and (c <= -2).any(), c
+
+    packed, acc = tk.raster_tiles_chunklist_reference(
+        ids, counts, origins, pack, dirs, chunk=CHUNK, tiles_per_view=T)
+    assert packed.dtype == torch.int32 and acc.dtype == torch.float32
+    assert acc.shape == (ids.shape[0], pack.shape[0], tile * tile)
+    tv, tt, tu, tvv, tf, ta = tk.decode_winners(packed, acc, origins, dirs, T)
+
+    pairs = ids.numpy().reshape(ids.shape[0], -1, 2)
+    clist = (pairs[..., 0] | (pairs[..., 1] << 16)).reshape(-1)
+    jv, jt, ju, jvv, jf, ja = raster_tiles_pallas_chunklist(
+        jnp.asarray(clist), jnp.asarray(c), jnp.asarray(origins.numpy()),
+        jnp.asarray(pack.numpy()), tuple(jnp.asarray(d.numpy()) for d in dirs),
+        chunk=CHUNK, interpret=True, tiles_per_view=T, ccap=4)
+
+    frac, agree = _face_agreement(tv.numpy(), tf.numpy(), jv, jf)
+    assert frac >= 0.999, frac
+    assert agree.sum() > 0.3 * agree.size
+    np.testing.assert_allclose(tt.numpy()[agree], np.asarray(jt)[agree], atol=1e-4)
+    np.testing.assert_allclose(ta.numpy()[agree], np.asarray(ja)[agree], atol=1e-4)
+    # misses carry no columns
+    assert not acc.permute(0, 2, 1).numpy()[~tv.numpy()].any()
+
+
+def test_chunk_schedule_decodes_every_encoding():
+    ids = torch.tensor([[3, 5, 9, 0], [1, 2, 0, 0], [0, 0, 0, 0]],
+                       dtype=torch.int32)
+    counts = torch.tensor([3, -4, -1], dtype=torch.int32)  # exact, 2 blocks, all
+    trip, chunk_of = tk.chunk_schedule(ids, counts, n_chunks=20)
+    assert trip.tolist() == [3, 16, 20]
+    seq = torch.stack([chunk_of(i) for i in range(20)], 1)
+    assert seq[0, :3].tolist() == [3, 5, 9]
+    assert seq[1, :16].tolist() == list(range(8, 24))[:12] + [19] * 4  # clamped
+    assert seq[2].tolist() == list(range(20))
+
+
+@pytest.mark.parametrize("hier_min_chunks, ccap", [(None, None), (1, 4)])
+def test_render_views_fused_matches_jax(scene, hier_min_chunks, ccap):
+    """The render stage end to end (bboxes, admission, kernel, decode,
+    untile, z) against the JAX renderer with the Pallas kernel (interpret)."""
+    jmesh, tmesh, jcam, tcam = scene
+    kw = dict(tile=32, chunk=CHUNK, ccap=ccap, hier_min_chunks=hier_min_chunks)
+    jf, ja = jraster.render_views_fused(
+        jcam, jmesh, interpret=True, vertex_attrs=jmesh.vertex_normals, **kw)
+    tf, ta = traster.render_views_fused(
+        tcam, tmesh, vertex_attrs=tmesh.vertex_normals, **kw)
+    assert tf.t.shape == (2, RES, RES) and ta.shape == (2, RES, RES, 3)
+    frac, agree = _face_agreement(tf.valid.numpy(), tf.face.numpy(),
+                                  jf.valid, jf.face)
+    assert frac >= 0.999, frac
+    assert agree.mean() > 0.9
+    for name in ("t", "z"):
+        np.testing.assert_allclose(getattr(tf, name).numpy()[agree],
+                                   np.asarray(getattr(jf, name))[agree], atol=1e-4)
+    np.testing.assert_allclose(tf.bary.numpy()[agree], np.asarray(jf.bary)[agree],
+                               atol=1e-4)
+    np.testing.assert_allclose(ta.numpy()[agree], np.asarray(ja)[agree], atol=1e-4)
+
+
+def test_wrapper_takes_plain_version_only_for_cpu_tensors(scene):
+    _, tmesh, _, tcam = scene
+    ids, counts, origins, pack, dirs, T = _kernel_inputs(tmesh, tcam, 32)
+    before = tk.raster_tiles_chunklist.launches
+    got = tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs,
+                                    chunk=CHUNK, tiles_per_view=T)
+    want = tk.raster_tiles_chunklist_reference(ids, counts, origins, pack, dirs,
+                                               chunk=CHUNK, tiles_per_view=T)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert tk.raster_tiles_chunklist.launches == before  # no kernel launched
+    meta = [t.to("meta") for t in (ids, counts, origins, pack)]
+    with pytest.raises(ValueError, match="no kernel"):
+        tk.raster_tiles_chunklist(*meta, tuple(d.to("meta") for d in dirs),
+                                  chunk=CHUNK, tiles_per_view=T)
+    with pytest.raises(ValueError, match="int32"):
+        tk.raster_tiles_chunklist(ids.long(), counts, origins, pack, dirs,
+                                  chunk=CHUNK, tiles_per_view=T)
