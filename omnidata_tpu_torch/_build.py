@@ -2,10 +2,11 @@
 them with ctypes (a plain C interface; nothing includes PyTorch's headers).
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/lib<name>-<hash>.so`` at the
-repository root, keyed by the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. The compiler's output, including
-ptxas's register and shared-memory report, is kept beside it as
-``<name>.log``. A missing nvcc or a failed build raises.
+repository root, keyed by the source, every header in ``csrc/`` and the
+flags, so an edited source or shared header is rebuilt and an unchanged one
+is reused. The compiler's output, including ptxas's register and
+shared-memory report, is kept beside it as ``<name>.log``. A missing nvcc or
+a failed build raises.
 """
 from __future__ import annotations
 
@@ -46,22 +47,53 @@ def build_log_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.log"
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` header (a source may
+    include any of them) and the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+
+
+def build_kernel_libraries(names) -> None:
+    """Build every named source whose library is missing: one nvcc process
+    per source, all started together, each waited for."""
+    jobs = []
+    try:
+        for name in names:
+            lib = library_path(name)
+            if lib.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".tmp{os.getpid()}")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(SRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, lib, tmp, cmd, proc))
+        for name, lib, tmp, cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log = f"$ {' '.join(cmd)}\n{out}"
+            build_log_path(name).write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed to build {name}.cu:\n{log}")
+            os.replace(tmp, lib)
+    finally:
+        for *_, proc in jobs:  # an early raise leaves no compiler running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 @functools.cache
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        build_log_path(name).write_text(log)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {src.name}:\n{log}")
-        os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+    build_kernel_libraries([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -109,12 +109,15 @@ def annotate_views(
     modalities: tuple = DEVICE_MODALITIES,
     keypoint_blur_sigma: float = 0.0,
     ccap: int | None = None,
+    streamed: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Batched annotation: K cameras (leading batch dim on location/R/fov)
     -> {modality: (K, H, W, ...)}.
 
     curvature_mesh: the same geometry with curvature RG vertex colours baked
-    (cues.curvature.bake_curvature_colors); it shares the fragments."""
+    (cues.curvature.bake_curvature_colors); it shares the fragments.
+    streamed: render with the streamed, compacting raster kernel (large
+    scans; ``mesh.raster.render_views_fused``)."""
     needs_normals = "normal" in modalities or "reshading" in modalities
     needs_rgb = any(m in modalities for m in _RGB_CUES)
     has_colors = mesh.vertex_colors is not None
@@ -123,9 +126,11 @@ def annotate_views(
     vertex_attrs, attr_slices = _gather_attrs(mesh, curvature_mesh, modalities)
     if vertex_attrs is not None:
         frag, attr_img = render_views_fused(
-            cameras, mesh, tile, chunk, vertex_attrs, ccap=ccap)
+            cameras, mesh, tile, chunk, vertex_attrs, ccap=ccap,
+            streamed=streamed)
     else:
-        frag = render_views_fused(cameras, mesh, tile, chunk, ccap=ccap)
+        frag = render_views_fused(cameras, mesh, tile, chunk, ccap=ccap,
+                                  streamed=streamed)
         attr_img = None
 
     out: dict[str, torch.Tensor] = {}

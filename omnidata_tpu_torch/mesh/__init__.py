@@ -10,21 +10,30 @@ from .mesh import (
 from .raster import (
     Fragments,
     admission_lists,
+    bbox_words,
     face_screen_bboxes,
     render_views_fused,
     scene_pack,
 )
 from .raster_kernels import (
     CHUNK_LIST_CAP,
+    STAGE_CAP,
+    STREAMED_STAGE_CAP,
     decode_winners,
     raster_tiles_chunklist,
     raster_tiles_chunklist_reference,
+    raster_tiles_compact,
+    raster_tiles_compact_reference,
+    raster_tiles_streamed,
+    raster_tiles_streamed_reference,
 )
 
 __all__ = [
     "TriangleMesh", "compute_normals", "cube", "from_arrays", "room",
     "split_long_edges", "uv_sphere", "Fragments", "admission_lists",
-    "face_screen_bboxes", "render_views_fused", "scene_pack",
-    "CHUNK_LIST_CAP", "decode_winners", "raster_tiles_chunklist",
-    "raster_tiles_chunklist_reference",
+    "bbox_words", "face_screen_bboxes", "render_views_fused", "scene_pack",
+    "CHUNK_LIST_CAP", "STAGE_CAP", "STREAMED_STAGE_CAP", "decode_winners",
+    "raster_tiles_chunklist", "raster_tiles_chunklist_reference",
+    "raster_tiles_compact", "raster_tiles_compact_reference",
+    "raster_tiles_streamed", "raster_tiles_streamed_reference",
 ]

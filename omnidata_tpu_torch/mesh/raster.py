@@ -5,14 +5,15 @@ raster kernel, winner decode.
 1. per view and face, conservative near-plane-aware screen bboxes;
 2. per (view, tile), the ascending list of 128-face Morton chunks that hold
    at least one face whose bbox overlaps the tile (``admission_lists``);
-3. the raster kernel (``raster_kernels.raster_tiles_chunklist``) sweeps the
-   listed chunks and keeps, per pixel, the winner's packed key and its
-   scene-pack columns;
+3. a raster kernel (``raster_kernels``) sweeps the listed chunks and keeps,
+   per pixel, the winner's packed key and its scene-pack columns: kernel A
+   (chunk list), B (compacting: only the faces whose ``bbox_words`` overlap
+   the tile) or C (streamed: the pack chunk-major, compacting by default);
 4. ``raster_kernels.decode_winners`` recomputes the winner's exact t/u/v and
    interpolates vertex attributes; tiles are put back into images.
 
 Tie semantics, admission encoding and outputs are those of
-``omnidata_tpu.mesh.raster.render_views_fused`` with the chunk-list kernel.
+``omnidata_tpu.mesh.raster.render_views_fused``.
 """
 from __future__ import annotations
 
@@ -24,8 +25,12 @@ from ..core.cameras import Camera, camera_rays, extrinsic_RT, intrinsic_matrix
 from .mesh import TriangleMesh
 from .raster_kernels import (
     CHUNK_LIST_CAP,
+    STAGE_CAP,
+    STREAMED_STAGE_CAP,
     decode_winners,
     raster_tiles_chunklist,
+    raster_tiles_compact,
+    raster_tiles_streamed,
 )
 
 _BIG = 1e30
@@ -208,26 +213,31 @@ def admission_lists(overlap: torch.Tensor, true_counts: torch.Tensor,
     return ids.contiguous(), counts.to(torch.int32)
 
 
-def tile_admission(cameras: Camera, mesh: TriangleMesh, tile: int,
-                   chunk: int, ccap: int, hier_min_chunks: int | None = None,
-                   expand_bcap: int | None = None):
-    """Face-granular chunk admission for every (view, tile): a chunk is
-    listed for a tile when at least one of its faces' bboxes overlaps the
-    tile. The per-chunk any-face overlap is a separable y/x test contracted
-    over the chunk's faces (a float32 batched matmul of 0/1 values, exact).
-    -> (ids (K*T, ccap), counts (K*T,)) as in ``admission_lists``."""
-    res = cameras.resolution
-    n1d = res // tile
-    T = n1d * n1d
-    K = cameras.location.shape[0]
+def padded_bboxes(cameras: Camera, mesh: TriangleMesh, chunk: int):
+    """``face_screen_bboxes`` padded to whole chunks: lo, hi (K, Fp, 2), the
+    padding dead (lo = +BIG, hi = -BIG)."""
     F = mesh.faces.shape[0]
-    n_chunks = -(-F // chunk)
-    padF = n_chunks * chunk - F
-
+    padF = -F % chunk
     tris = mesh.vertices[mesh.faces.long()]  # gathered once for all views
     lo, hi, _ = face_screen_bboxes(cameras, mesh, tris_w=tris)
     lo = torch.nn.functional.pad(lo, (0, 0, 0, padF), value=_BIGF)
     hi = torch.nn.functional.pad(hi, (0, 0, 0, padF), value=-_BIGF)
+    return lo, hi
+
+
+def tile_admission(lo: torch.Tensor, hi: torch.Tensor, res: int, tile: int,
+                   chunk: int, ccap: int, hier_min_chunks: int | None = None,
+                   expand_bcap: int | None = None):
+    """Face-granular chunk admission for every (view, tile) from the padded
+    bboxes (``padded_bboxes``): a chunk is listed for a tile when at least
+    one of its faces' bboxes overlaps the tile. The per-chunk any-face
+    overlap is a separable y/x test contracted over the chunk's faces (a
+    float32 batched matmul of 0/1 values, exact).
+    -> (ids (K*T, ccap), counts (K*T,)) as in ``admission_lists``."""
+    n1d = res // tile
+    T = n1d * n1d
+    K, Fp = lo.shape[:2]
+    n_chunks = Fp // chunk
 
     txs = torch.arange(n1d, dtype=torch.float32, device=lo.device) * tile
     ov_x = (hi[..., 0:1] >= txs) & (lo[..., 0:1] <= txs + tile)  # (K,Fp,n1d)
@@ -242,6 +252,30 @@ def tile_admission(cameras: Camera, mesh: TriangleMesh, tile: int,
     return admission_lists(
         overlap.reshape(K * T, n_chunks), true_counts.reshape(K * T), ccap,
         hier=n_chunks > hier_min, expand_bcap=expand_bcap)
+
+
+def bbox_words(lo: torch.Tensor, hi: torch.Tensor, res: int,
+               tile: int) -> torch.Tensor:
+    """Per-view per-face screen bboxes (padded, ``padded_bboxes``) as one
+    int32 word each, (K, Fp): lo_tx | hi_tx<<8 | lo_by<<16 | hi_by<<24, x at
+    tile granularity and y in 8-row bands, clipped to 0..255. One pixel of
+    slack keeps the quantized test a superset of the float one; dead faces
+    quantize to lo 255 > hi 0 and never stage. The compacting kernels test
+    these words against each tile (``raster_kernels.band_mask_and_flags``)."""
+    n1d = res // tile
+    if n1d > 256 or res > 2048:
+        raise ValueError(
+            f"compacting kernels pack tile indices ({n1d}/axis) and 8-px "
+            f"y-bands ({res // 8}) as u8 (resolution {res} / tile {tile}): "
+            "raise the tile size or pass compact=False")
+
+    def q(x, step):
+        return torch.clamp(torch.floor(x / step), 0, 255).to(torch.int32)
+
+    lo_t, hi_t = q(lo - 1.0, tile), q(hi + 1.0, tile)
+    lo_b, hi_b = q(lo - 1.0, 8.0), q(hi + 1.0, 8.0)
+    return (lo_t[..., 0] | (hi_t[..., 0] << 8)
+            | (lo_b[..., 1] << 16) | (hi_b[..., 1] << 24)).contiguous()
 
 
 def _tiles(x: torch.Tensor, K: int, n1d: int, tile: int) -> torch.Tensor:
@@ -259,9 +293,11 @@ def _untile(x: torch.Tensor, K: int, n1d: int, tile: int) -> torch.Tensor:
 
 
 class RasterInputs(NamedTuple):
-    """Everything the raster kernel reads for K views (rows = K*T tiles):
+    """Everything a raster kernel reads for K views (rows = K*T tiles):
     admission lists, per-view ray origins (K,3), the scene pack (COLS, Fp),
-    per-tile ray directions 3 x (rows, P); plus the (K,H,W,3) ray image."""
+    or chunk-major (NC, COLS, chunk) for the streamed kernel, per-tile ray
+    directions 3 x (rows, P), the bbox words (K, Fp) when compacting (else
+    None); plus the (K,H,W,3) ray image."""
 
     ids: torch.Tensor
     counts: torch.Tensor
@@ -270,13 +306,16 @@ class RasterInputs(NamedTuple):
     dir_planes: tuple
     tiles_per_view: int
     dirs: torch.Tensor
+    bbox_words: torch.Tensor | None
 
 
 def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
                    chunk: int = 128, vertex_attrs: torch.Tensor | None = None,
                    ccap: int | None = None, hier_min_chunks: int | None = None,
-                   expand_bcap: int | None = None) -> RasterInputs:
-    """Admission, rays and scene pack for one raster launch over K views."""
+                   expand_bcap: int | None = None, compact: bool = False,
+                   streamed: bool = False) -> RasterInputs:
+    """Admission, rays and scene pack for one raster launch over K views;
+    the bbox words when compact, the pack chunk-major when streamed."""
     res = cameras.resolution
     if res % tile:
         raise ValueError(f"resolution {res} is not a multiple of tile {tile}")
@@ -285,16 +324,23 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
     F = mesh.faces.shape[0]
     n_chunks = -(-F // chunk)
     ccap = min(ccap or CHUNK_LIST_CAP, n_chunks)
-    ids, counts = tile_admission(cameras, mesh, tile, chunk, ccap,
+    lo, hi = padded_bboxes(cameras, mesh, chunk)
+    ids, counts = tile_admission(lo, hi, res, tile, chunk, ccap,
                                  hier_min_chunks, expand_bcap)
+    words = bbox_words(lo, hi, res, tile) if compact else None
+    del lo, hi
     origins, dirs = camera_rays(cameras)  # (K,3), (K,H,W,3)
     tile_dirs = _tiles(dirs, K, n1d, tile)  # (K*T, P, 3)
     dir_planes = tuple(tile_dirs[..., i].contiguous() for i in range(3))
     attrs = () if vertex_attrs is None else (vertex_attrs,)
     pack = scene_pack(mesh, attrs)
     pack = torch.nn.functional.pad(pack, (0, 0, 0, n_chunks * chunk - F))
-    return RasterInputs(ids, counts, origins.contiguous(), pack.T.contiguous(),
-                        dir_planes, n1d * n1d, dirs)
+    if streamed:  # (NC, COLS, chunk): one contiguous block per chunk
+        pack = pack.reshape(n_chunks, chunk, -1).transpose(1, 2)
+    else:
+        pack = pack.T
+    return RasterInputs(ids, counts, origins.contiguous(), pack.contiguous(),
+                        dir_planes, n1d * n1d, dirs, words)
 
 
 def render_views_fused(
@@ -306,6 +352,9 @@ def render_views_fused(
     ccap: int | None = None,
     hier_min_chunks: int | None = None,
     expand_bcap: int | None = None,
+    streamed: bool = False,
+    compact: bool | None = None,
+    stage_cap: int | None = None,
 ):
     """Render K cameras (leading batch dim on location/R/fov) in one raster
     kernel launch, with optional barycentric interpolation of per-vertex
@@ -315,14 +364,37 @@ def render_views_fused(
     (K,H,W,C)) when vertex_attrs is given. Candidate admission is by
     128-face chunk, at most ``ccap`` (default CHUNK_LIST_CAP) per tile;
     tiles that need more take block mode or a full scan, so no candidate is
-    ever dropped."""
+    ever dropped.
+
+    The kernel: streamed=True takes kernel C (the pack chunk-major),
+    compacting unless compact=False; otherwise compact=True takes kernel B
+    and the default kernel A. compact defaults to streamed, as in the JAX
+    package. stage_cap overrides the compacting kernels' cap (STAGE_CAP for
+    B, STREAMED_STAGE_CAP for C); past it a tile gets kernel A's sweep of
+    its raw list. All views go to one launch, and the caller chooses the
+    kernel: the JAX package's TPU routing (views split by scalar memory,
+    packs over 8 MB sent to the streamed kernel, an XLA fallback) has no
+    counterpart here, since a card has no such limits; ``bench.py``'s large
+    scene passes streamed=True itself."""
+    if compact is None:
+        compact = streamed
     inp = prepare_raster(cameras, mesh, tile, chunk, vertex_attrs, ccap,
-                         hier_min_chunks, expand_bcap)
-    packed, acc = raster_tiles_chunklist(
-        inp.ids, inp.counts, inp.origins, inp.pack, inp.dir_planes,
-        chunk=chunk, tiles_per_view=inp.tiles_per_view)
+                         hier_min_chunks, expand_bcap, compact, streamed)
+    args = (inp.ids, inp.counts, inp.origins, inp.pack)
+    kw = dict(chunk=chunk, tiles_per_view=inp.tiles_per_view)
+    if streamed:
+        packed, acc = raster_tiles_streamed(
+            *args, inp.dir_planes, bbox_words=inp.bbox_words,
+            stage_cap=stage_cap or STREAMED_STAGE_CAP, **kw)
+    elif compact:
+        packed, acc = raster_tiles_compact(
+            *args, inp.bbox_words, inp.dir_planes,
+            stage_cap=stage_cap or STAGE_CAP, **kw)
+    else:
+        packed, acc = raster_tiles_chunklist(*args, inp.dir_planes, **kw)
     valid, t, u, v, f, attr_t = decode_winners(
         packed, acc, inp.origins, inp.dir_planes, inp.tiles_per_view)
+    del packed, acc
 
     K = cameras.location.shape[0]
     n1d = cameras.resolution // tile

@@ -1,31 +1,44 @@
-"""The chunk-list raster kernel: its wrapper, its plain PyTorch version and
-the winner decode.
+"""The raster kernels: their wrappers, their plain PyTorch versions and the
+winner decode.
 
 Per (view, tile) row the caller supplies the ascending ids of the 128-face
 Morton chunks admitted for that tile (``raster.admission_lists``). For every
-pixel ray and every face of every listed chunk, Möller–Trumbore runs in the
-factored form det = -D·n, u·det = D·r, v·det = D·q, t·det = e2·q, with
-n = e1×e2, q = tvec×e1, r = e2×tvec and e2·q computed once per face
+pixel ray and every swept face, Möller–Trumbore runs in the factored form
+det = -D·n, u·det = D·r, v·det = D·q, t·det = e2·q, with n = e1×e2,
+q = tvec×e1, r = e2×tvec and e2·q computed once per face
 (``_mt_precompute``). Per pixel the winner is the minimum of a packed int32
 key: the float bits of t with the low 13 mantissa bits replaced by the lane
-(the face's index in its chunk). Within a chunk the full key decides, so
-the lowest lane wins a masked tie; across chunks a later chunk replaces the
-winner only on strict improvement of the masked key. Lists ascend in chunk
-id, so the lowest face id wins every tie.
+(the face's index in the swept chunk). Within a chunk the full key decides,
+so the lowest lane wins a masked tie; across chunks a later chunk replaces
+the winner only on strict improvement of the masked key. Lists ascend in
+chunk id, so the lowest face id wins every tie.
+
+Three kernels share that contract:
+- A, chunk list (``raster_tiles_chunklist``): sweeps every listed chunk.
+- B, compacting (``raster_tiles_compact``): first stages, per row, the faces
+  of the listed chunks whose tile-quantized bbox overlaps the tile
+  (``stage_faces``), then sweeps ceil(staged / chunk) dense chunks of them;
+  lane = slot % chunk. A row that stages more than ``stage_cap`` faces gets
+  A's result for its raw list. Winners and decoded outputs equal A's;
+  ``packed``'s low bits hold the dense lane.
+- C, streamed (``raster_tiles_streamed``): the pack chunk-major (NC, COLS,
+  chunk); without ``bbox_words`` A's function, ``packed`` included, with
+  them B's function at ``STREAMED_STAGE_CAP``.
 
 Outputs per row: ``packed`` (rows, P) int32, the winning key or BIG_PACKED
 for a miss, and ``acc`` (rows, COLS, P) float32, the winner's scene-pack
 column [v0|e1|e2|face_id|attr corners] or zeros for a miss.
 ``decode_winners`` turns these into t/u/v, face ids and attributes.
 
-``raster_tiles_chunklist`` runs the CUDA kernel (csrc/raster_chunklist.cu)
-for CUDA tensors and the plain version for CPU tensors. Both compute the
-same operations in the same order without fused multiply-adds, so on one
-card they agree bit for bit.
+Each wrapper runs its CUDA kernel (``csrc/raster_chunklist.cu`` for A,
+``csrc/raster_compact.cu`` for B and C) for CUDA tensors and its plain
+version for CPU tensors. Both compute the same operations in the same order
+without fused multiply-adds, so on one card they agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -36,40 +49,115 @@ _EDGE_EPS = 1e-5
 _IDX_BITS = 13  # low mantissa bits of t that carry the lane
 _LANE_BITS = 7  # lanes fit 7 bits: chunk <= 128
 TIE_MASK = ~((1 << _IDX_BITS) - 1)
+LANE_MASK = (1 << _IDX_BITS) - 1
 BIG_PACKED = int(np.float32(_BIG).view(np.int32)) & TIE_MASK
+_INT32_MAX = 2**31 - 1
 
 CHUNK_LIST_CAP = 48  # default chunks listed per tile (raster.admission_lists)
+STAGE_CAP = 512  # compacting kernel B: staged faces per row before fallback
+STREAMED_STAGE_CAP = 8192  # kernel C's compacting body
 
 
 def chunk_schedule(ids: torch.Tensor, counts: torch.Tensor, n_chunks: int):
-    """Decode each row's list -> (trip (rows,), chunk_of).
+    """Decode each row's list -> (trip (rows,), chunk_of, fresh_of).
 
     counts >= 0: ``count`` listed chunks; -1: all n_chunks chunks in order;
     <= -2: block mode, the list holds -count-2 8-chunk block ids, each
     expanded to its 8 chunks (trip = 8 * blocks). The id is clamped to the
     last chunk: a tail block may run past it, and a re-swept duplicate chunk
     cannot strictly improve any winner. chunk_of(i) gives the chunk at list
-    position i for every row (meaningful where i < trip)."""
+    position i for every row (meaningful where i < trip); fresh_of(i) is
+    False exactly for the clamped tail duplicates, which the compacting
+    kernels do not stage again."""
     ccap = ids.shape[1]
     full = counts == -1
     block = counts < -1
     trip = torch.where(full, n_chunks,
                        torch.where(block, (-counts - 2) * 8, counts))
 
-    def chunk_of(i: int) -> torch.Tensor:
+    def raw_of(i: int) -> torch.Tensor:
         j = torch.clamp(torch.where(block, i // 8, i), max=ccap - 1)
         listed = torch.gather(ids, 1, j[:, None].long())[:, 0]
         ci = torch.where(block, listed * 8 + i % 8, listed)
-        ci = torch.where(full, i, ci)
-        return torch.clamp(ci, max=n_chunks - 1)
+        return torch.where(full, i, ci)
 
-    return trip, chunk_of
+    def chunk_of(i: int) -> torch.Tensor:
+        return torch.clamp(raw_of(i), max=n_chunks - 1)
+
+    def fresh_of(i: int) -> torch.Tensor:
+        return raw_of(i) < n_chunks
+
+    return trip, chunk_of, fresh_of
+
+
+def band_mask_and_flags(bb: torch.Tensor, tx, ty, tile: int, pblk: int,
+                        nblocks: int):
+    """Decode u8-packed bbox words (lo_tx | hi_tx<<8 | lo_by<<16 |
+    hi_by<<24: x in tiles, y in 8-row bands; ``raster.bbox_words``) against
+    tile (tx, ty) -> (mask, flags (nblocks, *mask.shape)), both bool.
+
+    mask: the bbox overlaps the tile, the compacting kernels' staging test.
+    flags[b]: it also overlaps the image rows of pixel block b (the tile's
+    row-major pixels [b*pblk, (b+1)*pblk)), conservative for any tile and
+    pblk. The TPU kernels skip staged chunks by these flags; the kernels
+    here sweep every staged face, which gives the same winners."""
+    lo_tx = bb & 0xFF
+    hi_tx = (bb >> 8) & 0xFF
+    lo_by = (bb >> 16) & 0xFF
+    hi_by = (bb >> 24) & 0xFF
+    y0 = ty * tile
+    m = ((lo_tx <= tx) & (tx <= hi_tx)
+         & (lo_by <= (y0 + tile - 1) // 8) & (hi_by >= y0 // 8))
+    flags = []
+    for b in range(nblocks):
+        r0 = (b * pblk) // tile  # rows of block b within the tile
+        r1 = ((b + 1) * pblk - 1) // tile
+        flags.append(m & (lo_by <= (y0 + r1) // 8) & (hi_by >= (y0 + r0) // 8))
+    return m, torch.stack(flags)
+
+
+def stage_faces(ids, counts, bbox_words, n_chunks: int, chunk: int,
+                tiles_per_view: int, tile: int, stage_cap: int):
+    """Pass 1 of the compacting kernels, plainly: per row, the faces of the
+    listed chunks whose bbox word overlaps the row's tile, in list order
+    then lane order (ascending face id), skipping the clamped tail
+    duplicates of block mode. -> (staged (rows,) int64, the count with the
+    faces past stage_cap; slots (rows, stage_cap) int64 face ids, -1 where
+    empty).
+
+    A dead face (behind the near plane or off screen) has the bbox word of
+    lo 255 > hi 0 and is never staged: a face whose vertices all lie within
+    1e-4 m in front of the camera is never swept by B or C, while A sweeps
+    it whenever a chunkmate admits its chunk, so no kernel renders such
+    faces dependably (as in the JAX package)."""
+    rows = ids.shape[0]
+    dev = ids.device
+    n1d = math.isqrt(tiles_per_view)
+    trip, chunk_of, fresh_of = chunk_schedule(ids, counts, n_chunks)
+    row = torch.arange(rows, device=dev)
+    view, tiv = row // tiles_per_view, row % tiles_per_view
+    ty, tx = tiv // n1d, tiv % n1d
+    lane = torch.arange(chunk, device=dev)
+    staged = torch.zeros(rows, dtype=torch.int64, device=dev)
+    slots = torch.full((rows, stage_cap), -1, dtype=torch.int64, device=dev)
+    for i in range(int(trip.max()) if rows else 0):
+        r = torch.nonzero(trip > i)[:, 0]
+        faces = chunk_of(i)[r, None].long() * chunk + lane  # (r, chunk)
+        bb = bbox_words[view[r, None], faces]
+        m, _ = band_mask_and_flags(bb, tx[r, None], ty[r, None], tile,
+                                   tile * tile, 1)
+        m &= fresh_of(i)[r, None]
+        pos = staged[r, None] + torch.cumsum(m, 1) - 1
+        keep = m & (pos < stage_cap)
+        slots[r[:, None].expand_as(faces)[keep], pos[keep]] = faces[keep]
+        staged[r] += m.sum(1)
+    return staged, slots
 
 
 def _mt_precompute(rows, ox, oy, oz):
     """Per-face Möller–Trumbore invariants from the 9 geometry rows
     (v0/e1/e2 xyz) and the ray origin -> (nx, ny, nz, qx, qy, qz, rx, ry,
-    rz, e2q). The CUDA kernel computes the same expressions in this order."""
+    rz, e2q). The CUDA kernels compute the same expressions in this order."""
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
     tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
     nx = e1y * e2z - e1z * e2y
@@ -88,7 +176,7 @@ def _mt_precompute(rows, ox, oy, oz):
 def _mt_packed_keys(pre, dx, dy, dz, lane):
     """Packed candidate keys (t float bits & TIE_MASK) | lane; misses carry
     t = BIG. The constants are rounded once to float32 from their double
-    values, as the JAX package and the CUDA kernel round them."""
+    values, as the JAX package and the CUDA kernels round them."""
     nx, ny, nz, qx, qy, qz, rx, ry, rz, e2q = pre
     det = -(dx * nx + dy * ny + dz * nz)
     udet = dx * rx + dy * ry + dz * rz
@@ -109,11 +197,114 @@ def _mt_packed_keys(pre, dx, dy, dz, lane):
     return (t.view(torch.int32) & TIE_MASK) | lane
 
 
-def _check_inputs(ids, counts, origins, pack, dir_planes, chunk,
-                  tiles_per_view):
+def _sweep(o, dir_planes, pack, n_units, faces_of):
+    """The strict-improvement sweep of every row over its units i <
+    n_units[row], in order. faces_of(i, r) -> (len(r), chunk) face ids of
+    unit i for rows r, the column being the lane; -1 marks an empty slot.
+    o: (rows, 3) ray origins. -> (best (rows, P) int32, win (rows, P) int64
+    winning face ids)."""
     rows, P = dir_planes[0].shape
-    cols, Fp = pack.shape
     dev = pack.device
+    best = torch.full((rows, P), BIG_PACKED, dtype=torch.int32, device=dev)
+    win = torch.zeros((rows, P), dtype=torch.int64, device=dev)
+    for i in range(int(n_units.max()) if rows else 0):
+        r = torch.nonzero(n_units > i)[:, 0]
+        faces = faces_of(i, r)
+        lane = torch.arange(faces.shape[1], dtype=torch.int32, device=dev)
+        geo = pack[:9][:, faces.clamp(min=0)][:, :, None, :]  # 9 x (r, 1, chunk)
+        pre = _mt_precompute(tuple(geo), o[r, 0, None, None],
+                             o[r, 1, None, None], o[r, 2, None, None])
+        d = [p[r][:, :, None] for p in dir_planes]  # 3 x (r, P, 1)
+        keys = _mt_packed_keys(pre, *d, lane)
+        keys = torch.where(faces[:, None, :] >= 0, keys, _INT32_MAX)
+        pj = keys.amin(-1)  # (r, P)
+        b = best[r]
+        improved = (pj & TIE_MASK) < (b & TIE_MASK)
+        best[r] = torch.where(improved, pj, b)
+        face = torch.gather(faces, 1, (pj & LANE_MASK).long())
+        win[r] = torch.where(improved, face, win[r])
+    return best, win
+
+
+def _sweep_lists(ids, counts, o, pack, dir_planes, chunk):
+    """Kernel A's sweep of each row's raw list -> (best, win)."""
+    trip, chunk_of, _ = chunk_schedule(ids, counts, pack.shape[1] // chunk)
+    lane = torch.arange(chunk, device=pack.device)
+    return _sweep(o, dir_planes, pack, trip,
+                  lambda i, r: chunk_of(i)[r, None].long() * chunk + lane)
+
+
+def _row_origins(origins, rows, tiles_per_view):
+    return origins[torch.arange(rows, device=origins.device) // tiles_per_view]
+
+
+def _winner_columns(best, win, pack):
+    hit = best < BIG_PACKED
+    acc = torch.where(hit[:, None], pack[:, win].permute(1, 0, 2), 0.0)
+    return acc.contiguous()
+
+
+def raster_tiles_chunklist_reference(ids, counts, origins, pack, dir_planes,
+                                     chunk: int = 128,
+                                     tiles_per_view: int = 64):
+    """Plain PyTorch version of kernel A: a loop over list positions, each
+    step sweeping one chunk for every row whose list is that long. Same keys,
+    same strict masked improvement. -> (packed (rows, P) int32, acc (rows,
+    COLS, P) float32)."""
+    o = _row_origins(origins, ids.shape[0], tiles_per_view)
+    best, win = _sweep_lists(ids, counts, o, pack, dir_planes, chunk)
+    return best, _winner_columns(best, win, pack)
+
+
+def raster_tiles_compact_reference(ids, counts, origins, pack, bbox_words,
+                                   dir_planes, chunk: int = 128,
+                                   tiles_per_view: int = 64,
+                                   stage_cap: int = STAGE_CAP):
+    """Plain PyTorch version of kernel B: ``stage_faces``, then per row
+    either the dense sweep of its staged faces or, past stage_cap, kernel
+    A's sweep of its raw list. -> (packed, acc) as kernel A's."""
+    rows, P = dir_planes[0].shape
+    staged, slots = stage_faces(ids, counts, bbox_words, pack.shape[1] // chunk,
+                                chunk, tiles_per_view, math.isqrt(P), stage_cap)
+    o = _row_origins(origins, rows, tiles_per_view)
+    best = torch.full((rows, P), BIG_PACKED, dtype=torch.int32, device=pack.device)
+    win = torch.zeros((rows, P), dtype=torch.int64, device=pack.device)
+    fb = staged > stage_cap
+    if fb.any():
+        best[fb], win[fb] = _sweep_lists(ids[fb], counts[fb], o[fb], pack,
+                                         [d[fb] for d in dir_planes], chunk)
+    dn = ~fb
+    if dn.any():
+        dense = torch.nn.functional.pad(slots[dn], (0, -stage_cap % chunk),
+                                        value=-1)
+        best[dn], win[dn] = _sweep(
+            o[dn], [d[dn] for d in dir_planes], pack,
+            (staged[dn] + chunk - 1) // chunk,
+            lambda i, r: dense[r, i * chunk:(i + 1) * chunk])
+    return best, _winner_columns(best, win, pack)
+
+
+def raster_tiles_streamed_reference(ids, counts, origins, pack, dir_planes,
+                                    chunk: int = 128,
+                                    tiles_per_view: int = 64,
+                                    bbox_words=None,
+                                    stage_cap: int = STREAMED_STAGE_CAP):
+    """Plain PyTorch version of kernel C on the chunk-major pack (NC, COLS,
+    chunk): kernel A's function without bbox_words, kernel B's with them."""
+    flat = pack.permute(1, 0, 2).reshape(pack.shape[1], -1)
+    if bbox_words is None:
+        return raster_tiles_chunklist_reference(
+            ids, counts, origins, flat, dir_planes, chunk, tiles_per_view)
+    return raster_tiles_compact_reference(
+        ids, counts, origins, flat, bbox_words, dir_planes, chunk,
+        tiles_per_view, stage_cap)
+
+
+def _check_inputs(name, ids, counts, origins, pack, cols, Fp, dir_planes,
+                  chunk, tiles_per_view, bbox_words=None, stage_cap=1):
+    rows, P = dir_planes[0].shape
+    dev = pack.device
+    tensors = (ids, counts, origins, pack, *dir_planes)
     checks = [
         (ids.dtype == torch.int32 and ids.dim() == 2 and ids.shape[0] == rows,
          f"ids must be int32 (rows={rows}, ccap), got {ids.dtype} {tuple(ids.shape)}"),
@@ -124,60 +315,60 @@ def _check_inputs(ids, counts, origins, pack, dir_planes, chunk,
          f"origins must be float32 ({rows // tiles_per_view}, 3), got "
          f"{origins.dtype} {tuple(origins.shape)}"),
         (pack.dtype == torch.float32 and cols >= 10 and (cols - 10) % 3 == 0,
-         f"pack must be float32 (10 + 3C, Fp), got {pack.dtype} {tuple(pack.shape)}"),
+         f"pack must be float32 with 10 + 3C columns, got {pack.dtype} "
+         f"{tuple(pack.shape)}"),
         (0 < chunk <= (1 << _LANE_BITS) and Fp % chunk == 0,
          f"chunk {chunk} must be in 1..128 and divide Fp={Fp}"),
         (Fp < (1 << 24), f"face ids ride as float32: Fp={Fp} must be < 2^24"),
         (all(d.dtype == torch.float32 and tuple(d.shape) == (rows, P)
              for d in dir_planes), "dir planes must be 3 float32 (rows, P)"),
-        (all(t.device == dev for t in (ids, counts, origins, *dir_planes)),
-         "all inputs must be on one device"),
-        (all(t.is_contiguous() for t in (ids, counts, origins, pack, *dir_planes)),
-         "all inputs must be contiguous"),
+    ]
+    if bbox_words is not None:
+        tile, n1d = math.isqrt(P), math.isqrt(tiles_per_view)
+        tensors += (bbox_words,)
+        checks += [
+            (bbox_words.dtype == torch.int32
+             and tuple(bbox_words.shape) == (origins.shape[0], Fp),
+             f"bbox_words must be int32 ({origins.shape[0]}, {Fp}), got "
+             f"{bbox_words.dtype} {tuple(bbox_words.shape)}"),
+            (tile * tile == P and n1d * n1d == tiles_per_view and n1d <= 256,
+             f"tiles must be square, at most 256 a side: P={P}, "
+             f"tiles_per_view={tiles_per_view}"),
+            (stage_cap >= 1, f"stage_cap must be >= 1, got {stage_cap}"),
+        ]
+    checks += [
+        (all(t.device == dev for t in tensors), "all inputs must be on one device"),
+        (all(t.is_contiguous() for t in tensors), "all inputs must be contiguous"),
     ]
     for ok, msg in checks:
         if not ok:
-            raise ValueError(f"raster_tiles_chunklist: {msg}")
+            raise ValueError(f"{name}: {msg}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {dev}")
 
 
-def raster_tiles_chunklist_reference(ids, counts, origins, pack, dir_planes,
-                                     chunk: int = 128,
-                                     tiles_per_view: int = 64):
-    """Plain PyTorch version of the kernel: a loop over list positions, each
-    step sweeping one chunk for every row whose list is that long. Same keys,
-    same strict masked improvement. -> (packed (rows, P) int32, acc (rows,
-    COLS, P) float32)."""
-    rows, P = dir_planes[0].shape
-    n_chunks = pack.shape[1] // chunk
-    dev = pack.device
-    trip, chunk_of = chunk_schedule(ids, counts, n_chunks)
-    view = torch.arange(rows, device=dev) // tiles_per_view
-    o = origins[view]  # (rows, 3)
-    lane = torch.arange(chunk, dtype=torch.int32, device=dev)
-    best = torch.full((rows, P), BIG_PACKED, dtype=torch.int32, device=dev)
-    win = torch.zeros((rows, P), dtype=torch.int64, device=dev)
-    for i in range(int(trip.max()) if rows else 0):
-        r = torch.nonzero(trip > i)[:, 0]
-        ci = chunk_of(i)[r]
-        faces = ci[:, None].long() * chunk + lane  # (r, chunk)
-        geo = pack[:9][:, faces][:, :, None, :]  # 9 x (r, 1, chunk)
-        pre = _mt_precompute(tuple(geo), o[r, 0, None, None],
-                             o[r, 1, None, None], o[r, 2, None, None])
-        d = [p[r][:, :, None] for p in dir_planes]  # 3 x (r, P, 1)
-        pj = _mt_packed_keys(pre, *d, lane).amin(-1)  # (r, P)
-        b = best[r]
-        improved = (pj & TIE_MASK) < (b & TIE_MASK)
-        best[r] = torch.where(improved, pj, b)
-        face = ci[:, None].long() * chunk + (pj & ((1 << _IDX_BITS) - 1)).long()
-        win[r] = torch.where(improved, face, win[r])
-    hit = best < BIG_PACKED
-    acc = torch.where(hit[:, None], pack[:, win].permute(1, 0, 2), 0.0)
-    return best, acc.contiguous()
+def _launch(lib: str, symbol: str, ptrs, ints, rows, P, cols, dev):
+    """Allocate the outputs and call a kernel's C entry point (pointers...,
+    packed, acc, ints..., stream), which returns a CUDA error code."""
+    from .._build import load_kernel_library
+
+    fn = getattr(load_kernel_library(lib), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 2)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    packed = torch.empty((rows, P), dtype=torch.int32, device=dev)
+    acc = torch.empty((rows, cols, P), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*ptrs, packed.data_ptr(), acc.data_ptr(), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {err}")
+    return packed, acc
 
 
 def raster_tiles_chunklist(ids, counts, origins, pack, dir_planes,
                            chunk: int = 128, tiles_per_view: int = 64):
-    """Chunk-list raster over all (view, tile) rows.
+    """Kernel A over all (view, tile) rows.
 
     ids (rows, ccap) int32, non-negative chunk (or block) ids as
     ``raster.admission_lists`` makes them · counts (rows,) int32 (see
@@ -189,45 +380,96 @@ def raster_tiles_chunklist(ids, counts, origins, pack, dir_planes,
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which is built on first use, and raise if it fails to build or launch.
     Each launch adds one to ``raster_tiles_chunklist.launches``."""
-    _check_inputs(ids, counts, origins, pack, dir_planes, chunk,
-                  tiles_per_view)
+    cols, Fp = pack.shape
+    _check_inputs("raster_tiles_chunklist", ids, counts, origins, pack, cols,
+                  Fp, dir_planes, chunk, tiles_per_view)
     if pack.device.type == "cpu":
         return raster_tiles_chunklist_reference(
             ids, counts, origins, pack, dir_planes, chunk, tiles_per_view)
-    if pack.device.type != "cuda":
-        raise ValueError(f"raster_tiles_chunklist: no kernel for {pack.device}")
-    launch = _kernel_launcher()
     rows, P = dir_planes[0].shape
-    cols, Fp = pack.shape
-    packed = torch.empty((rows, P), dtype=torch.int32, device=pack.device)
-    acc = torch.empty((rows, cols, P), dtype=torch.float32, device=pack.device)
-    with torch.cuda.device(pack.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
-            pack.data_ptr(), *(d.data_ptr() for d in dir_planes),
-            packed.data_ptr(), acc.data_ptr(),
-            rows, P, cols, Fp, chunk, ids.shape[1], tiles_per_view,
-            Fp // chunk, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"raster_chunklist kernel launch failed: CUDA error {err}")
+    out = _launch(
+        "raster_chunklist", "raster_chunklist_launch",
+        [ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
+         pack.data_ptr(), *(d.data_ptr() for d in dir_planes)],
+        [rows, P, cols, Fp, chunk, ids.shape[1], tiles_per_view, Fp // chunk],
+        rows, P, cols, pack.device)
     raster_tiles_chunklist.launches += 1
-    return packed, acc
+    return out
 
 
 raster_tiles_chunklist.launches = 0
 
 
-def _kernel_launcher():
-    """The C entry point of csrc/raster_chunklist.cu (built on first use):
-    9 pointers, 8 ints, the stream; returns cudaGetLastError()."""
-    from .._build import load_kernel_library
+def _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
+                 stage_cap):
+    rows, P = dir_planes[0].shape
+    return [rows, P, cols, Fp, chunk, ids.shape[1], tiles_per_view,
+            Fp // chunk, math.isqrt(P), math.isqrt(tiles_per_view), stage_cap]
 
-    fn = load_kernel_library("raster_chunklist").raster_chunklist_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+
+def raster_tiles_compact(ids, counts, origins, pack, bbox_words, dir_planes,
+                         chunk: int = 128, tiles_per_view: int = 64,
+                         stage_cap: int = STAGE_CAP):
+    """Kernel B: kernel A's inputs plus bbox_words (K, Fp) int32
+    (``raster.bbox_words``); tiles square (P = tile², tiles_per_view =
+    n1d²). Same outputs and dispatch as ``raster_tiles_chunklist``; each
+    launch adds one to ``raster_tiles_compact.launches``."""
+    cols, Fp = pack.shape
+    _check_inputs("raster_tiles_compact", ids, counts, origins, pack, cols,
+                  Fp, dir_planes, chunk, tiles_per_view, bbox_words, stage_cap)
+    if pack.device.type == "cpu":
+        return raster_tiles_compact_reference(
+            ids, counts, origins, pack, bbox_words, dir_planes, chunk,
+            tiles_per_view, stage_cap)
+    rows, P = dir_planes[0].shape
+    out = _launch(
+        "raster_compact", "raster_compact_launch",
+        [ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
+         pack.data_ptr(), bbox_words.data_ptr(),
+         *(d.data_ptr() for d in dir_planes)],
+        _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
+                     stage_cap),
+        rows, P, cols, pack.device)
+    raster_tiles_compact.launches += 1
+    return out
+
+
+raster_tiles_compact.launches = 0
+
+
+def raster_tiles_streamed(ids, counts, origins, pack, dir_planes,
+                          chunk: int = 128, tiles_per_view: int = 64,
+                          bbox_words=None,
+                          stage_cap: int = STREAMED_STAGE_CAP):
+    """Kernel C: kernel A's inputs with the pack chunk-major (NC, COLS,
+    chunk); with bbox_words (K, Fp) int32 the compacting body, without them
+    the plain body. Same outputs and dispatch as ``raster_tiles_chunklist``;
+    each launch adds one to ``raster_tiles_streamed.launches``."""
+    if pack.dim() != 3 or pack.shape[2] != chunk:
+        raise ValueError(f"raster_tiles_streamed: pack must be chunk-major "
+                         f"(NC, COLS, {chunk}), got {tuple(pack.shape)}")
+    nc, cols, _ = pack.shape
+    Fp = nc * chunk
+    _check_inputs("raster_tiles_streamed", ids, counts, origins, pack, cols,
+                  Fp, dir_planes, chunk, tiles_per_view, bbox_words, stage_cap)
+    if pack.device.type == "cpu":
+        return raster_tiles_streamed_reference(
+            ids, counts, origins, pack, dir_planes, chunk, tiles_per_view,
+            bbox_words, stage_cap)
+    rows, P = dir_planes[0].shape
+    out = _launch(
+        "raster_compact", "raster_streamed_launch",
+        [ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
+         pack.data_ptr(), None if bbox_words is None else bbox_words.data_ptr(),
+         *(d.data_ptr() for d in dir_planes)],
+        _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
+                     stage_cap),
+        rows, P, cols, pack.device)
+    raster_tiles_streamed.launches += 1
+    return out
+
+
+raster_tiles_streamed.launches = 0
 
 
 def decode_winners(packed, acc, origins, dir_planes, tiles_per_view: int):

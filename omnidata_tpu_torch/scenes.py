@@ -1,11 +1,14 @@
-"""The annotator benchmark's scene and cameras, numpy-only host prep.
+"""The annotator benchmark's scenes and cameras, numpy-only host prep.
 
 ``build_scene`` assembles a procedural interior (a 10 m x 10 m x 3.2 m room,
 4 uv-spheres, 5 boxes) with random vertex colours, splits every edge longer
 than 0.8 m and bakes curvature colours: 39,760 faces, padded to 39,936
-(312 chunks of 128), 19,900 vertices. ``sample_cameras_np`` draws fixated
-cameras inside the room. Same seeds, same arrays as ``bench.py``'s
-``build_scene`` and ``sample_cameras_np``. Nothing is cached on disk.
+(312 chunks of 128), 19,900 vertices. ``build_large_scene`` is the
+Replica-scan-scale interior (8 denser spheres, 12 boxes, edges split at
+0.08 m): 584,704 faces, padded to 584,960 (4,570 chunks of 128).
+``sample_cameras_np`` draws fixated cameras inside the room. Same seeds,
+same arrays as ``bench.py``'s ``build_scene``, ``build_large_scene`` and
+``sample_cameras_np``. Nothing is cached on disk.
 """
 from __future__ import annotations
 
@@ -54,22 +57,34 @@ def _assemble(parts, rng, edge: float):
     return v, f, colors
 
 
-def build_scene(seed: int = 0, n_spheres: int = 4, n_boxes: int = 5,
-                device: torch.device | str = "cpu"
-                ) -> tuple[TriangleMesh, TriangleMesh]:
-    """-> (mesh with vertex colours, same mesh with curvature colours)."""
+def _build_interior(seed: int, n_spheres: int, n_boxes: int, n_lat: int,
+                    edge: float, device) -> tuple[TriangleMesh, TriangleMesh]:
     rng = np.random.RandomState(seed)
     parts = [room(size=10.0, height=3.2)]
     for _ in range(n_spheres):
         c = (rng.uniform(-3.5, 3.5), rng.uniform(-3.5, 3.5), rng.uniform(0.4, 1.2))
         parts.append(uv_sphere(radius=rng.uniform(0.25, 0.6), center=c,
-                               n_lat=48, n_lon=96))
+                               n_lat=n_lat, n_lon=2 * n_lat))
     for _ in range(n_boxes):
         c = (rng.uniform(-4.0, 4.0), rng.uniform(-4.0, 4.0), rng.uniform(0.3, 1.0))
         parts.append(cube(size=rng.uniform(0.4, 1.2), center=c))
-    v, f, colors = _assemble(parts, rng, edge=0.8)
+    v, f, colors = _assemble(parts, rng, edge=edge)
     mesh = from_arrays(v, f, vertex_colors=colors, device=device)
     return mesh, bake_curvature_colors(mesh, rings=1)
+
+
+def build_scene(seed: int = 0, n_spheres: int = 4, n_boxes: int = 5,
+                device: torch.device | str = "cpu"
+                ) -> tuple[TriangleMesh, TriangleMesh]:
+    """-> (mesh with vertex colours, same mesh with curvature colours)."""
+    return _build_interior(seed, n_spheres, n_boxes, 48, 0.8, device)
+
+
+def build_large_scene(seed: int = 0, device: torch.device | str = "cpu"
+                      ) -> tuple[TriangleMesh, TriangleMesh]:
+    """The 584,704-face scene of ``bench.py``'s large-scene measurement ->
+    (mesh with vertex colours, same mesh with curvature colours)."""
+    return _build_interior(seed, 8, 12, 96, 0.08, device)
 
 
 def sample_cameras_np(n: int, seed: int = 1):

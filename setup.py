@@ -10,7 +10,7 @@ setup(
     packages=find_packages(include=["omnidata_tpu", "omnidata_tpu.*",
                                     "omnidata_tpu_torch", "omnidata_tpu_torch.*"]),
     package_data={"omnidata_tpu.native": ["*.cpp"],
-                  "omnidata_tpu_torch": ["csrc/*.cu"]},
+                  "omnidata_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pillow", "scipy", "pyyaml"],

@@ -47,3 +47,80 @@ def int_label_ok(got, want):
     dmax = int(diff.max()) if diff.size else 0
     ok = (dmax <= 1 and frac < 0.02) or (dmax <= 32 and frac < 1e-3)
     return ok, dmax, frac
+
+
+def room_sphere_views(res):
+    """Room + dense sphere (3,980 faces, 64 chunks of 64) and two views:
+    walls give short exact lists, the sphere long ones.
+    -> (JAX mesh, port mesh, JAX cameras, port cameras)."""
+    from omnidata_tpu.mesh import from_arrays, room, uv_sphere
+
+    r = room(size=6.0, height=3.0)
+    s = uv_sphere(radius=0.7, center=(0.6, 0.1, 1.2), n_lat=32, n_lon=64)
+    vs = np.concatenate([np.asarray(r.vertices), np.asarray(s.vertices)])
+    fs = np.concatenate([np.asarray(r.faces[: r.num_faces]),
+                         np.asarray(s.faces[: s.num_faces]) + r.vertices.shape[0]])
+    jmesh = from_arrays(vs, fs)
+    locs = np.array([[1.1, 0.5, 1.4], [-0.8, 0.9, 1.6]], np.float32)
+    tgts = np.array([[0.3, 0.0, 1.0], [0.5, -0.3, 0.8]], np.float32)
+    jcam, tcam = both_cameras(locs, look_at_np(locs, tgts),
+                              np.array([1.2, 1.0], np.float32), res)
+    return jmesh, port_mesh(jmesh), jcam, tcam
+
+
+def mixed_inputs(mesh, cams, tile, chunk):
+    """Raster kernel inputs whose admission lists hold exact, scan-all and
+    block-mode rows (ccap 4), with the vertex normals as attributes:
+    ((ids, counts, origins, pack, bbox_words, dir_planes), tiles_per_view)."""
+    import torch
+
+    from omnidata_tpu_torch.mesh import raster as traster
+
+    flat, blk = (traster.prepare_raster(cams, mesh, tile, chunk,
+                                        mesh.vertex_normals, ccap=4,
+                                        hier_min_chunks=h, compact=True)
+                 for h in (10**9, 1))
+    use_blk = blk.counts <= -2
+    ids = torch.where(use_blk[:, None], blk.ids, flat.ids).contiguous()
+    counts = torch.where(use_blk, blk.counts, flat.counts).contiguous()
+    return ((ids, counts, flat.origins, flat.pack, flat.bbox_words,
+             flat.dir_planes), flat.tiles_per_view)
+
+
+def chunk_major(pack, chunk):
+    """(COLS, Fp) scene pack -> (Fp / chunk, COLS, chunk), kernel C's layout."""
+    return pack.reshape(pack.shape[0], -1, chunk).permute(1, 0, 2).contiguous()
+
+
+def with_block_tail(args, tiles_per_view, chunk):
+    """Cut the scene to its first n chunks, the most with n % 8 != 0 (so the
+    last 8-chunk block runs past the last chunk) and a last chunk that some
+    tile overlaps, and turn the row whose tile overlaps most of its faces
+    into a block-mode row listing that block alone. -> (args, row, n)."""
+    import math
+
+    import torch
+
+    from omnidata_tpu_torch.mesh.raster_kernels import band_mask_and_flags
+
+    ids, counts, origins, pack, words, dirs = args
+    rows, P = dirs[0].shape
+    tile, n1d = math.isqrt(P), math.isqrt(tiles_per_view)
+    r = torch.arange(rows, device=ids.device)
+    tiv = r % tiles_per_view
+    for n in range(pack.shape[1] // chunk, 0, -1):
+        if n % 8 == 0:
+            continue
+        last = words[r // tiles_per_view, (n - 1) * chunk:n * chunk]
+        m, _ = band_mask_and_flags(last, (tiv % n1d)[:, None],
+                                   (tiv // n1d)[:, None], tile, P, 1)
+        if bool(m.any()):
+            break
+    row = int(m.sum(1).argmax())
+    Fp = n * chunk
+    ids, counts = ids.clone(), counts.clone()
+    ids[row] = 0
+    ids[row, 0] = (n - 1) // 8
+    counts[row] = -3  # one block
+    return (ids, counts, origins, pack[:, :Fp].contiguous(),
+            words[:, :Fp].contiguous(), dirs), row, n

@@ -1,6 +1,8 @@
-"""Card-only tests of the CUDA raster kernel: bit-exact against its plain
-PyTorch version on the same CUDA tensors, for every list encoding and for
-two pixel-per-thread layouts, and a refused launch raises.
+"""Card-only tests of the CUDA raster kernels: each bit-exact against its
+plain PyTorch version on the same CUDA tensors, for every list encoding and
+for the pixel-per-thread layouts of tiles 8 to 64; the compacting bodies
+also at a stage cap small enough to force the raw-list fallback and with a
+block-mode row whose tail runs past the last chunk. A refused launch raises.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports no JAX, so on a machine with a card
@@ -15,6 +17,8 @@ from omnidata_tpu_torch.core.cameras import Camera, look_at_rotation
 from omnidata_tpu_torch.mesh import from_arrays, room, uv_sphere
 from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
+
+from _torch_port_util import chunk_major, mixed_inputs, with_block_tail
 
 pytestmark = pytest.mark.cuda
 
@@ -40,51 +44,122 @@ def cuda_scene():
     return mesh, cams
 
 
-def _mixed_inputs(mesh, cams, tile):
-    """Admission lists holding exact, scan-all and block-mode rows."""
-    flat = traster.prepare_raster(cams, mesh, tile, CHUNK, mesh.vertex_normals,
-                                  ccap=4, hier_min_chunks=10**9)
-    blk = traster.prepare_raster(cams, mesh, tile, CHUNK, mesh.vertex_normals,
-                                 ccap=4, hier_min_chunks=1)
-    use_blk = blk.counts <= -2
-    ids = torch.where(use_blk[:, None], blk.ids, flat.ids).contiguous()
-    counts = torch.where(use_blk, blk.counts, flat.counts).contiguous()
-    return (ids, counts, flat.origins, flat.pack, flat.dir_planes), flat.tiles_per_view
+def _assert_bitwise(got, want):
+    packed, acc = got
+    want_packed, want_acc = want
+    assert torch.equal(packed, want_packed)
+    assert torch.equal(acc.view(torch.int32), want_acc.view(torch.int32))
 
 
 @pytest.mark.parametrize("tile", [8, 16, 32, 64])  # 1, 1, 4, 16 px/thread
 def test_kernel_matches_plain_version_bitwise(cuda_scene, tile):
     mesh, cams = cuda_scene
-    args, T = _mixed_inputs(mesh, cams, tile)
+    (ids, counts, origins, pack, _, dirs), T = mixed_inputs(mesh, cams, tile, CHUNK)
+    args = (ids, counts, origins, pack, dirs)
     if tile == 16:
         c = args[1].cpu()
         assert (c >= 0).any() and (c == -1).any() and (c <= -2).any(), c
     before = tk.raster_tiles_chunklist.launches
-    packed, acc = tk.raster_tiles_chunklist(*args, chunk=CHUNK, tiles_per_view=T)
+    got = tk.raster_tiles_chunklist(*args, chunk=CHUNK, tiles_per_view=T)
     torch.cuda.synchronize()
     assert tk.raster_tiles_chunklist.launches == before + 1
-    want_packed, want_acc = tk.raster_tiles_chunklist_reference(
-        *args, chunk=CHUNK, tiles_per_view=T)
-    assert torch.equal(packed, want_packed)
-    assert torch.equal(acc.view(torch.int32), want_acc.view(torch.int32))
-    assert (packed < tk.BIG_PACKED).float().mean() > 0.9
+    _assert_bitwise(got, tk.raster_tiles_chunklist_reference(
+        *args, chunk=CHUNK, tiles_per_view=T))
+    assert (got[0] < tk.BIG_PACKED).float().mean() > 0.9
+
+
+def _staged(body: str, plain: bool, args, T):
+    """Kernel B or C (plain body, compacting body, or compacting at stage
+    cap 64) on mixed-list inputs, or its plain version."""
+    ids, counts, origins, pack, words, dirs = args
+    kw = dict(chunk=CHUNK, tiles_per_view=T)
+    if body.startswith("compact"):
+        fn = tk.raster_tiles_compact_reference if plain else tk.raster_tiles_compact
+        cap = 64 if body.endswith("64") else tk.STAGE_CAP
+        return fn(ids, counts, origins, pack, words, dirs, stage_cap=cap, **kw)
+    fn = tk.raster_tiles_streamed_reference if plain else tk.raster_tiles_streamed
+    cap = 64 if body.endswith("64") else tk.STREAMED_STAGE_CAP
+    return fn(ids, counts, origins, chunk_major(pack, CHUNK), dirs,
+              bbox_words=None if body == "streamed" else words, stage_cap=cap,
+              **kw)
+
+
+STAGED_BODIES = ["compact", "compact_cap64", "streamed", "streamed_compact",
+                 "streamed_compact_cap64"]
+
+
+@pytest.mark.parametrize("body", STAGED_BODIES)
+@pytest.mark.parametrize("tile", [8, 16, 32, 64])
+def test_staged_kernels_match_plain_versions_bitwise(cuda_scene, tile, body):
+    """Kernels B and C with a block-mode row whose last block runs past the
+    last chunk (its clamped duplicates are staged once)."""
+    mesh, cams = cuda_scene
+    args, T = mixed_inputs(mesh, cams, tile, CHUNK)
+    args, _, n_chunks = with_block_tail(args, T, CHUNK)
+    wrapper = tk.raster_tiles_compact if body.startswith("compact") \
+        else tk.raster_tiles_streamed
+    before = wrapper.launches
+    got = _staged(body, False, args, T)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _assert_bitwise(got, _staged(body, True, args, T))
+    assert (got[0] < tk.BIG_PACKED).float().mean() > 0.4  # cut scene
+    if body.endswith("64") and tile >= 16:  # some rows take the fallback
+        staged, _ = tk.stage_faces(args[0], args[1], args[4], n_chunks, CHUNK, T,
+                                   tile, 64)
+        assert bool((staged > 64).any()) and bool((staged <= 64).any())
 
 
 def test_refused_launch_raises(cuda_scene):
     """3 pixels per thread is no kernel instantiation: the C side refuses
     the launch and the wrapper raises."""
     mesh, cams = cuda_scene
-    args, T = _mixed_inputs(mesh, cams, 32)
-    dirs = tuple(d[:, :768].contiguous() for d in args[4])
+    (ids, counts, origins, pack, _, dirs), T = mixed_inputs(mesh, cams, 32, CHUNK)
+    dirs = tuple(d[:, :768].contiguous() for d in dirs)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        tk.raster_tiles_chunklist(*args[:4], dirs, chunk=CHUNK, tiles_per_view=T)
+        tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs,
+                                  chunk=CHUNK, tiles_per_view=T)
 
 
-def test_render_views_fused_kernel_equals_plain_raster(cuda_scene, monkeypatch):
+@pytest.mark.parametrize("body", STAGED_BODIES)
+def test_staged_refused_launch_raises(cuda_scene, body):
+    """Tile 4 gives 16 threads, not whole warps: the C side refuses every
+    body (pass 1 ballots with whole warps) and the wrapper raises."""
     mesh, cams = cuda_scene
-    got = traster.render_views_fused(cams, mesh, 32, CHUNK, mesh.vertex_colors)
-    monkeypatch.setattr(traster, "raster_tiles_chunklist",
-                        tk.raster_tiles_chunklist_reference)
-    want = traster.render_views_fused(cams, mesh, 32, CHUNK, mesh.vertex_colors)
+    args, T = mixed_inputs(mesh, cams, 4, CHUNK)
+    wrapper = tk.raster_tiles_compact if body.startswith("compact") \
+        else tk.raster_tiles_streamed
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _staged(body, False, args, T)
+    assert wrapper.launches == before
+
+
+def test_stage_cap_past_shared_memory_raises(cuda_scene):
+    mesh, cams = cuda_scene
+    (ids, counts, origins, pack, words, dirs), T = mixed_inputs(mesh, cams, 32, CHUNK)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs,
+                                chunk=CHUNK, tiles_per_view=T, stage_cap=1 << 17)
+    # the refusal leaves no error behind for the next launch
+    tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs,
+                            chunk=CHUNK, tiles_per_view=T)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kw", [{}, dict(compact=True), dict(streamed=True),
+                                dict(streamed=True, compact=False)],
+                         ids=["chunklist", "compact", "streamed_compact",
+                              "streamed"])
+def test_render_views_fused_kernel_equals_plain_raster(cuda_scene, monkeypatch,
+                                                       kw):
+    mesh, cams = cuda_scene
+    got = traster.render_views_fused(cams, mesh, 32, CHUNK, mesh.vertex_colors,
+                                     **kw)
+    for name in ("chunklist", "compact", "streamed"):
+        monkeypatch.setattr(traster, f"raster_tiles_{name}",
+                            getattr(tk, f"raster_tiles_{name}_reference"))
+    want = traster.render_views_fused(cams, mesh, 32, CHUNK, mesh.vertex_colors,
+                                      **kw)
     for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
         assert torch.equal(g, w)

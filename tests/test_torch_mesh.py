@@ -108,3 +108,29 @@ def test_bench_scene_equal_jax():
     locs, Rs, fovs = scenes.sample_cameras_np(6)
     for g, w in zip((locs, Rs, fovs), bench.sample_cameras_np(6)):
         np.testing.assert_array_equal(g, w)
+
+
+def test_large_scene_equal_jax():
+    """scenes.build_large_scene is bench.py's large scene (584,704 faces,
+    4,570 chunks of 128): the same arrays, face order and curvature
+    colours as bench.py's assembly with the JAX package."""
+    from omnidata_tpu.mesh import cube, room, uv_sphere
+
+    rng = np.random.RandomState(0)
+    parts = [room(size=10.0, height=3.2)]
+    for _ in range(8):
+        c = (rng.uniform(-3.5, 3.5), rng.uniform(-3.5, 3.5), rng.uniform(0.4, 1.2))
+        parts.append(uv_sphere(radius=rng.uniform(0.25, 0.6), center=c,
+                               n_lat=96, n_lon=192))
+    for _ in range(12):
+        c = (rng.uniform(-4.0, 4.0), rng.uniform(-4.0, 4.0), rng.uniform(0.3, 1.0))
+        parts.append(cube(size=rng.uniform(0.4, 1.2), center=c))
+    v, f, colors = bench._assemble(parts, rng, edge=0.08)
+    jmesh = jm.from_arrays(v, f, vertex_colors=colors)
+    jcurv = j_bake(jmesh, rings=1)
+
+    mesh, curv = scenes.build_large_scene()
+    assert mesh.num_faces == 584704 and mesh.faces.shape[0] == 584960
+    _assert_same_mesh(mesh, jmesh)
+    np.testing.assert_array_equal(curv.vertex_colors.numpy(),
+                                  np.asarray(jcurv.vertex_colors))

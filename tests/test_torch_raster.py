@@ -15,13 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from omnidata_tpu.mesh import from_arrays, room, uv_sphere
 from omnidata_tpu.mesh import raster as jraster
 from omnidata_tpu.mesh.pallas_raster import raster_tiles_pallas_chunklist
 from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
 
-from _torch_port_util import both_cameras, look_at_np, port_mesh
+from _torch_port_util import mixed_inputs, room_sphere_views
 
 torch.set_num_threads(1)
 
@@ -31,19 +30,7 @@ CHUNK = 64
 
 @pytest.fixture(scope="module")
 def scene():
-    """Room + dense sphere (about 4k faces, 64 chunks of 64) and two views:
-    walls give short exact lists, the sphere long ones."""
-    r = room(size=6.0, height=3.0)
-    s = uv_sphere(radius=0.7, center=(0.6, 0.1, 1.2), n_lat=32, n_lon=64)
-    vs = np.concatenate([np.asarray(r.vertices), np.asarray(s.vertices)])
-    fs = np.concatenate([np.asarray(r.faces[: r.num_faces]),
-                         np.asarray(s.faces[: s.num_faces]) + r.vertices.shape[0]])
-    jmesh = from_arrays(vs, fs)
-    locs = np.array([[1.1, 0.5, 1.4], [-0.8, 0.9, 1.6]], np.float32)
-    tgts = np.array([[0.3, 0.0, 1.0], [0.5, -0.3, 0.8]], np.float32)
-    jcam, tcam = both_cameras(locs, look_at_np(locs, tgts),
-                              np.array([1.2, 1.0], np.float32), RES)
-    return jmesh, port_mesh(jmesh), jcam, tcam
+    return room_sphere_views(RES)
 
 
 def _face_agreement(tv, tf, jv, jf):
@@ -94,14 +81,9 @@ def test_admission_lists_match_jax(hier, ccap, expand_bcap):
 def _kernel_inputs(tmesh, tcam, tile):
     """Mixed admission lists (exact, scan-all and block-mode rows, ccap 4)
     plus rays and the scene pack with the vertex normals as attributes."""
-    flat = traster.prepare_raster(tcam, tmesh, tile, CHUNK, tmesh.vertex_normals,
-                                  ccap=4, hier_min_chunks=10**9)
-    blk = traster.prepare_raster(tcam, tmesh, tile, CHUNK, tmesh.vertex_normals,
-                                 ccap=4, hier_min_chunks=1)
-    use_blk = blk.counts <= -2
-    ids = torch.where(use_blk[:, None], blk.ids, flat.ids).contiguous()
-    counts = torch.where(use_blk, blk.counts, flat.counts).contiguous()
-    return ids, counts, flat.origins, flat.pack, flat.dir_planes, flat.tiles_per_view
+    (ids, counts, origins, pack, _, dirs), T = mixed_inputs(tmesh, tcam, tile,
+                                                           CHUNK)
+    return ids, counts, origins, pack, dirs, T
 
 
 def test_kernel_reference_matches_pallas_interpret(scene):
@@ -139,12 +121,15 @@ def test_chunk_schedule_decodes_every_encoding():
     ids = torch.tensor([[3, 5, 9, 0], [1, 2, 0, 0], [0, 0, 0, 0]],
                        dtype=torch.int32)
     counts = torch.tensor([3, -4, -1], dtype=torch.int32)  # exact, 2 blocks, all
-    trip, chunk_of = tk.chunk_schedule(ids, counts, n_chunks=20)
+    trip, chunk_of, fresh_of = tk.chunk_schedule(ids, counts, n_chunks=20)
     assert trip.tolist() == [3, 16, 20]
     seq = torch.stack([chunk_of(i) for i in range(20)], 1)
     assert seq[0, :3].tolist() == [3, 5, 9]
     assert seq[1, :16].tolist() == list(range(8, 24))[:12] + [19] * 4  # clamped
     assert seq[2].tolist() == list(range(20))
+    fresh = torch.stack([fresh_of(i) for i in range(20)], 1)
+    assert fresh[1, :16].tolist() == [True] * 12 + [False] * 4  # tail dups
+    assert fresh[0, :3].all() and fresh[2].all()
 
 
 @pytest.mark.parametrize("hier_min_chunks, ccap", [(None, None), (1, 4)])
