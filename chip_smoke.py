@@ -8,7 +8,10 @@ modality at 512², tile 32, chunk 128, K = 32 views per call:
 - the large scene (584,704 faces, ``bench.py``'s Replica-scale scan) with
   ``ccap=192, streamed=True``, on kernel C's compacting body, cameras
   ``sample_cameras_np(seed=3)`` as ``bench.py`` draws them.
-Phases, each of which fails the run on error:
+And the annotator CLI (``omnidata_tpu_torch.annotator.cli``), the entry
+point users run, on the same two scenes written as ``mesh.ply``: on the
+bench scene it picks kernel A, on the large scene kernel C (scene pack over
+8 MB). Phases, each of which fails the run on error:
 
 1. set-up: the card's name and power limit; float32 matmuls and
    convolutions without TF32; build the CUDA kernels from csrc/ with nvcc,
@@ -43,6 +46,29 @@ Phases, each of which fails the run on error:
    bench scene at K = 32; B at K = 2 and C at K = 1 against their plain
    versions, in turns.
 
+10. the port's brute-force raycaster against kernel A's render on 2 bench
+    views at 512²: valid equal, faces equal on >= 99.9% of pixels; its
+    ray-triangle tests per second.
+11. CLI on the bench scene: ``main(["--model_path", d, "--task", "all",
+    "with", "NUM_POINTS=4", "STOP_VIEW_NUMBER=3"])``; every task's outputs
+    there and decoding, kernel A launched (count reset just before, read
+    just after), the device PNGs equal to ``annotate_views`` on the plain
+    rasters for the same views and batches. The plain rasters run 2 views
+    at a time, which gives the whole batch's rows.
+12. CLI on the large scene: ``--task points`` at the default settings
+    (timed), then the 12 device tasks in one ``run_device_tasks`` call:
+    kernel C launched and kernel A not; viewpoints/s with the PNG writes,
+    and of the same batches rendered and fetched without them. Then the
+    CLI batch with the most scan-all and block-mode rows at the CLI's own
+    ``ccap``: kernel C bit for bit against its plain version on its 2
+    hardest views, and the batch's written outputs equal to
+    ``annotate_views`` on the plain rasters with the CLI's arguments.
+13. CLI ``--task pano`` at 2048x1024 on the bench scene for 2 camera
+    locations, each panorama's render timed; outputs decode.
+The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
+output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
+log's last lines to stderr.
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
@@ -53,10 +79,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 K_MAIN = 32
 K_CHECK = 2
@@ -82,6 +110,17 @@ EXPECTED = {  # modality -> (trailing shape, dtype name)
     "fragments": ((), "int32"),
 }
 KERNEL_SOURCES = ("raster_chunklist", "raster_compact")
+HOST_LIBRARIES = ("narf", "felzenszwalb")  # the host cues' native cores
+ROOT = Path(__file__).resolve().parent
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+CLI_LOG = CLI_DIR / "cli.log"
+CLI_BENCH_ARGS = ["with", "NUM_POINTS=4", "STOP_VIEW_NUMBER=3"]
+PANO_CAMERAS = 2
+# image outputs of `--task all` per view (semantic needs face labels)
+CLI_IMAGE_TASKS = ("rgb", "normal", "depth_zbuffer", "depth_euclidean",
+                   "mask_valid", "reshading", "principal_curvature",
+                   "edge_texture", "edge_occlusion", "keypoints2d",
+                   "keypoints3d", "segment_unsup2d", "segment_unsup25d")
 
 
 def log(msg: str) -> None:
@@ -185,23 +224,186 @@ def admission_log(what: str, inp) -> None:
         f"{int(trip.max())}, sum {int(trip.sum())}")
 
 
+def by_views(plain):
+    """A plain raster run over K_CHECK views at a time, rows concatenated:
+    rows are independent, so the result is the whole batch's, and the
+    plain versions' (rows, P, chunk) temporaries stay those of K_CHECK
+    views."""
+    import torch
+
+    def run(ids, counts, origins, pack, *rest, tiles_per_view, **kw):
+        def part(x, v, r):  # dir planes by row, bbox words by view
+            return tuple(d[r] for d in x) if isinstance(x, (tuple, list)) else x[v]
+
+        outs = []
+        for v0 in range(0, origins.shape[0], K_CHECK):
+            v = slice(v0, v0 + K_CHECK)
+            r = slice(v0 * tiles_per_view, (v0 + K_CHECK) * tiles_per_view)
+            outs.append(plain(
+                ids[r], counts[r], origins[v], pack,
+                *(part(x, v, r) for x in rest), tiles_per_view=tiles_per_view,
+                **{k: x if x is None or k != "bbox_words" else x[v]
+                   for k, x in kw.items()}))
+        return tuple(torch.cat(o) for o in zip(*outs))
+
+    return run
+
+
 @contextlib.contextmanager
 def plain_raster():
     """Route render_views_fused through the plain PyTorch rasters (A, B and
-    C), for the comparisons of phases 4 and 7 only (the wrappers themselves
-    never do that on a CUDA tensor)."""
+    C), K_CHECK views at a time, for the comparisons of phases 4, 7, 11 and
+    12 only (the wrappers themselves never do that on a CUDA tensor)."""
     from omnidata_tpu_torch.mesh import raster, raster_kernels
 
     names = ("raster_tiles_chunklist", "raster_tiles_compact",
              "raster_tiles_streamed")
     saved = {n: getattr(raster, n) for n in names}
     for n in names:
-        setattr(raster, n, getattr(raster_kernels, f"{n}_reference"))
+        setattr(raster, n, by_views(getattr(raster_kernels, f"{n}_reference")))
     try:
         yield
     finally:
         for n, fn in saved.items():
             setattr(raster, n, fn)
+
+
+def run_cli(fn, *args, **kwargs):
+    """Call a CLI function with its own output appended to CLI_LOG; on a
+    failure the log's last lines go to stderr."""
+    CLI_LOG.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        with open(CLI_LOG, "a") as fh, contextlib.redirect_stdout(fh):
+            print(f"=== {fn.__name__} {args}", flush=True)
+            return fn(*args, **kwargs)
+    except Exception:
+        print("\n".join(CLI_LOG.read_text().splitlines()[-40:]), file=sys.stderr)
+        raise
+
+
+def write_mesh_dir(d: Path, mesh) -> str:
+    """A fresh model directory holding the mesh as mesh.ply (colours stored
+    as uchar, as a scan's would be)."""
+    from omnidata_tpu_torch.utils.convert_mesh import write_ply
+
+    d.mkdir(parents=True)
+    nf = mesh.num_faces
+    write_ply(str(d / "mesh.ply"), mesh.vertices.cpu().numpy(),
+              mesh.faces[:nf].cpu().numpy(), mesh.vertex_colors.cpu().numpy())
+    return str(d)
+
+
+def output_path(d: str, view: dict, task: str) -> str:
+    ext = "npy" if task == "fragments" else "png"
+    return (f"{d}/{task}/point_{view['point_uuid']}_view_{view['view_id']}"
+            f"_domain_{task}.{ext}")
+
+
+def load_output(path: str):
+    import numpy as np
+
+    from omnidata_tpu_torch.cues.encode import load_png
+
+    return np.load(path) if path.endswith(".npy") else load_png(path)
+
+
+def check_cli_outputs(d: str, views, tasks) -> int:
+    """Every task's file for every view exists and decodes to a RES² image
+    (fragments: a RES² int32 array) -> number of files."""
+    for view in views:
+        for t in tasks:
+            a = load_output(output_path(d, view, t))
+            if tuple(a.shape[:2]) != (RES, RES) or (
+                    t == "fragments" and str(a.dtype) != "int32"):
+                raise AssertionError(f"{t}: {a.shape} {a.dtype}")
+    return len(views) * len(tasks)
+
+
+def cli_batches(views, settings) -> list:
+    """views in the CLI's batches of VIEWS_PER_DISPATCH."""
+    K = settings.VIEWS_PER_DISPATCH
+    return [views[s:s + K] for s in range(0, len(views), K)]
+
+
+def render_batch(cli, views, mesh, curv, settings, mods, dev):
+    """annotate_views on one CLI batch with the CLI's own arguments."""
+    from omnidata_tpu_torch.annotator import annotate_views
+
+    return annotate_views(cli.view_batch(views, settings.RESOLUTION, dev), mesh,
+                          curv, **cli.annotate_kwargs(settings, mods))
+
+
+def unequal_outputs(d: str, views, out) -> list:
+    """(task, point, view) of every written output of views that differs
+    from out, a {modality: (K, ...)} batch of the same views."""
+    import numpy as np
+
+    return [(t, view["point_uuid"], view["view_id"])
+            for vi, view in enumerate(views) for t, a in out.items()
+            if not np.array_equal(load_output(output_path(d, view, t)),
+                                  a[vi].cpu().numpy())]
+
+
+def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
+                       dev) -> dict:
+    """The CLI's own kernel-C inputs (its default ccap) against the plain
+    versions, on the CLI batch with the most scan-all, then block-mode,
+    rows: kernel C's compacting body bit for bit on the batch's K_CHECK
+    views with the most such rows, and every written output of the batch
+    equal to annotate_views on the plain rasters with the CLI's arguments.
+    -> what was checked."""
+    import torch
+
+    from omnidata_tpu_torch.annotator.pipeline import _gather_attrs
+    from omnidata_tpu_torch.mesh import raster as raster_mod
+    from omnidata_tpu_torch.mesh import raster_kernels as rk
+
+    kw = cli.annotate_kwargs(settings, mods)
+    attrs, _ = _gather_attrs(mesh, curv, mods)
+
+    def admission(views):
+        return raster_mod.prepare_raster(
+            cli.view_batch(views, settings.RESOLUTION, dev), mesh, kw["tile"],
+            kw["chunk"], attrs, compact=True, streamed=True)
+
+    def hard_rows(counts):
+        return int((counts == -1).sum()), int((counts <= -2).sum())
+
+    rows_of = [hard_rows(admission(v).counts) for v in batches]
+    b = max(range(len(batches)), key=lambda i: rows_of[i])
+    views = batches[b]
+    inp = admission(views)
+    ccap = inp.ids.shape[1]
+    admission_log(f"CLI batch {b} ({len(views)} views, ccap {ccap})", inp)
+    if sum(rows_of[b]) == 0:
+        raise AssertionError("no CLI batch has scan-all or block-mode rows")
+    per_view = (inp.counts < 0).reshape(len(views), -1).sum(1)
+    vsel = per_view.argsort(descending=True, stable=True)[:K_CHECK].sort().values
+    rsel = (vsel[:, None] * inp.tiles_per_view
+            + torch.arange(inp.tiles_per_view, device=dev)).reshape(-1)
+    args = (inp.ids[rsel], inp.counts[rsel], inp.origins[vsel], inp.pack,
+            tuple(p[rsel] for p in inp.dir_planes))
+    ckw = dict(chunk=kw["chunk"], tiles_per_view=inp.tiles_per_view,
+               bbox_words=inp.bbox_words[vsel])
+    err = check_kernel(
+        f"kernel C compacting body vs plain (CLI views {vsel.tolist()} of "
+        f"batch {b}, ccap {ccap}; scan-all, block rows {hard_rows(args[1])})",
+        rk.raster_tiles_streamed(*args, **ckw),
+        rk.raster_tiles_streamed_reference(*args, **ckw))
+    del inp, args, ckw
+    t0 = time.perf_counter()
+    with plain_raster():
+        want = render_batch(cli, views, mesh, curv, settings, mods, dev)
+    unequal = unequal_outputs(d, views, want)
+    log(f"CLI outputs of batch {b} vs annotate_views on the plain rasters "
+        f"({len(views)} views x {len(want)} labels, "
+        f"{time.perf_counter() - t0:.1f} s): {len(unequal)} unequal")
+    if unequal:
+        raise AssertionError(f"CLI outputs differ from the plain pipeline: "
+                             f"{unequal[:8]}")
+    return {"checked_batch": b, "checked_views": len(views),
+            "checked_scan_all_rows": rows_of[b][0],
+            "checked_block_rows": rows_of[b][1], "max_abs_err_kernel_c": err}
 
 
 def main() -> int:
@@ -228,9 +430,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True  # same conv algorithm per shape
     t0 = time.perf_counter()
-    _build.build_kernel_libraries(KERNEL_SOURCES)
+    _build.build_libraries(KERNEL_SOURCES, HOST_LIBRARIES)
     s_build = time.perf_counter() - t0
-    log(f"built {', '.join(KERNEL_SOURCES)} in {s_build:.1f} s (in parallel)")
+    log(f"built {', '.join(KERNEL_SOURCES + HOST_LIBRARIES)} in {s_build:.1f} s "
+        "(in parallel)")
     for name in KERNEL_SOURCES:
         for line in _build.build_log_path(name).read_text().splitlines():
             if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
@@ -337,7 +540,8 @@ def main() -> int:
             f"{int((staged > cap).sum())} of {staged.numel()} rows fall back)",
             rk.raster_tiles_compact(*args2c, stage_cap=cap, **kw),
             rk.raster_tiles_compact_reference(*args2c, stage_cap=cap, **kw)))
-    want_a = raster_mod.render_views_fused(cams2, mesh, TILE, CHUNK, vattrs)
+    want_a = raster_mod.render_views_fused(cams2, mesh, TILE, CHUNK, vattrs,
+                                           streamed=False)
     rk.raster_tiles_compact.launches = 0
     got_b = raster_mod.render_views_fused(cams2, mesh, TILE, CHUNK, vattrs,
                                           compact=True)
@@ -370,7 +574,8 @@ def main() -> int:
             f"kernel C {body} body vs plain ({K_CHECK} large views)",
             rk.raster_tiles_streamed(*largs2, bbox_words=words, **lkw2),
             rk.raster_tiles_streamed_reference(*largs2, bbox_words=words, **lkw2))
-    want_a = raster_mod.render_views_fused(lcams2, lmesh, TILE, CHUNK, lattrs, **lkw)
+    want_a = raster_mod.render_views_fused(lcams2, lmesh, TILE, CHUNK, lattrs,
+                                           streamed=False, **lkw)
     rk.raster_tiles_streamed.launches = 0
     got_c = raster_mod.render_views_fused(lcams2, lmesh, TILE, CHUNK, lattrs,
                                           streamed=True, compact=False, **lkw)
@@ -485,6 +690,156 @@ def main() -> int:
         log(f"kernel C {body} body K=1 large (plain, kernel, kernel, plain): "
             f"{p0:.3f}, {k0:.3f}, {k1:.3f}, {p1:.3f} ms")
 
+    # 10. raycaster against kernel A, 2 bench views at 512² ---------------
+    from omnidata_tpu_torch.annotator import cli
+    from omnidata_tpu_torch.annotator.settings import load_settings
+    from omnidata_tpu_torch.core.cameras import camera_rays
+    from omnidata_tpu_torch.mesh import pano as pano_mod
+    from omnidata_tpu_torch.mesh.raycast import raycast
+    from omnidata_tpu_torch.sampling import load_point_info
+
+    frag2 = raster_mod.render_views_fused(cams2, mesh, TILE, CHUNK, streamed=False)
+    o2, d2 = camera_rays(cams2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = raycast(torch.repeat_interleave(o2, RES * RES, 0), d2.reshape(-1, 3), mesh)
+    torch.cuda.synchronize()
+    s_ray = time.perf_counter() - t0
+    ray_tests = d2.numel() // 3 * mesh.faces.shape[0]
+    face_eq = float((hits.face.reshape(frag2.face.shape) == frag2.face).float().mean())
+    valid_diff = int((hits.valid.reshape(frag2.valid.shape) != frag2.valid).sum())
+    log(f"raycast vs kernel A ({K_CHECK} bench views at {RES}²): faces equal on "
+        f"{face_eq:.6f} of pixels, valid differs on {valid_diff}; {s_ray:.3f} s "
+        f"= {ray_tests / s_ray:.4g} ray-triangle tests/s")
+    if face_eq < 0.999:
+        raise AssertionError("raycast and kernel A disagree on > 0.1% of pixels")
+    del frag2, hits
+
+    # 11. CLI --task all on the bench scene ---------------------------------
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    bdir = write_mesh_dir(CLI_DIR / "bench", mesh)
+    rk.raster_tiles_chunklist.launches = 0
+    rk.raster_tiles_streamed.launches = 0
+    t0 = time.perf_counter()
+    run_cli(cli.main, ["--model_path", bdir, "--task", "all", *CLI_BENCH_ARGS])
+    torch.cuda.synchronize()
+    s_cli_bench = time.perf_counter() - t0
+    cli_a_bench = rk.raster_tiles_chunklist.launches
+    cli_c_bench = rk.raster_tiles_streamed.launches
+    bsettings = load_settings(CLI_BENCH_ARGS[1:])
+    bviews = cli.device_views(bdir, bsettings)
+    n_files = check_cli_outputs(bdir, bviews, CLI_IMAGE_TASKS + ("fragments",))
+    all_views = [v for views in load_point_info(bdir) for v in views]
+    if not all("vanishing_points_image" in v for v in all_views):
+        raise AssertionError("vanishing points missing from point_info")
+    log(f"CLI --task all (bench scene, {len(all_views)} views in point_info, "
+        f"{len(bviews)} rendered): {s_cli_bench:.1f} s; {n_files} outputs "
+        f"decode; kernel A launches {cli_a_bench}, C {cli_c_bench}")
+    if cli_a_bench < 1 or cli_c_bench:
+        raise AssertionError("the bench CLI run must launch kernel A, not C")
+    mods = tuple(t for t in cli.TASKS_ALL if t in cli.DEVICE_TASKS)
+    cmesh, ccurv = cli.prepare_device_mesh(bdir, mods, bsettings, device=dev)
+    unequal = []
+    with plain_raster():
+        for views in cli_batches(bviews, bsettings):
+            want = render_batch(cli, views, cmesh, ccurv, bsettings, mods, dev)
+            unequal += unequal_outputs(bdir, views, want)
+    log(f"CLI device outputs vs annotate_views on the plain rasters "
+        f"({len(bviews)} views x {len(want)} labels): {len(unequal)} unequal")
+    if unequal:
+        raise AssertionError(f"CLI outputs differ from the plain pipeline: "
+                             f"{unequal[:8]}")
+    del cmesh, ccurv, want
+
+    # 12. CLI on the large scene: points, then the device tasks -----------
+    ldir = write_mesh_dir(CLI_DIR / "large", lmesh)
+    t0 = time.perf_counter()
+    run_cli(cli.main, ["--model_path", ldir, "--task", "points"])
+    s_points_large = time.perf_counter() - t0
+    lsettings = load_settings([])
+    lviews = cli.device_views(ldir, lsettings)
+    rk.raster_tiles_chunklist.launches = 0
+    rk.raster_tiles_streamed.launches = 0
+    t0 = time.perf_counter()
+    run_cli(cli.run_device_tasks, ldir, list(mods), lsettings, device=dev)
+    torch.cuda.synchronize()
+    s_pass = time.perf_counter() - t0
+    cli_a_large = rk.raster_tiles_chunklist.launches
+    cli_c_large = rk.raster_tiles_streamed.launches
+    n_lfiles = check_cli_outputs(ldir, lviews, CLI_IMAGE_TASKS[:10] + ("fragments",))
+    log(f"CLI --task points (large scene, default settings): {s_points_large:.2f} s, "
+        f"{len(lviews)} views; device pass: {s_pass:.2f} s, {n_lfiles} outputs "
+        f"decode; kernel C launches {cli_c_large}, A {cli_a_large}")
+    if cli_c_large < 1 or cli_a_large:
+        raise AssertionError("the large CLI run must launch kernel C, not A")
+    t0 = time.perf_counter()
+    lm, lc = cli.prepare_device_mesh(ldir, mods, lsettings, device=dev)
+    s_setup = time.perf_counter() - t0
+    lbatches_cli = cli_batches(lviews, lsettings)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for views in lbatches_cli:
+        out = render_batch(cli, views, lm, lc, lsettings, mods, dev)
+        {k: v.cpu().numpy() for k, v in out.items()}
+    s_render = time.perf_counter() - t0
+    del out
+    cli_large = {
+        "views": len(lviews), "s_points": s_points_large, "s_device_pass": s_pass,
+        "s_mesh_setup": s_setup, "s_render_fetch": s_render,
+        "vps_with_png": len(lviews) / s_pass,
+        "vps_with_png_after_setup": len(lviews) / (s_pass - s_setup),
+        "vps_without_png": len(lviews) / s_render}
+    log(f"CLI large device pass: {cli_large['vps_with_png']:.2f} vps with PNG "
+        f"writes and set-up ({s_setup:.2f} s of mesh load + curvature), "
+        f"{cli_large['vps_with_png_after_setup']:.2f} vps after set-up, "
+        f"{cli_large['vps_without_png']:.2f} vps rendered and fetched without "
+        f"PNG writes; card {card}")
+
+    cli_large.update(check_cli_streamed(cli, ldir, lbatches_cli, lm, lc,
+                                        lsettings, mods, dev))
+    del lm, lc
+
+    # 13. CLI --task pano at 2048x1024, bench scene -------------------------
+    pdir = write_mesh_dir(CLI_DIR / "pano", mesh)
+    plocs = scenes.sample_cameras_np(PANO_CAMERAS, seed=1)[0]
+    with open(f"{pdir}/camera_poses.json", "w") as fh:
+        json.dump([{"camera_id": f"{i:04d}", "location": [float(x) for x in p]}
+                   for i, p in enumerate(plocs)], fh)
+    pano_s = []
+    render_pano = pano_mod.render_pano
+
+    def timed_render_pano(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frag = render_pano(*args, **kwargs)
+        torch.cuda.synchronize()
+        pano_s.append(time.perf_counter() - t)
+        return frag
+
+    pano_mod.render_pano = timed_render_pano
+    try:
+        t0 = time.perf_counter()
+        run_cli(cli.main, ["--model_path", pdir, "--task", "pano"])
+        s_pano_task = time.perf_counter() - t0
+    finally:
+        pano_mod.render_pano = render_pano
+    W, H = lsettings.PANO_RESOLUTION
+    for i in range(PANO_CAMERAS):
+        pano = {t: load_output(f"{pdir}/{t}/point_{i:04d}_view_equirectangular_"
+                               f"domain_{t}.png")
+                for t in ("depth_euclidean", "depth_zbuffer", "normal",
+                          "reshading", "rgb")}
+        if any(tuple(a.shape[:2]) != (H, W) for a in pano.values()):
+            raise AssertionError(f"pano shapes {[a.shape for a in pano.values()]}")
+        holes = float((pano["depth_euclidean"] == 65535).mean())
+        if holes > 0.01 or not pano["rgb"].any():
+            raise AssertionError(f"panorama {i}: {holes:.4f} of pixels without "
+                                 "a hit inside a closed room")
+    pano_rate = W * H * mesh.faces.shape[0] / statistics.mean(pano_s)
+    log(f"CLI --task pano {W}x{H} (bench scene, {PANO_CAMERAS} cameras): "
+        f"{s_pano_task:.1f} s; render_pano {', '.join(f'{x:.2f}' for x in pano_s)} "
+        f"s = {pano_rate:.4g} ray-triangle tests/s; card {card}")
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     kernels = {"kernels": [
@@ -495,7 +850,8 @@ def main() -> int:
          "plain_ms": statistics.mean(ms_plain2),
          "shape": f"bench K={K_CHECK}, rows={inp2.ids.shape[0]}, P={TILE * TILE}, "
                   f"COLS={inp2.pack.shape[0]}, Fp={inp2.pack.shape[1]}",
-         "ms_bench_k32": ms_kernel32, "ms_large_k32": lms_a},
+         "ms_bench_k32": ms_kernel32, "ms_large_k32": lms_a,
+         "launches_cli_bench": cli_a_bench},
         {"name": "raster_compact (B)", "route": "cuda",
          "source": src + "raster_compact.cu", "replaces": replaces + "601",
          "launches": launches_b,
@@ -513,7 +869,7 @@ def main() -> int:
          "shape": f"large K=1, rows={linp2.tiles_per_view}, P={TILE * TILE}, "
                   f"pack={tuple(linp2.pack.shape)}, "
                   f"stage_cap={rk.STREAMED_STAGE_CAP}",
-         "ms_large_k32": lms_cc},
+         "ms_large_k32": lms_cc, "launches_cli_large": cli_c_large},
         {"name": "raster_streamed (C, plain body)", "route": "cuda",
          "source": src + "raster_compact.cu", "replaces": replaces + "879",
          "launches": launches_c_plain,
@@ -526,7 +882,10 @@ def main() -> int:
                   f"pack={tuple(linp2.pack.shape)}",
          "ms_large_k32": lms_cp},
     ], "large_vps": lvps, "bench_vps": vps, "peak_gib_large": lpeak_gib,
-        "s_kernel_build": s_build, "s_large_scene_build": s_large_scene}
+        "s_kernel_build": s_build, "s_large_scene_build": s_large_scene,
+        "raycast_tests_per_s": ray_tests / s_ray, "raycast_face_agreement": face_eq,
+        "cli_bench_all_s": s_cli_bench, "cli_large": cli_large,
+        "pano_s": pano_s, "pano_tests_per_s": pano_rate}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(card)

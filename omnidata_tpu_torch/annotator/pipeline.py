@@ -27,6 +27,7 @@ from ..cues.keypoints2d import keypoints2d
 from ..cues.reshading import reshade
 from ..mesh.mesh import TriangleMesh
 from ..mesh.raster import render_views_fused
+from ..mesh.shade import sample_texture
 
 DEVICE_MODALITIES = (
     "depth_zbuffer",
@@ -44,27 +45,6 @@ DEVICE_MODALITIES = (
 )
 
 _RGB_CUES = ("rgb", "edge_texture", "keypoints2d")
-
-
-def _sample_texture(uv: torch.Tensor, tex: torch.Tensor,
-                    valid: torch.Tensor) -> torch.Tensor:
-    """Bilinear texture sample (tex (th,tw,3)) of interpolated uvs (...,2)."""
-    th, tw = tex.shape[0], tex.shape[1]
-    x = torch.clamp(uv[..., 0], 0.0, 1.0) * (tw - 1)
-    y = (1.0 - torch.clamp(uv[..., 1], 0.0, 1.0)) * (th - 1)
-    x0 = torch.floor(x).long()
-    y0 = torch.floor(y).long()
-    x1 = torch.clamp(x0 + 1, max=tw - 1)
-    y1 = torch.clamp(y0 + 1, max=th - 1)
-    wx = (x - x0)[..., None]
-    wy = (y - y0)[..., None]
-    c = (
-        tex[y0, x0] * (1 - wx) * (1 - wy)
-        + tex[y0, x1] * wx * (1 - wy)
-        + tex[y1, x0] * (1 - wx) * wy
-        + tex[y1, x1] * wx * wy
-    )
-    return torch.where(valid[..., None], c, 0.0)
 
 
 def _gather_attrs(mesh: TriangleMesh, curvature_mesh: TriangleMesh | None,
@@ -109,15 +89,16 @@ def annotate_views(
     modalities: tuple = DEVICE_MODALITIES,
     keypoint_blur_sigma: float = 0.0,
     ccap: int | None = None,
-    streamed: bool = False,
+    streamed: bool | None = None,
 ) -> dict[str, torch.Tensor]:
     """Batched annotation: K cameras (leading batch dim on location/R/fov)
     -> {modality: (K, H, W, ...)}.
 
     curvature_mesh: the same geometry with curvature RG vertex colours baked
     (cues.curvature.bake_curvature_colors); it shares the fragments.
-    streamed: render with the streamed, compacting raster kernel (large
-    scans; ``mesh.raster.render_views_fused``)."""
+    streamed: render with the streamed, compacting raster kernel (True),
+    the chunk-list kernel (False), or by the size of the scene pack (None;
+    ``mesh.raster.render_views_fused``)."""
     needs_normals = "normal" in modalities or "reshading" in modalities
     needs_rgb = any(m in modalities for m in _RGB_CUES)
     has_colors = mesh.vertex_colors is not None
@@ -156,8 +137,10 @@ def annotate_views(
     has_face_colors = mesh.face_colors is not None
     if needs_rgb and (has_colors or has_texture or has_face_colors):
         if "uv" in attr_slices:
-            rgb = _sample_texture(attr_img[..., attr_slices["uv"]],
-                                  mesh.texture, frag.valid)
+            rgb = torch.where(
+                frag.valid[..., None],
+                sample_texture(attr_img[..., attr_slices["uv"]], mesh.texture),
+                0.0)
         elif "rgb" in attr_slices:
             rgb = torch.where(
                 frag.valid[..., None],

@@ -14,10 +14,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from .rotations import _mm, _norm
+from .rotations import _mm, _norm, euler_xyz_to_matrix, quat_to_matrix
 
+SENSOR_WIDTH_MM = 20.0  # Blender camera default of the reference
 DEFAULT_RESOLUTION = 512
 
 _BCAM2CV_SIGNS = (1.0, -1.0, -1.0)
@@ -50,6 +52,16 @@ def focal_px_from_fov(fov: torch.Tensor, resolution: int) -> torch.Tensor:
     return (resolution / 2.0) / torch.tan(fov / 2.0)
 
 
+def fov_from_focal_mm(f_mm: torch.Tensor,
+                      sensor_width_mm: float = SENSOR_WIDTH_MM) -> torch.Tensor:
+    return 2.0 * torch.atan(sensor_width_mm / (2.0 * f_mm))
+
+
+def focal_mm_from_fov(fov: torch.Tensor,
+                      sensor_width_mm: float = SENSOR_WIDTH_MM) -> torch.Tensor:
+    return sensor_width_mm / (2.0 * torch.tan(fov / 2.0))
+
+
 def intrinsic_matrix(fov: torch.Tensor, resolution: int) -> torch.Tensor:
     """K (...,3,3): f_px on both axes, principal point at the image centre."""
     f = focal_px_from_fov(fov, resolution)
@@ -70,6 +82,16 @@ def extrinsic_RT(location: torch.Tensor, R_obj: torch.Tensor) -> torch.Tensor:
     R = _mm(R_bcam2cv, R_obj.transpose(-1, -2))
     t = -_matvec(R, location)
     return torch.cat([R, t[..., None]], -1)
+
+
+def project(K: torch.Tensor, RT: torch.Tensor, pts: torch.Tensor):
+    """World points (...,N,3) -> (pixel coords (...,N,2), CV-camera depth
+    (...,N)); the homogeneous products summed left to right."""
+    RT = RT[..., None, :, :]
+    cam = _matvec(RT[..., :3], pts) + RT[..., 3]
+    uvw = _matvec(K[..., None, :, :], cam)
+    w = uvw[..., 2:]
+    return uvw[..., :2] / torch.where(torch.abs(w) < 1e-12, 1e-12, w), cam[..., 2]
 
 
 def camera_rays(camera: Camera) -> tuple[torch.Tensor, torch.Tensor]:
@@ -114,3 +136,51 @@ def look_at_rotation(location: torch.Tensor, target: torch.Tensor,
     yaxis = torch.linalg.cross(zaxis, xaxis)
     yaxis = yaxis / _norm(yaxis)
     return torch.stack([xaxis, yaxis, zaxis], -1)  # columns are camera axes
+
+
+def camera_from_view_dict(view: dict, resolution: int | None = None,
+                          device: torch.device | str = "cpu") -> Camera:
+    """Camera from a point_info view dict: the final quaternion when present,
+    else the final XYZ euler."""
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    if "camera_rotation_final_quaternion" in view:
+        R = quat_to_matrix(f32(view["camera_rotation_final_quaternion"]))
+    else:
+        R = euler_xyz_to_matrix(f32(view["camera_rotation_final"]))
+    res = int(resolution or view.get("resolution", DEFAULT_RESOLUTION))
+    return Camera(f32(view["camera_location"]), R,
+                  f32(view["field_of_view_rads"]), res)
+
+
+def unproject_depth(depth: torch.Tensor, fov: torch.Tensor, resolution: int,
+                    euclidean: bool = False) -> torch.Tensor:
+    """Depth (...,H,W) -> CV-camera points (...,H,W,3); depth is the
+    z-buffer, or the ray length when euclidean."""
+    f = focal_px_from_fov(fov, resolution)
+    u = torch.arange(resolution, dtype=torch.float32, device=depth.device) + 0.5
+    vv, uu = torch.meshgrid(u, u, indexing="ij")
+    c = resolution / 2.0
+    x = (uu - c) / f[..., None, None]
+    y = (vv - c) / f[..., None, None]
+    z = depth / torch.sqrt(x * x + y * y + 1.0) if euclidean else depth
+    return torch.stack([x * z, y * z, z], -1)
+
+
+def decompose_KRT(P: np.ndarray):
+    """3x4 projection P = K [R|t] -> (K, R, t) by RQ decomposition with a
+    positive diagonal of K and det(R) = +1; K scaled so K[2,2] = 1. Host
+    numpy (float64)."""
+    import scipy.linalg
+
+    P = np.asarray(P, np.float64)
+    K, R = scipy.linalg.rq(P[:, :3])
+    S = np.diag(np.sign(np.diag(K)))
+    K = K @ S
+    R = S @ R
+    if np.linalg.det(R) < 0:
+        K = -K
+        R = -R
+    t = np.linalg.solve(K, P[:, 3])
+    return K / K[2, 2], R, t

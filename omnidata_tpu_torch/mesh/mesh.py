@@ -6,10 +6,15 @@ indices point at vertex 0) so they can never produce a ray hit.
 
 Everything up to the final tensor conversion is host numpy, identical to
 ``omnidata_tpu.mesh.mesh``: the same inputs give the same padded arrays and
-the same (Morton) face order. The OBJ/PLY loaders are not ported yet.
+the same (Morton) face order. The loaders read OBJ (with or without an MTL
+file) and PLY (ascii and binary_little_endian); textures must be PNG files
+(``cues.encode.load_rgb_float``).
 """
 from __future__ import annotations
 
+import os
+import re
+import struct
 from typing import NamedTuple
 
 import numpy as np
@@ -142,6 +147,11 @@ def from_arrays(
     )
 
 
+def gathered_triangles(mesh: TriangleMesh) -> torch.Tensor:
+    """(F,3,3) triangle vertex positions: the raycaster's working set."""
+    return mesh.vertices[mesh.faces.long()]
+
+
 # ---------------------------------------------------------------------------
 # Procedural meshes
 # ---------------------------------------------------------------------------
@@ -168,6 +178,15 @@ def cube(size: float = 1.0, center=(0.0, 0.0, 0.0),
     labels = np.repeat(np.arange(6, dtype=np.int32), 2)
     return from_arrays(corners, np.asarray(tris, np.int32), face_labels=labels,
                        device=device)
+
+
+def quad_plane(size: float = 10.0, z: float = 0.0,
+               device: torch.device | str = "cpu") -> TriangleMesh:
+    """Square plane in the XY plane at height z, +Z normal."""
+    s = size / 2.0
+    v = np.array([[-s, -s, z], [s, -s, z], [s, s, z], [-s, s, z]], np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return from_arrays(v, f, device=device)
 
 
 def room(size: float = 8.0, height: float = 3.0,
@@ -329,3 +348,311 @@ def split_long_edges(
         None if face_labels is None else np.concatenate(done_fl),
         None if face_colors is None else np.concatenate(done_fc),
     )
+
+
+def subdivide_mesh(mesh: TriangleMesh, max_edge: float) -> TriangleMesh:
+    """Rebuild a mesh (on its device) with every edge <= max_edge
+    (``split_long_edges``); the texture is carried through."""
+    def host(a, rows=None):
+        return None if a is None else a[:rows].cpu().numpy()
+
+    nf = mesh.num_faces
+    v, f, vc, vu, fl, fc = split_long_edges(
+        host(mesh.vertices), host(mesh.faces, nf), max_edge,
+        host(mesh.vertex_colors), host(mesh.vertex_uvs),
+        host(mesh.face_labels, nf), host(mesh.face_colors, nf))
+    return from_arrays(v, f, vertex_colors=vc, face_labels=fl, vertex_uvs=vu,
+                       texture=host(mesh.texture), face_colors=fc,
+                       device=mesh.vertices.device)
+
+
+# ---------------------------------------------------------------------------
+# Loaders (host side)
+# ---------------------------------------------------------------------------
+
+def _load_texture(path: str) -> np.ndarray:
+    from ..cues.encode import load_rgb_float
+
+    return load_rgb_float(path)
+
+
+def _sibling_png(path: str, texture_path: str | None) -> str | None:
+    if texture_path:
+        return texture_path
+    cand = os.path.splitext(path)[0] + ".png"
+    return cand if os.path.exists(cand) else None
+
+
+def load_obj(path: str, pad_multiple: int = 256,
+             texture_path: str | None = None,
+             device: torch.device | str = "cpu") -> TriangleMesh:
+    """OBJ: v / vt / f lines; polygons fan-triangulated; 1-based indices.
+
+    Texture coordinates are carried per vertex (a vertex with conflicting
+    uvs keeps the first). texture_path, or a .png next to the obj, loads the
+    texture image."""
+    with open(path) as fh:
+        content = fh.read()
+    if "vt " not in content and "/" not in content:
+        # plain scan meshes (v/f only): batch-parse each record type
+        vchunks, fchunks = [], []
+        for line in content.split("\n"):
+            if line.startswith("v "):
+                vchunks.append(line[2:])
+            elif line.startswith("f "):
+                fchunks.append(line[2:])
+        if vchunks and fchunks:
+            va = np.array(" ".join(vchunks).split(), np.float64)
+            fa = np.array(" ".join(fchunks).split(), np.float64)
+            if va.size == 3 * len(vchunks) and fa.size == 3 * len(fchunks):
+                tp = _sibling_png(path, texture_path)
+                return from_arrays(
+                    va.reshape(-1, 3), fa.reshape(-1, 3).astype(np.int64) - 1,
+                    texture=_load_texture(tp) if tp else None,
+                    pad_multiple=pad_multiple, device=device)
+    verts, faces, uvs = [], [], []
+    uv_of_vertex: dict = {}
+    for line in content.split("\n"):
+        if line.startswith("v "):
+            parts = line.split()
+            verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+        elif line.startswith("vt "):
+            parts = line.split()
+            uvs.append([float(parts[1]), float(parts[2])])
+        elif line.startswith("f "):
+            vi, ti = [], []
+            for ptok in line.split()[1:]:
+                comps = ptok.split("/")
+                vi.append(int(comps[0]) - 1)
+                ti.append(int(comps[1]) - 1 if len(comps) > 1 and comps[1] else None)
+            for i in range(1, len(vi) - 1):
+                faces.append([vi[0], vi[i], vi[i + 1]])
+            for v, t in zip(vi, ti):
+                if t is not None and v not in uv_of_vertex:
+                    uv_of_vertex[v] = t
+    vertex_uvs = None
+    if uvs and uv_of_vertex:
+        vertex_uvs = np.zeros((len(verts), 2), np.float32)
+        for v, t in uv_of_vertex.items():
+            vertex_uvs[v] = uvs[t]
+    tp = _sibling_png(path, texture_path)
+    return from_arrays(np.asarray(verts), np.asarray(faces),
+                       vertex_uvs=vertex_uvs,
+                       texture=_load_texture(tp) if tp else None,
+                       pad_multiple=pad_multiple, device=device)
+
+
+_PLY_TYPES = {"char": "b", "uchar": "B", "int8": "b", "uint8": "B",
+              "short": "h", "ushort": "H", "int16": "h", "uint16": "H",
+              "int": "i", "uint": "I", "int32": "i", "uint32": "I",
+              "float": "f", "float32": "f", "double": "d", "float64": "d"}
+
+
+def load_ply(path: str, pad_multiple: int = 256,
+             device: torch.device | str = "cpu") -> TriangleMesh:
+    """PLY: ascii or binary_little_endian; vertex xyz (+ red/green/blue),
+    face vertex lists (fan-triangulated); the first scalar face property
+    after the list, when nonzero somewhere, becomes the face labels."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    header_end = data.find(b"end_header\n") + len(b"end_header\n")
+    header = data[:header_end].decode("ascii").splitlines()
+    fmt = None
+    elements = []  # (name, count, [(type, name) or ("list", cnt_t, idx_t, name)])
+    for line in header:
+        t = line.split()
+        if not t:
+            continue
+        if t[0] == "format":
+            fmt = t[1]
+        elif t[0] == "element":
+            elements.append((t[1], int(t[2]), []))
+        elif t[0] == "property":
+            if t[1] == "list":
+                elements[-1][2].append(("list", t[2], t[3], t[4]))
+            else:
+                elements[-1][2].append((t[1], t[2]))
+
+    verts = colors = None
+    faces: list = []
+    face_labels: list = []
+    if fmt == "ascii":
+        lines = data[header_end:].decode("ascii").split("\n")
+        li = 0
+        for name, count, props in elements:
+            rows = lines[li: li + count]
+            li += count
+            if name == "vertex":
+                arr = np.array([r.split() for r in rows], dtype=np.float64)
+                names = [p[1] for p in props]
+                verts = arr[:, [names.index(k) for k in "xyz"]].astype(np.float32)
+                if all(k in names for k in ("red", "green", "blue")):
+                    ci = [names.index(k) for k in ("red", "green", "blue")]
+                    colors = (arr[:, ci] / 255.0).astype(np.float32)
+            elif name == "face":
+                has_label = len(props) > 1 and props[-1][0] != "list"
+                for r in rows:
+                    t = [int(float(x)) for x in r.split()]
+                    n, idx = t[0], t[1: 1 + t[0]]
+                    lab = t[1 + n] if has_label and len(t) > 1 + n else 0
+                    for i in range(1, n - 1):
+                        faces.append([idx[0], idx[i], idx[i + 1]])
+                        face_labels.append(lab)
+    elif fmt == "binary_little_endian":
+        off = header_end
+        for name, count, props in elements:
+            if name == "vertex" and all(p[0] != "list" for p in props):
+                dt = np.dtype([(p[1], "<" + _PLY_TYPES[p[0]]) for p in props])
+                arr = np.frombuffer(data, dtype=dt, count=count, offset=off)
+                off += dt.itemsize * count
+                verts = np.stack([arr["x"], arr["y"], arr["z"]], -1).astype(np.float32)
+                if all(k in dt.names for k in ("red", "green", "blue")):
+                    colors = (np.stack([arr["red"], arr["green"], arr["blue"]], -1)
+                              .astype(np.float32) / 255.0)
+            elif name == "face":
+                cnt_t, idx_t = props[0][1], props[0][2]
+                csz = struct.calcsize(_PLY_TYPES[cnt_t])
+                isz = struct.calcsize(_PLY_TYPES[idx_t])
+                if all(p[0] != "list" for p in props[1:]):
+                    # all triangles (the scan-mesh norm): one record array
+                    rec = [("n", "<" + _PLY_TYPES[cnt_t]),
+                           ("idx", "<" + _PLY_TYPES[idx_t], (3,))]
+                    rec += [(f"x{j}", "<" + _PLY_TYPES[p[0]])
+                            for j, p in enumerate(props[1:])]
+                    dt = np.dtype(rec)
+                    if off + dt.itemsize * count <= len(data):
+                        arr = np.frombuffer(data, dtype=dt, count=count, offset=off)
+                        if (arr["n"] == 3).all():
+                            faces = arr["idx"].astype(np.int64)
+                            if len(props) > 1:
+                                face_labels = arr["x0"].astype(np.int64)
+                            off += dt.itemsize * count
+                            continue
+                for _ in range(count):  # variable-length lists: walk
+                    n = struct.unpack_from("<" + _PLY_TYPES[cnt_t], data, off)[0]
+                    off += csz
+                    idx = struct.unpack_from("<" + str(n) + _PLY_TYPES[idx_t], data, off)
+                    off += isz * n
+                    lab, got_label = 0, False
+                    for p in props[1:]:
+                        if p[0] == "list":
+                            m = struct.unpack_from("<" + _PLY_TYPES[p[1]], data, off)[0]
+                            off += (struct.calcsize(_PLY_TYPES[p[1]])
+                                    + m * struct.calcsize(_PLY_TYPES[p[2]]))
+                        else:
+                            if not got_label:
+                                lab = int(struct.unpack_from(
+                                    "<" + _PLY_TYPES[p[0]], data, off)[0])
+                                got_label = True
+                            off += struct.calcsize(_PLY_TYPES[p[0]])
+                    for i in range(1, n - 1):
+                        faces.append([idx[0], idx[i], idx[i + 1]])
+                        face_labels.append(lab)
+    else:
+        raise ValueError(f"unsupported PLY format {fmt!r}")
+
+    labels = (np.asarray(face_labels, np.int32)
+              if len(face_labels) and np.any(face_labels) else None)
+    return from_arrays(verts, np.asarray(faces, np.int32),
+                       vertex_colors=colors, face_labels=labels,
+                       pad_multiple=pad_multiple, device=device)
+
+
+def parse_mtl(path: str) -> dict:
+    """Minimal .mtl parser: {material_name: {'Kd': (3,), 'map_Kd': path}}."""
+    mats: dict = {}
+    cur = None
+    if not os.path.exists(path):
+        return mats
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "newmtl":
+                cur = parts[1]
+                mats[cur] = {"Kd": (0.8, 0.8, 0.8), "map_Kd": None}
+            elif parts[0] == "Kd" and cur:
+                mats[cur]["Kd"] = tuple(float(x) for x in parts[1:4])
+            elif parts[0] == "map_Kd" and cur:
+                mats[cur]["map_Kd"] = os.path.join(os.path.dirname(path), parts[-1])
+    return mats
+
+
+def load_obj_mtl(path: str, pad_multiple: int = 256, label_map=None,
+                 device: torch.device | str = "cpu"):
+    """OBJ with per-face materials (mtllib/usemtl) -> (mesh, material names).
+
+    face_colors: each face's material colour (Kd, or its map_Kd texture
+    sampled at the face's uv centroid). face_labels: label_map (dict or
+    callable name -> int) when given, else a trailing integer of the
+    material name ('mat_12' -> 12), else the material's index."""
+    verts, uvs, faces = [], [], []
+    face_mat: list[int] = []
+    face_uvs: list[tuple] = []
+    mats: dict = {}
+    mat_order: list[str] = []
+    cur_mat = -1
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if not parts:
+                continue
+            tag = parts[0]
+            if tag == "mtllib":
+                mats.update(parse_mtl(os.path.join(os.path.dirname(path), parts[-1])))
+            elif tag == "usemtl":
+                if parts[1] not in mat_order:
+                    mat_order.append(parts[1])
+                cur_mat = mat_order.index(parts[1])
+            elif tag == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif tag == "vt":
+                uvs.append([float(parts[1]), float(parts[2])])
+            elif tag == "f":
+                vi, ti = [], []
+                for ptok in parts[1:]:
+                    comps = ptok.split("/")
+                    vi.append(int(comps[0]) - 1)
+                    ti.append(int(comps[1]) - 1 if len(comps) > 1 and comps[1] else None)
+                for i in range(1, len(vi) - 1):
+                    faces.append([vi[0], vi[i], vi[i + 1]])
+                    face_mat.append(cur_mat)
+                    face_uvs.append((ti[0], ti[i], ti[i + 1]))
+
+    n_faces = len(faces)
+    face_colors = np.full((n_faces, 3), 0.8, np.float32)
+    textures: dict = {}
+    uvs_np = np.asarray(uvs, np.float32) if uvs else np.zeros((0, 2), np.float32)
+    for fi in range(n_faces):
+        mi = face_mat[fi]
+        name = mat_order[mi] if 0 <= mi < len(mat_order) else None
+        m = mats.get(name, {"Kd": (0.8, 0.8, 0.8), "map_Kd": None})
+        if m["map_Kd"] and os.path.exists(m["map_Kd"]) and all(
+                t is not None for t in face_uvs[fi]):
+            if m["map_Kd"] not in textures:
+                textures[m["map_Kd"]] = _load_texture(m["map_Kd"])
+            tex = textures[m["map_Kd"]]
+            uv = uvs_np[list(face_uvs[fi])].mean(0)
+            th, tw = tex.shape[:2]
+            x = int(np.clip(uv[0], 0, 1) * (tw - 1))
+            y = int((1.0 - np.clip(uv[1], 0, 1)) * (th - 1))
+            face_colors[fi] = tex[y, x]
+        else:
+            face_colors[fi] = m["Kd"]
+
+    def label_of(name, idx):
+        if label_map is not None:
+            if callable(label_map):
+                return int(label_map(name))
+            return int(label_map.get(name, 0))
+        m = re.search(r"(\d+)$", name or "")
+        return int(m.group(1)) if m else idx
+
+    face_labels = np.asarray(
+        [label_of(mat_order[mi] if 0 <= mi < len(mat_order) else "", mi)
+         for mi in face_mat], np.int32)
+    mesh = from_arrays(np.asarray(verts), np.asarray(faces, np.int32),
+                       face_labels=face_labels, face_colors=face_colors,
+                       pad_multiple=pad_multiple, device=device)
+    return mesh, mat_order

@@ -42,6 +42,19 @@ _BIGF = 1e9  # bbox value of dead faces: any overlap test fails
 HIER_ADMISSION_MIN_CHUNKS = 1024
 EXPAND_BCAP = 32  # hier stage-2 sort width = 8*EXPAND_BCAP candidate chunks
 
+# render_views_fused(streamed=None) takes the streamed kernel (C) for scene
+# packs larger than this. The bound is the JAX package's TPU one (its
+# chunk-list kernel keeps the whole pack in VMEM), kept so both packages run
+# the same kernel on the same scene; no crossover of A and C was measured
+# for it on a card. All three kernels render bitwise alike.
+STREAMED_PACK_BYTES = 8 * 1024 * 1024
+
+
+def pack_bytes(n_faces: int, n_attr_channels: int) -> int:
+    """Bytes of the scene pack: per face 10 + 3 x attribute channels
+    float32 columns, plus the 13 face planes the JAX package counts."""
+    return n_faces * (10 + 3 * n_attr_channels + 13) * 4
+
 
 class Fragments(NamedTuple):
     """Per-pixel geometry buffers, (K,H,W) unless noted.
@@ -352,7 +365,7 @@ def render_views_fused(
     ccap: int | None = None,
     hier_min_chunks: int | None = None,
     expand_bcap: int | None = None,
-    streamed: bool = False,
+    streamed: bool | None = None,
     compact: bool | None = None,
     stage_cap: int | None = None,
 ):
@@ -368,14 +381,16 @@ def render_views_fused(
 
     The kernel: streamed=True takes kernel C (the pack chunk-major),
     compacting unless compact=False; otherwise compact=True takes kernel B
-    and the default kernel A. compact defaults to streamed, as in the JAX
-    package. stage_cap overrides the compacting kernels' cap (STAGE_CAP for
-    B, STREAMED_STAGE_CAP for C); past it a tile gets kernel A's sweep of
-    its raw list. All views go to one launch, and the caller chooses the
-    kernel: the JAX package's TPU routing (views split by scalar memory,
-    packs over 8 MB sent to the streamed kernel, an XLA fallback) has no
-    counterpart here, since a card has no such limits; ``bench.py``'s large
-    scene passes streamed=True itself."""
+    and the default kernel A. streamed=None picks C when the scene pack
+    exceeds STREAMED_PACK_BYTES, as the JAX package does on a TPU; compact
+    defaults to streamed, as there. stage_cap overrides the compacting
+    kernels' cap (STAGE_CAP for B, STREAMED_STAGE_CAP for C); past it a
+    tile gets kernel A's sweep of its raw list. All views go to one launch:
+    the JAX package's other TPU limits (views split by scalar memory, an
+    XLA fallback) have no counterpart on a card."""
+    if streamed is None:
+        n_attr = 0 if vertex_attrs is None else vertex_attrs.shape[1]
+        streamed = pack_bytes(mesh.faces.shape[0], n_attr) > STREAMED_PACK_BYTES
     if compact is None:
         compact = streamed
     inp = prepare_raster(cameras, mesh, tile, chunk, vertex_attrs, ccap,

@@ -6,6 +6,7 @@ from omnidata_tpu_torch.interop import camera_from_numpy, mesh_from_numpy
 from omnidata_tpu_torch.mesh import TriangleMesh
 
 MESH_FIELDS = tuple(f for f in TriangleMesh._fields if f != "num_faces")
+TREE_TOL = 1e-5
 
 
 def port_mesh(jmesh):
@@ -124,3 +125,27 @@ def with_block_tail(args, tiles_per_view, chunk):
     counts[row] = -3  # one block
     return (ids, counts, origins, pack[:, :Fp].contiguous(),
             words[:, :Fp].contiguous(), dirs), row, n
+
+
+def assert_same_tree(got, want, path="root"):
+    """Nested dicts / lists / arrays equal in structure; integers, booleans
+    and strings equal; floats within TREE_TOL."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), (path, set(got) ^ set(want))
+        for k in want:
+            assert_same_tree(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)) or (isinstance(want, np.ndarray)
+                                              and want.dtype.kind == "f"):
+        assert len(got) == len(want), (path, len(got), len(want))
+        if isinstance(want, np.ndarray):
+            assert np.asarray(got).dtype == want.dtype, path
+            np.testing.assert_allclose(got, want, atol=TREE_TOL, err_msg=path)
+        else:
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert_same_tree(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        assert isinstance(got, float) and abs(got - want) <= TREE_TOL, (path, got, want)
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert type(got) is type(want) and got == want, (path, got, want)

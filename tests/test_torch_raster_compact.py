@@ -272,6 +272,43 @@ def test_compaction_on_and_off_equal_on_horizontal_strips():
                                                  chunk=64, **kw), ref)
 
 
+@pytest.mark.parametrize("over", [False, True], ids=["at_bound", "over_bound"])
+@pytest.mark.parametrize("attrs", [False, True], ids=["no_attrs", "normals"])
+def test_render_views_fused_routes_by_pack_size(scene, monkeypatch, attrs, over):
+    """streamed=None takes kernel C exactly when the scene pack (JAX's
+    count: 23 + 3 x attribute channels float32 words a face) exceeds
+    STREAMED_PACK_BYTES, kernel A otherwise, for render_views_fused and
+    annotate_views alike; an explicit streamed=False keeps A; the renders
+    are bitwise equal."""
+    _, tmesh, _, tcam = scene
+    va = tmesh.vertex_normals if attrs else None
+    size = traster.pack_bytes(tmesh.faces.shape[0], 3 if attrs else 0)
+    assert size == tmesh.faces.shape[0] * (23 + (9 if attrs else 0)) * 4
+    monkeypatch.setattr(traster, "STREAMED_PACK_BYTES", size - 1 if over else size)
+    calls = []
+    for name in ("chunklist", "compact", "streamed"):
+        fn = getattr(traster, f"raster_tiles_{name}")
+
+        def spy(*a, _fn=fn, _name=name, **k):
+            calls.append(_name)
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(traster, f"raster_tiles_{name}", spy)
+    kw = dict(tile=32, chunk=CHUNK, vertex_attrs=va)
+    got = traster.render_views_fused(tcam, tmesh, **kw)
+    want = traster.render_views_fused(tcam, tmesh, streamed=False, **kw)
+    assert calls == ["streamed" if over else "chunklist", "chunklist"]
+    if attrs:
+        (got, got_attrs), (want, want_attrs) = got, want
+        assert torch.equal(got_attrs, want_attrs)
+    _assert_equal(got, want)
+    if not attrs:  # depth and face ids interpolate no vertex attribute
+        calls.clear()
+        annotate_views(tcam, tmesh, tile=32, chunk=CHUNK,
+                       modalities=("depth_zbuffer", "fragments"))
+        assert calls == ["streamed" if over else "chunklist"]
+
+
 @pytest.mark.parametrize("kw", [dict(streamed=True), dict(compact=True)],
                          ids=["streamed", "compact"])
 def test_render_views_fused_matches_jax(scene, kw):
