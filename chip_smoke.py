@@ -20,7 +20,8 @@ bench scene it picks kernel A, on the large scene kernel C (scene pack over
    tile shapes: bit for bit on ``packed`` and ``acc``.
 3. bench main path: ``annotate_views`` at K = 32 must launch kernel A
    (launch counter reset just before, read just after) and return every
-   label with its shape and dtype, each view with valid pixels.
+   label with its shape and dtype, each view with valid pixels; the
+   launch's work items and split rows are printed.
 4. pipeline on kernel against plain: the same 2 views through the whole
    pipeline, once on the kernels and once on the plain rasters, must give
    equal labels.
@@ -36,15 +37,31 @@ bench scene it picks kernel A, on the large scene kernel C (scene pack over
    bit for bit against their plain versions; both renders bit for bit
    against kernel A's render of the same views; the pipeline on kernel C
    against the plain raster on 1 view.
+7b. work items of one list position (``seg=1``, a test-only argument):
+   kernel A on the 2 bench views and kernel C's plain body, compacting body
+   and compacting body at stage cap 512 on the 2 large views, each bit for
+   bit against its plain version, with every multi-chunk raw-list row split
+   into one item per chunk and merged (split rows required but for the
+   compacting body at its own cap, whose rows on these views are dense).
 8. large main path: ``annotate_views(K=32, ccap=192, streamed=True)`` must
-   launch kernel C and return every label, face ids agreeing with
+   launch kernel C and its count pass (both counters reset just before,
+   read just after) and return every label, face ids agreeing with
    ``mask_valid``; peak device memory.
 9. large timing with CUDA events: viewpoints/s over 2 batches of K = 32
    (median of 5 repetitions); at K = 32 kernels A, C plain and C compacting
    alone, the render stage and ``prepare_raster`` (admission and decode by
    difference); the staged-faces tail; kernel B against A alone on the
    bench scene at K = 32; B at K = 2 and C at K = 1 against their plain
-   versions, in turns.
+   versions, in turns. Then each kernel at K = 32, at the main paths'
+   shapes (A and B on the bench batch, C's bodies on the large batch at
+   ccap 192, C compacting also at the CLI's ccap 48): bit for bit against
+   its plain version on the same inputs (2 views at a time, timed), its
+   item list built on the card equal to ``split_schedule``'s and the count
+   pass's staged faces to ``stage_faces``'; beside its pixel-face pairs and
+   bound (``tools/raster_measure.raster_work``: 20 FP32 operations for each
+   pixel and each face whose bbox overlaps its tile, at 67 TFLOP/s, or
+   half that with -fmad=false, against each input read and each output
+   written once at 3.35 TB/s), its work items and split rows.
 
 10. the port's brute-force raycaster against kernel A's render on 2 bench
     views at 512²: valid equal, faces equal on >= 99.9% of pixels; its
@@ -62,15 +79,18 @@ bench scene it picks kernel A, on the large scene kernel C (scene pack over
     CLI batch with the most scan-all and block-mode rows at the CLI's own
     ``ccap``: kernel C bit for bit against its plain version on its 2
     hardest views, and the batch's written outputs equal to
-    ``annotate_views`` on the plain rasters with the CLI's arguments.
+    ``annotate_views`` on the plain rasters with the CLI's arguments; the
+    check prints the launch's work items and split rows.
 13. CLI ``--task pano`` at 2048x1024 on the bench scene for 2 camera
     locations, each panorama's render timed; outputs decode.
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
 
-Prints the kernel table as one JSON line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
+Prints the kernel table as one JSON line (per kernel its K = 32 time,
+plain version, bound and work items, its main-path launches; no PyTorch
+call computes these kernels' function, so ``library_ms`` is null), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
 Run: ``python3 chip_smoke.py`` from the repository root.
@@ -81,10 +101,20 @@ import contextlib
 import json
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+from raster_measure import (  # noqa: E402
+    cuda_ms,
+    gpu_name_and_power_limit,
+    item_counts,
+    raster_work,
+    timed,
+)
 
 K_MAIN = 32
 K_CHECK = 2
@@ -111,7 +141,6 @@ EXPECTED = {  # modality -> (trailing shape, dtype name)
 }
 KERNEL_SOURCES = ("raster_chunklist", "raster_compact")
 HOST_LIBRARIES = ("narf", "felzenszwalb")  # the host cues' native cores
-ROOT = Path(__file__).resolve().parent
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 CLI_LOG = CLI_DIR / "cli.log"
 CLI_BENCH_ARGS = ["with", "NUM_POINTS=4", "STOP_VIEW_NUMBER=3"]
@@ -125,27 +154,6 @@ CLI_IMAGE_TASKS = ("rgb", "normal", "depth_zbuffer", "depth_euclidean",
 
 def log(msg: str) -> None:
     print(f"[chip_smoke {time.strftime('%H:%M:%S')}] {msg}", flush=True)
-
-
-def gpu_name_and_power_limit() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of fn over reps calls, by CUDA events."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def in_turns(plain, kernel, plain_reps: int, kernel_reps: int):
@@ -177,6 +185,33 @@ def check_kernel(what: str, got, want) -> float:
     if n_bad or not equal:
         raise AssertionError(f"{what}: kernel disagrees with its plain version")
     return err
+
+
+def check_schedule(what: str, wrapper, counts, n_chunks: int,
+                   overlaps=None) -> dict:
+    """The item list a kernel A or C launch built on the card equal to the
+    plain ``split_schedule`` on the same counts, bit for bit (order, ends,
+    items per row), and for C's compacting body the count pass's staged
+    faces equal to ``overlaps`` (``stage_faces``' count with no cap).
+    -> the launch's work items and split rows."""
+    import torch
+
+    from omnidata_tpu_torch.mesh import raster_kernels as rk
+
+    sched = wrapper.last_schedule
+    want = rk.split_schedule(counts, overlaps, n_chunks, rk.SPLIT_SEG, CHUNK)
+    bad = [n for n in ("order", "ends", "n_items")
+           if not torch.equal(getattr(sched, n), getattr(want, n))]
+    if overlaps is not None and not torch.equal(sched.staged.long(),
+                                                overlaps.long()):
+        bad.append("staged")
+    items = item_counts(sched)
+    log(f"{what}: item list built on the card vs split_schedule: "
+        f"{'equal' if not bad else f'differs in {bad}'}; {items['items']} "
+        f"items, {items['split_rows']} rows split")
+    if bad:
+        raise AssertionError(f"{what}: the card's item list differs in {bad}")
+    return items
 
 
 def check_renders(what: str, got, want) -> None:
@@ -215,9 +250,11 @@ def check_labels(out, k: int, n_faces: int, dev) -> None:
 
 
 def admission_log(what: str, inp) -> None:
+    from omnidata_tpu_torch.mesh.raster_kernels import list_trips
+
     c = inp.counts
     n_chunks = inp.pack.shape[0] if inp.pack.dim() == 3 else inp.pack.shape[1] // CHUNK
-    trip = (c.clamp(min=0) + (c == -1) * n_chunks + (c < -1) * (-c - 2) * 8).float()
+    trip = list_trips(c, n_chunks).float()
     log(f"admission {what}: {int((c >= 0).sum())} exact, {int((c == -1).sum())} "
         f"scan-all, {int((c <= -2).sum())} block rows; trips mean "
         f"{float(trip.mean()):.2f}, p99 {float(trip.quantile(0.99)):.0f}, max "
@@ -385,12 +422,14 @@ def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
             tuple(p[rsel] for p in inp.dir_planes))
     ckw = dict(chunk=kw["chunk"], tiles_per_view=inp.tiles_per_view,
                bbox_words=inp.bbox_words[vsel])
+    got = rk.raster_tiles_streamed(*args, **ckw)
+    items = item_counts(rk.raster_tiles_streamed.last_schedule)
     err = check_kernel(
         f"kernel C compacting body vs plain (CLI views {vsel.tolist()} of "
-        f"batch {b}, ccap {ccap}; scan-all, block rows {hard_rows(args[1])})",
-        rk.raster_tiles_streamed(*args, **ckw),
-        rk.raster_tiles_streamed_reference(*args, **ckw))
-    del inp, args, ckw
+        f"batch {b}, ccap {ccap}; scan-all, block rows {hard_rows(args[1])}; "
+        f"{items['items']} work items, {items['split_rows']} rows split)",
+        got, rk.raster_tiles_streamed_reference(*args, **ckw))
+    del inp, args, ckw, got
     t0 = time.perf_counter()
     with plain_raster():
         want = render_batch(cli, views, mesh, curv, settings, mods, dev)
@@ -403,7 +442,8 @@ def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
                              f"{unequal[:8]}")
     return {"checked_batch": b, "checked_views": len(views),
             "checked_scan_all_rows": rows_of[b][0],
-            "checked_block_rows": rows_of[b][1], "max_abs_err_kernel_c": err}
+            "checked_block_rows": rows_of[b][1], "max_abs_err_kernel_c": err,
+            "checked_items": items}
 
 
 def main() -> int:
@@ -468,9 +508,11 @@ def main() -> int:
                          modalities=DEVICE_MODALITIES)
     torch.cuda.synchronize()
     launches_a = rk.raster_tiles_chunklist.launches
+    items_a = item_counts(rk.raster_tiles_chunklist.last_schedule)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"bench main path: annotate_views K={K_MAIN} at {RES}², kernel A "
-        f"launches {launches_a}")
+        f"launches {launches_a}, {items_a['items']} work items, "
+        f"{items_a['split_rows']} rows split")
     if launches_a < 1:
         raise AssertionError("the bench main path did not launch kernel A")
     check_labels(out, K_MAIN, mesh.num_faces, dev)
@@ -589,6 +631,29 @@ def main() -> int:
                   raster_mod.render_views_fused(lcams2, lmesh, TILE, CHUNK, lattrs,
                                                 streamed=True, **lkw), want_a)
     del got_c, want_a
+
+    # 7b. work items of one list position: every multi-chunk row split --
+    seg1 = {}
+    for what, fn, plain, a_, kw_, must_split in (
+            ("kernel A (bench)", rk.raster_tiles_chunklist,
+             rk.raster_tiles_chunklist_reference, args2, kw, True),
+            ("kernel C plain body (large)", rk.raster_tiles_streamed,
+             rk.raster_tiles_streamed_reference, largs2, lkw2, True),
+            ("kernel C compacting body (large)", rk.raster_tiles_streamed,
+             rk.raster_tiles_streamed_reference, largs2,
+             dict(lkw2, bbox_words=linp2.bbox_words), False),
+            ("kernel C compacting body, stage cap 512 (large)",
+             rk.raster_tiles_streamed, rk.raster_tiles_streamed_reference,
+             largs2, dict(lkw2, bbox_words=linp2.bbox_words, stage_cap=512),
+             True)):
+        got = fn(*a_, seg=1, **kw_)
+        seg1[what] = item_counts(fn.last_schedule)
+        check_kernel(f"{what} at seg 1 vs plain ({K_CHECK} views; "
+                     f"{seg1[what]['items']} items, {seg1[what]['split_rows']} "
+                     f"rows split)", got, plain(*a_, **kw_))
+        if must_split and not seg1[what]["split_rows"]:
+            raise AssertionError(f"{what} at seg 1 split no row")
+    del got
     lcams1 = batch(0, 1, lcams)
     lkw_ann = dict(tile=TILE, chunk=CHUNK, streamed=True, **lkw)
     got = annotate_views(lcams1, lmesh, lcurv, **lkw_ann)
@@ -606,16 +671,22 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     rk.raster_tiles_streamed.launches = 0
+    rk.raster_tiles_streamed.count_launches = 0
     out = annotate_views(lcams_main, lmesh, lcurv, modalities=DEVICE_MODALITIES,
                          **lkw_ann)
     torch.cuda.synchronize()
     launches_c = rk.raster_tiles_streamed.launches
+    count_launches_c = rk.raster_tiles_streamed.count_launches
+    items_c = item_counts(rk.raster_tiles_streamed.last_schedule)
     lpeak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"large main path: annotate_views K={K_MAIN} at {RES}², ccap "
-        f"{LARGE_CCAP}, streamed: kernel C launches {launches_c}; peak device "
-        f"memory {lpeak_gib:.2f} GiB")
-    if launches_c < 1:
-        raise AssertionError("the large main path did not launch kernel C")
+        f"{LARGE_CCAP}, streamed: kernel C launches {launches_c} (count pass "
+        f"{count_launches_c}), {items_c['items']} work items, "
+        f"{items_c['split_rows']} rows split; peak device memory "
+        f"{lpeak_gib:.2f} GiB")
+    if launches_c < 1 or count_launches_c < 1:
+        raise AssertionError("the large main path did not launch kernel C "
+                             "and its count pass")
     check_labels(out, K_MAIN, lmesh.num_faces, dev)
     del out
 
@@ -670,6 +741,71 @@ def main() -> int:
     ms_a32 = cuda_ms(lambda: rk.raster_tiles_chunklist(
         *args32, inp32.dir_planes, **kw32), 10)
     log(f"bench K={K_MAIN} kernels alone: B {ms_b32:.3f} ms, A {ms_a32:.3f} ms")
+
+    # the K = 32 kernels against their plain versions on the same inputs,
+    # beside their work, bound and items
+    linp48 = raster_mod.prepare_raster(lb, lmesh, TILE, CHUNK, lattrs, ccap=48,
+                                       compact=True, streamed=True)
+    admission_log(f"large timed batch at ccap 48 ({K_MAIN} views)", linp48)
+    l48 = (linp48.ids, linp48.counts, linp48.origins, linp48.pack,
+           linp48.dir_planes)
+    lms_c48 = cuda_ms(lambda: rk.raster_tiles_streamed(
+        *l48, bbox_words=linp48.bbox_words, **kwA), 3)
+    staged48, _ = rk.stage_faces(linp48.ids, linp48.counts, linp48.bbox_words,
+                                 n_lchunks, CHUNK, linp48.tiles_per_view, TILE, 1)
+    staged_b, _ = rk.stage_faces(inp32.ids, inp32.counts, inp32.bbox_words,
+                                 inp32.pack.shape[1] // CHUNK, CHUNK,
+                                 inp32.tiles_per_view, TILE, 1)
+    n_bchunks = inp32.pack.shape[1] // CHUNK
+    streamed, chunklist = rk.raster_tiles_streamed, rk.raster_tiles_chunklist
+    # name -> (ms, work, kernel call, plain version, (wrapper, counts,
+    # chunks, overlaps) of the item list's check or None)
+    k32 = {
+        "A": (ms_a32, raster_work(inp32, staged_b),
+              lambda: chunklist(*args32, inp32.dir_planes, **kw32),
+              lambda: by_views(rk.raster_tiles_chunklist_reference)(
+                  *args32, inp32.dir_planes, **kw32),
+              (chunklist, inp32.counts, n_bchunks, None)),
+        "B": (ms_b32, raster_work(inp32, staged_b, reads_bbox_words=True),
+              lambda: rk.raster_tiles_compact(
+                  *args32, inp32.bbox_words, inp32.dir_planes, **kw32),
+              lambda: by_views(rk.raster_tiles_compact_reference)(
+                  *args32, inp32.bbox_words, inp32.dir_planes, **kw32), None),
+        "C plain body": (lms_cp, raster_work(linpC, staged),
+                         lambda: streamed(*lC, **kwA),
+                         lambda: by_views(rk.raster_tiles_streamed_reference)(
+                             *lC, **kwA),
+                         (streamed, linpC.counts, n_lchunks, None)),
+        "C compacting": (lms_cc, raster_work(linpC, staged, reads_bbox_words=True),
+                         lambda: streamed(*lC, bbox_words=linpC.bbox_words, **kwA),
+                         lambda: by_views(rk.raster_tiles_streamed_reference)(
+                             *lC, bbox_words=linpC.bbox_words, **kwA),
+                         (streamed, linpC.counts, n_lchunks, staged)),
+        "C compacting, ccap 48": (
+            lms_c48, raster_work(linp48, staged48, reads_bbox_words=True),
+            lambda: streamed(*l48, bbox_words=linp48.bbox_words, **kwA),
+            lambda: by_views(rk.raster_tiles_streamed_reference)(
+                *l48, bbox_words=linp48.bbox_words, **kwA),
+            (streamed, linp48.counts, n_lchunks, staged48)),
+    }
+    for name, (ms, work, run, plain, sched_of) in k32.items():
+        got = run()
+        if sched_of is not None:
+            work.update(check_schedule(f"kernel {name} K={K_MAIN}", *sched_of))
+        work["plain_ms"], want = timed(plain)
+        work["max_abs_err"] = check_kernel(
+            f"kernel {name} K={K_MAIN} vs plain ({want[0].shape[0]} rows)",
+            got, want)
+        del got, want
+        log(f"kernel {name} K={K_MAIN}: {ms:.3f} ms; {work['pairs']:.4g} "
+            f"pixel-face pairs (bbox-overlapping faces), bound "
+            f"{work['bound_ms']:.3f} ms (by {work['bound_by']}; operations "
+            f"{work['ops_ms']:.3f}, {work['ops_ms_unfused']:.3f} unfused; bytes "
+            f"{work['bytes_ms']:.3f}), {work['bound_ms'] / ms:.3f} of the bound; "
+            f"items {work.get('items', 'one per row')}, split rows "
+            f"{work.get('split_rows', 0)}; plain version "
+            f"{work['plain_ms']:.1f} ms; card {card}")
+    del linp48, l48
     ms_plain_b, ms_kernel_b = in_turns(
         lambda: rk.raster_tiles_compact_reference(*args2c, **kw),
         lambda: rk.raster_tiles_compact(*args2c, **kw), 3, 20)
@@ -842,45 +978,62 @@ def main() -> int:
 
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
+    no_library = ("none: no PyTorch call computes a winner-key sweep over "
+                  "per-tile chunk lists")
+
+    def entry(name, key, source, line, launches, launches_in, err, k2, **extra):
+        """One kernel of the table: its K = 32 time beside its plain version,
+        bound and work items on the same inputs (phase 9), its largest
+        difference from the plain version over every check, its K = 2 (K = 1
+        for C) times in turns with the plain version, its launches."""
+        ms, work = k32[key][:2]
+        (p0, p1), (k0, k1) = k2
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces + line, "launches": launches,
+                "launches_in": launches_in,
+                "max_abs_err": max(err, work["max_abs_err"]), "ms": ms,
+                "plain_ms": work["plain_ms"], "bound_ms": work["bound_ms"],
+                "bound_by": work["bound_by"], "library_ms": None,
+                "library": no_library, "pairs": work["pairs"],
+                "bytes": work["bytes"], "share_of_bound": work["bound_ms"] / ms,
+                "ops_ms_unfused": work["ops_ms_unfused"],
+                "items": work.get("items"), "split_rows": work.get("split_rows"),
+                "ms_small": statistics.mean([k0, k1]),
+                "plain_ms_small": statistics.mean([p0, p1]), **extra}
+
+    ms48, work48 = k32["C compacting, ccap 48"][:2]
     kernels = {"kernels": [
-        {"name": "raster_chunklist (A)", "route": "cuda",
-         "source": src + "raster_chunklist.cu", "replaces": replaces + "343",
-         "launches": launches_a, "launches_in": "bench main path annotate_views",
-         "max_abs_err": err_a, "ms": statistics.mean(ms_kernel2),
-         "plain_ms": statistics.mean(ms_plain2),
-         "shape": f"bench K={K_CHECK}, rows={inp2.ids.shape[0]}, P={TILE * TILE}, "
-                  f"COLS={inp2.pack.shape[0]}, Fp={inp2.pack.shape[1]}",
-         "ms_bench_k32": ms_kernel32, "ms_large_k32": lms_a,
-         "launches_cli_bench": cli_a_bench},
-        {"name": "raster_compact (B)", "route": "cuda",
-         "source": src + "raster_compact.cu", "replaces": replaces + "601",
-         "launches": launches_b,
-         "launches_in": "render_views_fused(compact=True), bench scene",
-         "max_abs_err": err_b, "ms": statistics.mean(ms_kernel_b),
-         "plain_ms": statistics.mean(ms_plain_b),
-         "shape": f"bench K={K_CHECK}, stage_cap={rk.STAGE_CAP}",
-         "ms_bench_k32": ms_b32},
-        {"name": "raster_streamed (C, compacting body)", "route": "cuda",
-         "source": src + "raster_compact.cu", "replaces": replaces + "879",
-         "launches": launches_c, "launches_in": "large main path annotate_views",
-         "max_abs_err": err_c["compacting"],
-         "ms": statistics.mean(c_turns["compacting"][1]),
-         "plain_ms": statistics.mean(c_turns["compacting"][0]),
-         "shape": f"large K=1, rows={linp2.tiles_per_view}, P={TILE * TILE}, "
-                  f"pack={tuple(linp2.pack.shape)}, "
-                  f"stage_cap={rk.STREAMED_STAGE_CAP}",
-         "ms_large_k32": lms_cc, "launches_cli_large": cli_c_large},
-        {"name": "raster_streamed (C, plain body)", "route": "cuda",
-         "source": src + "raster_compact.cu", "replaces": replaces + "879",
-         "launches": launches_c_plain,
-         "launches_in": "render_views_fused(streamed=True, compact=False), "
-                        "large scene",
-         "max_abs_err": err_c["plain"],
-         "ms": statistics.mean(c_turns["plain"][1]),
-         "plain_ms": statistics.mean(c_turns["plain"][0]),
-         "shape": f"large K=1, rows={linp2.tiles_per_view}, P={TILE * TILE}, "
-                  f"pack={tuple(linp2.pack.shape)}",
-         "ms_large_k32": lms_cp},
+        entry("raster_chunklist (A)", "A", "raster_chunklist.cu", "343",
+              launches_a, "bench main path annotate_views", err_a,
+              (ms_plain2, ms_kernel2), shape=f"bench K={K_MAIN}, P={TILE * TILE}; "
+              f"small: K={K_CHECK}", items_main_path=items_a,
+              items_seg1=seg1["kernel A (bench)"], ms_large_k32=lms_a,
+              launches_cli_bench=cli_a_bench),
+        entry("raster_compact (B)", "B", "raster_compact.cu", "601", launches_b,
+              "render_views_fused(compact=True), bench scene", err_b,
+              (ms_plain_b, ms_kernel_b),
+              shape=f"bench K={K_MAIN}, stage_cap={rk.STAGE_CAP}; small: "
+              f"K={K_CHECK}"),
+        entry("raster_streamed (C, compacting body)", "C compacting",
+              "raster_compact.cu", "879", launches_c,
+              "large main path annotate_views", err_c["compacting"],
+              c_turns["compacting"],
+              shape=f"large K={K_MAIN}, ccap {LARGE_CCAP}, "
+              f"stage_cap={rk.STREAMED_STAGE_CAP}; small: K=1",
+              count_launches=count_launches_c, items_main_path=items_c,
+              items_seg1=seg1["kernel C compacting body (large)"],
+              ms_ccap48=ms48, bound_ms_ccap48=work48["bound_ms"],
+              pairs_ccap48=work48["pairs"], items_ccap48=work48["items"],
+              split_rows_ccap48=work48["split_rows"],
+              plain_ms_ccap48=work48["plain_ms"],
+              max_abs_err_ccap48=work48["max_abs_err"],
+              launches_cli_large=cli_c_large),
+        entry("raster_streamed (C, plain body)", "C plain body",
+              "raster_compact.cu", "879", launches_c_plain,
+              "render_views_fused(streamed=True, compact=False), large scene",
+              err_c["plain"], c_turns["plain"],
+              shape=f"large K={K_MAIN}, ccap {LARGE_CCAP}; small: K=1",
+              items_seg1=seg1["kernel C plain body (large)"]),
     ], "large_vps": lvps, "bench_vps": vps, "peak_gib_large": lpeak_gib,
         "s_kernel_build": s_build, "s_large_scene_build": s_large_scene,
         "raycast_tests_per_s": ray_tests / s_ray, "raycast_face_agreement": face_eq,

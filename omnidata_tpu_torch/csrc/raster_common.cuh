@@ -1,13 +1,35 @@
 // Pieces shared by the Hopper raster kernels (raster_chunklist.cu,
 // raster_compact.cu): the TPU's key and tie constants, the decode of one
 // row's chunk list, the two pack layouts, the per-face Moller-Trumbore
-// invariants, the per-chunk key sweep and the winner write.
+// invariants, the per-chunk key sweep, the winner write, and the work items
+// of kernels A and C with their exact merge.
 //
 // Every kernel that includes this file evaluates the operations of the
 // plain PyTorch versions (omnidata_tpu_torch/mesh/raster_kernels.py) in the
 // same order and is built with -fmad=false, IEEE division and no FTZ, so
 // kernel and plain version agree bit for bit. Float constants are formed in
 // double and rounded once to float32, as the JAX package forms them.
+//
+// Work items (kernels A and C). A row's raw-list sweep is cut into segments
+// of at most `seg` consecutive list positions; each segment is one item.
+// Persistent CTAs (as many as fit on the card at once) take item blockIdx.x
+// first, then pull items from an atomic counter, in the order of an item
+// list that one CTA builds on the
+// device in the same entry point (schedule_kernel, whose plain version is
+// raster_kernels.split_schedule): rows in a stable sort by the bucket of
+// their largest item's cost, largest first, their items contiguous; it
+// also clears the launch's counters, so the wrapper only allocates. A row
+// of one item writes its
+// winners directly. A row of several items merges them exactly: per pixel,
+// the sequential sweep returns the leftmost minimum over (masked key, list
+// position, lane), and the leftmost minimum is associative, so each item
+// sweeps its segment from scratch and posts (masked key | segment,
+// lane << 24 | face) with a 64-bit atomicMin; the masked key's 13 zero low
+// bits carry the segment index, so equal masked keys resolve to the earlier
+// segment, exactly as fold_chunk's strict improvement does. Segments without
+// a hit post nothing, as a chunk without a hit never replaces the winner.
+// The last item of the row to finish (a per-row counter after
+// __threadfence) decodes the minimum and writes packed and acc.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +42,8 @@ constexpr int kMaxChunk = 128;
 constexpr int kMaxThreads = 256;
 constexpr int kTieMask = ~((1 << 13) - 1);
 constexpr int kLaneMask = (1 << 13) - 1;
+constexpr int kMaxSegments = 1 << 13;  // a segment index fits the tie bits
+constexpr unsigned long long kNoHit = ~0ull;
 
 constexpr float kBig = (float)1e30;
 constexpr float kEps = (float)1e-7;
@@ -35,16 +59,24 @@ __device__ __forceinline__ int big_packed() {
 // chunk in order; <= -2: block mode, -count-2 listed 8-chunk block ids, each
 // expanded to its 8 chunks. An id past the last chunk (the tail of the last
 // block) is clamped to it.
+__host__ __device__ __forceinline__ int list_trip(int count, int n_chunks) {
+  return count == -1 ? n_chunks : (count < -1 ? (-count - 2) * 8 : count);
+}
+
+// ceil(a / b) for a >= 0, b >= 1, without the overflow of a + b - 1
+__host__ __device__ __forceinline__ int ceil_div(int a, int b) {
+  return a / b + (a % b != 0);
+}
+
 struct Schedule {
   const int* ids;
   int ccap, n_chunks, trip;
   bool full, block;
 
   __device__ Schedule(const int* row_ids, int count, int ccap_, int n_chunks_)
-      : ids(row_ids), ccap(ccap_), n_chunks(n_chunks_), full(count == -1),
-        block(count < -1) {
-    trip = full ? n_chunks : (block ? (-count - 2) * 8 : count);
-  }
+      : ids(row_ids), ccap(ccap_), n_chunks(n_chunks_),
+        trip(list_trip(count, n_chunks_)), full(count == -1),
+        block(count < -1) {}
   // the chunk id at list position i before the clamp
   __device__ int raw(int i) const {
     if (full) return i;
@@ -183,6 +215,293 @@ __device__ __forceinline__ void write_winners(const Pack& pack,
       acc[(size_t)c * P] = win[k] >= 0 ? *pack.ptr(c, win[k]) : 0.0f;
     }
   }
+}
+
+// The item list of one launch (schedule_kernel): order[pos] is a row, ends
+// the inclusive prefix sum of the rows' item counts in that order, so item
+// j belongs to the first pos with ends[pos] > j. next counts the items
+// handed out; done[row] the row's finished items; merge is (rows, P), all
+// ones in the rows of several items before the sweep (merge_init_kernel).
+struct ItemList {
+  const int* order;
+  const int* ends;
+  int rows;
+  int* next;
+  int* done;
+  unsigned long long* merge;
+};
+
+struct Item {
+  int row, seg, n_segs;
+};
+
+// Thread 0 takes the next item and the CTA learns it through s_item[3];
+// false once every item is taken. A CTA's first item is item blockIdx.x:
+// the first wave of CTAs lands one to an SM in block order, so the longest
+// items, which lead the list, start on SMs of their own (taken from the
+// counter in arrival order, several long items could share one SM while
+// others idle, which shows when the items are few); later items come from
+// the atomic counter. The barrier in front keeps s_item and the
+// previous item's shared memory from being overwritten while read.
+__device__ __forceinline__ bool next_item(const ItemList& L, int* s_item,
+                                          Item& it, bool& first) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int j = first ? (int)blockIdx.x
+                        : (int)gridDim.x + atomicAdd(L.next, 1);
+    if (j >= L.ends[L.rows - 1]) {
+      s_item[0] = -1;
+    } else {
+      int lo = 0, hi = L.rows - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (L.ends[mid] > j) hi = mid; else lo = mid + 1;
+      }
+      const int start = lo ? L.ends[lo - 1] : 0;
+      s_item[0] = L.order[lo];
+      s_item[1] = j - start;
+      s_item[2] = L.ends[lo] - start;
+    }
+  }
+  __syncthreads();
+  first = false;
+  it = Item{s_item[0], s_item[1], s_item[2]};
+  return it.row >= 0;
+}
+
+// Writes an item's winners: directly for a row of one item; else posts
+// them to the row's merge words, and the row's last item to finish decodes
+// the merged minimum and writes it. `lane` of a winner is its lane in the
+// swept chunk (face - chunk base on the raw list, which split items sweep).
+template <int PPT, class Pack>
+__device__ __forceinline__ void finish_item(const ItemList& L, const Item& it,
+                                            const Pack& pack, int (&best)[PPT],
+                                            int (&win)[PPT], int P, int cols,
+                                            int* packed_out, float* acc_out,
+                                            int* s_flag) {
+  if (it.n_segs == 1) {
+    write_winners<PPT>(pack, best, win, it.row, P, cols, packed_out, acc_out);
+    return;
+  }
+  unsigned long long* m = L.merge + (size_t)it.row * P;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int masked = best[k] & kTieMask;
+    if (masked < big_packed()) {
+      const unsigned hi = (unsigned)(masked | it.seg);
+      const unsigned lo = ((unsigned)(best[k] & kLaneMask) << 24) |
+                          (unsigned)win[k];
+      atomicMin(m + threadIdx.x + k * blockDim.x,
+                ((unsigned long long)hi << 32) | lo);
+    }
+  }
+  __threadfence();  // the posts are visible before the row's count moves
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *s_flag = atomicAdd(L.done + it.row, 1) == it.n_segs - 1;
+  }
+  __syncthreads();
+  if (!*s_flag) return;
+  __threadfence();
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const unsigned long long v = __ldcg(m + threadIdx.x + k * blockDim.x);
+    if (v == kNoHit) {
+      best[k] = big_packed();
+      win[k] = -1;
+    } else {
+      const unsigned lo = (unsigned)v;
+      best[k] = ((int)(v >> 32) & kTieMask) | (int)(lo >> 24);
+      win[k] = (int)(lo & 0xFFFFFFu);
+    }
+  }
+  write_winners<PPT>(pack, best, win, it.row, P, cols, packed_out, acc_out);
+}
+
+// The inputs and outputs of schedule_kernel. staged null: every row is cut
+// into segments of its raw list; else a row staging at most stage_cap faces
+// is one dense item. done and clear_staged may be null.
+struct ScheduleArgs {
+  const int* counts;
+  const int* staged;
+  int rows, n_chunks, seg, chunk, stage_cap;
+  int* order;
+  int* ends;
+  int* n_items;
+  int* done;          // zeroed
+  int* next;          // zeroed
+  int* clear_staged;  // zeroed (the count pass's output)
+};
+
+constexpr int kScheduleThreads = 1024;
+constexpr int kBuckets = 128;
+
+// Monotone in cost, 4 buckets per power of two: the sort key of a row.
+__device__ __forceinline__ int cost_bucket(int cost) {
+  if (cost < 4) return cost;
+  const int e = 31 - __clz(cost);
+  return 4 * e + (cost >> (e - 2)) - 8;
+}
+
+// A row's item count and the pixel-face pairs per pixel of its largest
+// item: min(trip, seg) raw chunks, or a dense row's staged faces.
+__device__ __forceinline__ int row_items(const ScheduleArgs& s, int r,
+                                         int* cost) {
+  const int trip = list_trip(s.counts[r], s.n_chunks);
+  if (s.staged != nullptr && s.staged[r] <= s.stage_cap) {
+    *cost = s.staged[r];
+    return 1;
+  }
+  *cost = min(trip, s.seg) * s.chunk;
+  return max(1, ceil_div(trip, s.seg));
+}
+
+// One CTA of kScheduleThreads: n_items per row; order, a stable sort of the
+// rows by descending cost_bucket (a counting sort: per tile of rows, each
+// warp ranks its lanes of one bucket with __match_any_sync); ends, the
+// inclusive prefix sum of n_items in that order.
+__global__ void __launch_bounds__(kScheduleThreads)
+schedule_kernel(const ScheduleArgs s) {
+  constexpr int kWarps = kScheduleThreads / 32;
+  __shared__ int s_base[kBuckets];
+  __shared__ int s_wcount[kWarps][kBuckets];
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_carry;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < kBuckets) s_base[tid] = 0;
+  if (tid == 0) {
+    *s.next = 0;
+    s_carry = 0;
+  }
+  __syncthreads();
+  for (int r = tid; r < s.rows; r += kScheduleThreads) {
+    int cost;
+    s.n_items[r] = row_items(s, r, &cost);
+    if (s.done != nullptr) s.done[r] = 0;
+    if (s.clear_staged != nullptr) s.clear_staged[r] = 0;
+    atomicAdd(&s_base[cost_bucket(cost)], 1);
+  }
+  __syncthreads();
+  if (tid == 0) {  // each bucket's first position, the largest bucket first
+    int sum = 0;
+    for (int b = kBuckets - 1; b >= 0; --b) {
+      const int c = s_base[b];
+      s_base[b] = sum;
+      sum += c;
+    }
+  }
+  for (int r0 = 0; r0 < s.rows; r0 += kScheduleThreads) {
+    const int r = r0 + tid;
+    int b = kBuckets;  // no row
+    if (r < s.rows) {
+      int cost;
+      row_items(s, r, &cost);
+      b = cost_bucket(cost);
+    }
+    for (int i = tid; i < kWarps * kBuckets; i += kScheduleThreads) {
+      s_wcount[i / kBuckets][i % kBuckets] = 0;
+    }
+    __syncthreads();
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    if (b < kBuckets && rank == 0) s_wcount[warp][b] = __popc(peers);
+    __syncthreads();
+    if (b < kBuckets) {
+      int pos = s_base[b] + rank;
+      for (int w = 0; w < warp; ++w) pos += s_wcount[w][b];
+      s.order[pos] = r;
+    }
+    __syncthreads();
+    if (tid < kBuckets) {
+      int sum = 0;
+      for (int w = 0; w < kWarps; ++w) sum += s_wcount[w][tid];
+      s_base[tid] += sum;
+    }
+    __syncthreads();
+  }
+  for (int p0 = 0; p0 < s.rows; p0 += kScheduleThreads) {
+    const int p = p0 + tid;
+    int v = p < s.rows ? s.n_items[s.order[p]] : 0;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += x;
+    }
+    if (lane == 31) s_warp[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      int t = s_warp[lane];
+      for (int d = 1; d < 32; d <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, t, d);
+        if (lane >= d) t += x;
+      }
+      s_warp[lane] = t;
+    }
+    __syncthreads();
+    const int incl = s_carry + (warp ? s_warp[warp - 1] : 0) + v;
+    if (p < s.rows) s.ends[p] = incl;
+    __syncthreads();
+    if (tid == kScheduleThreads - 1) s_carry = incl;
+    __syncthreads();
+  }
+}
+
+// All ones in the merge words of every row of several items.
+__global__ void merge_init_kernel(const int* n_items,
+                                  unsigned long long* merge, int P) {
+  if (n_items[blockIdx.x] < 2) return;
+  unsigned long long* m = merge + (size_t)blockIdx.x * P;
+  for (int p = threadIdx.x; p < P; p += blockDim.x) m[p] = kNoHit;
+}
+
+// Enqueues schedule_kernel and, when merge is given, merge_init_kernel;
+// returns a CUDA error code.
+inline int build_items(const ScheduleArgs& s, unsigned long long* merge,
+                       int P, cudaStream_t stream) {
+  schedule_kernel<<<1, kScheduleThreads, 0, stream>>>(s);
+  if (merge != nullptr) {
+    merge_init_kernel<<<s.rows, 256, 0, stream>>>(s.n_items, merge, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Resident CTAs of `kernel` on the whole card: the persistent grid.
+template <class Kernel>
+inline int persistent_grid(Kernel kernel, int threads, size_t dyn,
+                           int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, dyn);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper reports it
+    return (int)err;
+  }
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = sms * per_sm;
+  return 0;
+}
+
+// The longest list a row can hold (all chunks, or whole 8-chunk blocks past
+// the last chunk, or ccap listed chunks) in segments of seg positions.
+inline int max_segments(int n_chunks, int ccap, int seg) {
+  const int trip = n_chunks + 7 > ccap ? n_chunks + 7 : ccap;
+  return ceil_div(trip, seg);
+}
+
+// Pixels per thread that the entry points instantiate (checked before the
+// item list is built).
+inline bool ppt_instantiated(int ppt) {
+  return ppt == 1 || ppt == 2 || ppt == 4 || ppt == 8 || ppt == 16;
+}
+
+// The entry points' check on the split: segment indices fit the tie bits.
+inline bool segments_fit(int n_chunks, int ccap, int seg) {
+  return seg >= 1 && max_segments(n_chunks, ccap, seg) <= kMaxSegments;
 }
 
 }  // namespace raster

@@ -8,11 +8,11 @@
 //     _streamed_compact_tile_kernel): the pack chunk-major
 //     (Fp / chunk, cols, chunk); with bbox words the compacting body (stage
 //     cap 8192), without them the plain body, which is kernel A's function.
-// One kernel template serves both, on the pack layout; each has its own
-// entry point. It computes what the TPU kernels compute, not how: no
+// B and C share the staging and the sweep; each has its own kernel and
+// entry point. They compute what the TPU kernels compute, not how: no
 // one-hot or triangular matmuls, no staging of whole pack columns.
 //
-// Compacting body, per (view, tile) row (one CTA):
+// Compacting, per (view, tile) row:
 //   pass 1 walks the row's list in (position, lane) order, blockDim.x faces
 //     per round, skips the clamped duplicates at the tail of a block-mode
 //     list, and tests each face's u8-packed bbox word (x in tiles, y in
@@ -32,6 +32,22 @@
 // faces) are copied in with 4-byte cp.async, Hopper's counterpart of the TPU
 // kernel's double-buffered DMA. The chunk's invariants are then computed
 // once per CTA and every thread reuses them for its pixels.
+//
+// On this card kernel C is also bound by the imbalance of its rows: a row
+// that scans all 4,570 chunks of a 584,960-face scene, or stages more than
+// the cap and falls back to its raw list, is 10-100x the median row, and
+// with one CTA per row a few SMs ran for milliseconds after the rest had
+// drained. Kernel C therefore works in items (raster_common.cuh), each
+// item list built on the device by one CTA inside the entry point:
+//   - a count pass (raster_streamed_count_launch) splits pass 1 into items
+//     of `seg` list positions over every row and records each segment's
+//     staged count and each row's total, so every row is known to be dense
+//     or past the cap before the sweep starts;
+//   - the sweep (raster_streamed_launch) takes, longest first, one item per
+//     dense row (pass 1 again in the CTA, skipping segments that stage
+//     nothing, then the dense sweep) and one item per `seg` positions of
+//     every other row's raw list, merged exactly across the row's items.
+// Kernel B keeps one CTA per row.
 //
 // Ties and exactness as in kernel A: see raster_common.cuh. The winner is
 // kept as a face index and its pack columns copied at the end; `packed`'s
@@ -73,6 +89,15 @@ struct Args {
       stage_cap;
 };
 
+// Kernel C's split: segments of seg list positions; per row the staged
+// count (rows) and per (row, segment) the segment's staged count
+// (rows, max_seg), written by the count pass, read by the sweep.
+struct Split {
+  int seg, max_seg;
+  int* staged;
+  int* seg_counts;
+};
+
 // One sweep unit: n faces; a raw chunk's faces are base + lane, a dense
 // chunk's are idx[lane] (staged face ids in shared memory).
 struct Unit {
@@ -83,6 +108,13 @@ struct Unit {
 };
 
 typedef float GeoBuf[9][kMaxChunk];
+
+struct Shared {
+  GeoBuf geo[2];
+  float pre[10][kMaxChunk];
+  int wcount[2][kMaxWarps];
+  int item[4];
+};
 
 // Starts the copy of the unit's 9 geometry rows into buf: one commit group
 // per thread.
@@ -97,25 +129,26 @@ __device__ __forceinline__ void issue_geometry(GeoBuf& buf, const Pack& pack,
   cp_async_commit();
 }
 
-// Pass 1: the faces of the listed chunks whose bbox word overlaps tile
-// (tx, ty) go to s_stage in (position, lane) order, fresh positions only.
-// Returns their count, faces past stage_cap included.
-__device__ int stage_faces(const Schedule& sched, const int* bbox_view,
+// Pass 1 over list elements [e_begin, e_end) (element e = position
+// e / chunk, lane e % chunk): the faces whose bbox word overlaps tile
+// (tx, ty) go to s_stage from slot `base` on, in (position, lane) order,
+// fresh positions only, as long as slots stay below stage_cap. Returns base
+// plus their count, faces past stage_cap included.
+__device__ int stage_range(const Schedule& sched, const int* bbox_view,
                            int chunk, int tx, int ty, int tile, int stage_cap,
-                           int* s_stage, int (*s_wcount)[kMaxWarps]) {
+                           int e_begin, int e_end, int base, int* s_stage,
+                           int (*s_wcount)[kMaxWarps]) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int y_lo = (ty * tile) / 8;
   const int y_hi = (ty * tile + tile - 1) / 8;
-  const int total = sched.trip * chunk;
-  int base = 0;
   int parity = 0;
-  for (int e0 = 0; e0 < total; e0 += blockDim.x) {
+  for (int e0 = e_begin; e0 < e_end; e0 += blockDim.x) {
     const int e = e0 + threadIdx.x;
     bool m = false;
     int f = 0;
-    if (e < total) {
+    if (e < e_end) {
       const int i = e / chunk;
       const int raw = sched.raw(i);
       if (raw < sched.n_chunks) {  // not a clamped tail duplicate
@@ -146,107 +179,209 @@ __device__ int stage_faces(const Schedule& sched, const int* bbox_view,
   return base;
 }
 
-template <int PPT, class Pack>
-__global__ void __launch_bounds__(kMaxThreads)
-raster_staged_kernel(const Args a, const Pack pack) {
-  extern __shared__ int s_stage[];  // stage_cap staged face ids
-  __shared__ float s_geo[2][9][kMaxChunk];
-  __shared__ float s_pre[10][kMaxChunk];
-  __shared__ int s_wcount[2][kMaxWarps];
-
-  const int row = blockIdx.x;
-  const Schedule sched(a.ids + (size_t)row * a.ccap, a.counts[row], a.ccap,
-                       a.n_chunks);
-  const int view = row / a.tiles_per_view;
-  const int tiv = row - view * a.tiles_per_view;
-  const float ox = a.origins[view * 3 + 0];
-  const float oy = a.origins[view * 3 + 1];
-  const float oz = a.origins[view * 3 + 2];
-
-  float dx[PPT], dy[PPT], dz[PPT];
-  int best[PPT], win[PPT], cbest[PPT];
-  load_rays<PPT>(a.dx, a.dy, a.dz, (size_t)row * a.P, dx, dy, dz, best, win);
-
-  const int chunk = a.chunk;
-  int n_units = sched.trip;
-  bool dense = false;
-  int staged = 0;
-  if (a.bbox != nullptr) {
-    staged = stage_faces(sched, a.bbox + (size_t)view * a.Fp, chunk,
-                         tiv % a.n1d, tiv / a.n1d, a.tile, a.stage_cap,
-                         s_stage, s_wcount);
-    dense = staged <= a.stage_cap;  // else: the raw list, kernel A's result
-    if (dense) n_units = (staged + chunk - 1) / chunk;
-  }
-  auto unit_of = [&](int u) -> Unit {
-    if (dense) return Unit{min(chunk, staged - u * chunk), 0, s_stage + u * chunk};
-    return Unit{chunk, sched.chunk_of(u) * chunk, nullptr};
-  };
-
-  // pass 2: double-buffered sweep. Buffer (u+1)&1 was last read while
-  // computing unit u-1's invariants, before the barrier that follows them.
+// Pass 2: the double-buffered sweep of n_units units (unit_of(u) -> Unit),
+// folded into best/win. Buffer (u+1)&1 was last read while computing unit
+// u-1's invariants, before the barrier that follows them.
+template <int PPT, class Pack, class UnitOf>
+__device__ __forceinline__ void sweep_units(Shared& sh, const Pack& pack,
+                                            int n_units, UnitOf unit_of,
+                                            float ox, float oy, float oz,
+                                            const float (&dx)[PPT],
+                                            const float (&dy)[PPT],
+                                            const float (&dz)[PPT],
+                                            int (&best)[PPT],
+                                            int (&win)[PPT]) {
+  int cbest[PPT];
   Unit cur = n_units > 0 ? unit_of(0) : Unit{0, 0, nullptr};
-  if (n_units > 0) issue_geometry(s_geo[0], pack, cur);
+  if (n_units > 0) issue_geometry(sh.geo[0], pack, cur);
   for (int u = 0; u < n_units; ++u) {
     Unit next = cur;
     if (u + 1 < n_units) {
       next = unit_of(u + 1);
-      issue_geometry(s_geo[(u + 1) & 1], pack, next);
+      issue_geometry(sh.geo[(u + 1) & 1], pack, next);
       cp_async_wait<1>();  // unit u's copy has landed; u+1's may be in flight
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // every thread's copies are visible; s_pre is free
-    const GeoBuf& g = s_geo[u & 1];
+    __syncthreads();  // every thread's copies are visible; pre is free
+    const GeoBuf& g = sh.geo[u & 1];
     for (int l = threadIdx.x; l < cur.n; l += blockDim.x) {
-      mt_invariants(s_pre, l, g[0][l], g[1][l], g[2][l], g[3][l], g[4][l],
+      mt_invariants(sh.pre, l, g[0][l], g[1][l], g[2][l], g[3][l], g[4][l],
                     g[5][l], g[6][l], g[7][l], g[8][l], ox, oy, oz);
     }
     __syncthreads();
-    sweep_chunk<PPT>(s_pre, cur.n, dx, dy, dz, cbest);
+    sweep_chunk<PPT>(sh.pre, cur.n, dx, dy, dz, cbest);
     fold_chunk<PPT>(cbest, best, win, [&](int lane) { return cur.face(lane); });
     cur = next;
   }
-  write_winners<PPT>(pack, best, win, row, a.P, a.cols, a.packed, a.acc);
 }
 
+// A row's tile, ray origin and rays.
+template <int PPT>
+struct RowSetup {
+  Schedule sched;
+  int view, tx, ty;
+  float ox, oy, oz;
+  float dx[PPT], dy[PPT], dz[PPT];
+  int best[PPT], win[PPT];
+
+  __device__ RowSetup(const Args& a, int row)
+      : sched(a.ids + (size_t)row * a.ccap, a.counts[row], a.ccap,
+              a.n_chunks) {
+    view = row / a.tiles_per_view;
+    const int tiv = row - view * a.tiles_per_view;
+    tx = tiv % a.n1d;
+    ty = tiv / a.n1d;
+    ox = a.origins[view * 3 + 0];
+    oy = a.origins[view * 3 + 1];
+    oz = a.origins[view * 3 + 2];
+    load_rays<PPT>(a.dx, a.dy, a.dz, (size_t)row * a.P, dx, dy, dz, best,
+                   win);
+  }
+};
+
+// Kernel B: one CTA per row; pass 1 over the whole list, then the dense
+// sweep or, past the cap, the raw list.
 template <int PPT, class Pack>
-int launch_ppt(const Args& a, const Pack& pack, int rows, int threads,
-               size_t dyn, cudaStream_t stream) {
-  auto kernel = raster_staged_kernel<PPT, Pack>;
+__global__ void __launch_bounds__(kMaxThreads)
+raster_staged_kernel(const Args a, const Pack pack) {
+  extern __shared__ int s_stage[];  // stage_cap staged face ids
+  __shared__ Shared sh;
+
+  const int row = blockIdx.x;
+  RowSetup<PPT> r(a, row);
+  const int chunk = a.chunk;
+  const int staged = stage_range(
+      r.sched, a.bbox + (size_t)r.view * a.Fp, chunk, r.tx, r.ty, a.tile,
+      a.stage_cap, 0, r.sched.trip * chunk, 0, s_stage, sh.wcount);
+  const bool dense = staged <= a.stage_cap;  // else: kernel A's result
+  const int n_units = dense ? (staged + chunk - 1) / chunk : r.sched.trip;
+  sweep_units<PPT>(sh, pack, n_units, [&](int u) -> Unit {
+    if (dense) return Unit{min(chunk, staged - u * chunk), 0, s_stage + u * chunk};
+    return Unit{chunk, r.sched.chunk_of(u) * chunk, nullptr};
+  }, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.best, r.win);
+  write_winners<PPT>(pack, r.best, r.win, row, a.P, a.cols, a.packed, a.acc);
+}
+
+// Kernel C's count pass: per item (row, segment), the segment's staged
+// count into seg_counts and the row's total into staged (zero before).
+__global__ void __launch_bounds__(kMaxThreads)
+raster_count_kernel(const Args a, const Split sp, const ItemList items) {
+  __shared__ int s_wcount[2][kMaxWarps];
+  __shared__ int s_item[4];
+  Item it;
+  bool first = true;
+  while (next_item(items, s_item, it, first)) {
+    const int row = it.row;
+    const Schedule sched(a.ids + (size_t)row * a.ccap, a.counts[row], a.ccap,
+                         a.n_chunks);
+    const int view = row / a.tiles_per_view;
+    const int tiv = row - view * a.tiles_per_view;
+    const int i0 = it.seg * sp.seg;
+    const int i1 = min(sched.trip, i0 + sp.seg);
+    const int n = stage_range(sched, a.bbox + (size_t)view * a.Fp, a.chunk,
+                              tiv % a.n1d, tiv / a.n1d, a.tile, 0,
+                              i0 * a.chunk, i1 * a.chunk, 0, nullptr,
+                              s_wcount);
+    if (threadIdx.x == 0) {
+      sp.seg_counts[(size_t)row * sp.max_seg + it.seg] = n;
+      if (n) atomicAdd(sp.staged + row, n);
+    }
+  }
+}
+
+// Kernel C's sweep: per item, a dense row (compacting body, staged <=
+// stage_cap: pass 1 over the segments that stage anything, then the dense
+// sweep) or segment it.seg of a row's raw list.
+template <int PPT>
+__global__ void __launch_bounds__(kMaxThreads)
+raster_streamed_kernel(const Args a, const ChunkMajor pack, const Split sp,
+                       const ItemList items) {
+  extern __shared__ int s_stage[];  // stage_cap staged face ids
+  __shared__ Shared sh;
+
+  const int chunk = a.chunk;
+  Item it;
+  bool first = true;
+  while (next_item(items, sh.item, it, first)) {
+    RowSetup<PPT> r(a, it.row);
+    const bool dense = a.bbox != nullptr && sp.staged[it.row] <= a.stage_cap;
+    int n_units, staged = 0, i0 = 0;
+    if (dense) {
+      const int* sc = sp.seg_counts + (size_t)it.row * sp.max_seg;
+      const int n_segs = ceil_div(r.sched.trip, sp.seg);
+      for (int s = 0; s < n_segs; ++s) {
+        if (sc[s] == 0) continue;
+        staged = stage_range(
+            r.sched, a.bbox + (size_t)r.view * a.Fp, chunk, r.tx, r.ty,
+            a.tile, a.stage_cap, s * sp.seg * chunk,
+            min(r.sched.trip, (s + 1) * sp.seg) * chunk, staged, s_stage,
+            sh.wcount);
+      }
+      n_units = (staged + chunk - 1) / chunk;
+    } else {
+      i0 = it.seg * sp.seg;
+      n_units = min(r.sched.trip, i0 + sp.seg) - i0;
+    }
+    sweep_units<PPT>(sh, pack, n_units, [&](int u) -> Unit {
+      if (dense) return Unit{min(chunk, staged - u * chunk), 0, s_stage + u * chunk};
+      return Unit{chunk, r.sched.chunk_of(i0 + u) * chunk, nullptr};
+    }, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.best, r.win);
+    finish_item<PPT>(items, it, pack, r.best, r.win, a.P, a.cols, a.packed,
+                     a.acc, sh.item + 3);
+  }
+}
+
+// Refuses what no body takes; threads per CTA on success, else 0.
+int check_args(const Args& a, int rows) {
+  if (rows <= 0 || a.P <= 0 || a.chunk < 1 || a.chunk > kMaxChunk ||
+      a.ccap < 1 || a.n_chunks < 1 || a.cols < 10 || a.stage_cap < 1 ||
+      a.tile * a.tile != a.P || a.n1d * a.n1d != a.tiles_per_view ||
+      a.n1d > 256) {
+    return 0;
+  }
+  const int threads = a.P < kMaxThreads ? a.P : kMaxThreads;
+  // whole warps: pass 1 ballots with every lane
+  if (a.P % threads != 0 || threads % 32 != 0 ||
+      !ppt_instantiated(a.P / threads)) {
+    return 0;
+  }
+  return threads;
+}
+
+template <class Kernel>
+int allow_shared(Kernel kernel, size_t dyn) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper reports it, no later launch
     return (int)err;
   }
+  return 0;
+}
+
+template <int PPT>
+int launch_b(const Args& a, const RowMajor& pack, int rows, int threads,
+             cudaStream_t stream) {
+  auto kernel = raster_staged_kernel<PPT, RowMajor>;
+  const size_t dyn = (size_t)a.stage_cap * sizeof(int);
+  const int err = allow_shared(kernel, dyn);
+  if (err != 0) return err;
   kernel<<<rows, threads, dyn, stream>>>(a, pack);
   return (int)cudaGetLastError();
 }
 
-template <class Pack>
-int launch(const Args& a, const Pack& pack, int rows, void* stream) {
-  if (rows <= 0 || a.P <= 0 || a.chunk < 1 || a.chunk > kMaxChunk ||
-      a.ccap < 1 || a.n_chunks < 1 || a.cols < 10 || a.stage_cap < 1 ||
-      a.tile * a.tile != a.P || a.n1d * a.n1d != a.tiles_per_view ||
-      a.n1d > 256) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int threads = a.P < kMaxThreads ? a.P : kMaxThreads;
-  // whole warps: pass 1 ballots with every lane
-  if (a.P % threads != 0 || threads % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+template <int PPT>
+int launch_c(const Args& a, const ChunkMajor& pack, const Split& sp,
+             const ItemList& items, int threads, cudaStream_t stream) {
+  auto kernel = raster_streamed_kernel<PPT>;
   const size_t dyn = a.bbox ? (size_t)a.stage_cap * sizeof(int) : 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a.P / threads) {
-    case 1: return launch_ppt<1>(a, pack, rows, threads, dyn, s);
-    case 2: return launch_ppt<2>(a, pack, rows, threads, dyn, s);
-    case 4: return launch_ppt<4>(a, pack, rows, threads, dyn, s);
-    case 8: return launch_ppt<8>(a, pack, rows, threads, dyn, s);
-    case 16: return launch_ppt<16>(a, pack, rows, threads, dyn, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int err = allow_shared(kernel, dyn);
+  int grid = 0;
+  if (err == 0) err = persistent_grid(kernel, threads, dyn, &grid);
+  if (err != 0) return err;
+  kernel<<<grid, threads, dyn, stream>>>(a, pack, sp, items);
+  return (int)cudaGetLastError();
 }
 
 Args make_args(const int* ids, const int* counts, const float* origins,
@@ -270,23 +405,92 @@ extern "C" int raster_compact_launch(
     const float* dz, int* packed, float* acc, int rows, int P, int cols,
     int Fp, int chunk, int ccap, int tiles_per_view, int n_chunks, int tile,
     int n1d, int stage_cap, void* stream) {
-  if (bbox == nullptr) return (int)cudaErrorInvalidValue;
   const Args a = make_args(ids, counts, origins, bbox, dx, dy, dz, packed,
                            acc, P, cols, Fp, chunk, ccap, tiles_per_view,
                            n_chunks, tile, n1d, stage_cap);
-  return launch(a, RowMajor{pack, Fp}, rows, stream);
+  const int threads = check_args(a, rows);
+  if (bbox == nullptr || threads == 0) return (int)cudaErrorInvalidValue;
+  const RowMajor geo{pack, Fp};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (P / threads) {
+    case 1: return launch_b<1>(a, geo, rows, threads, s);
+    case 2: return launch_b<2>(a, geo, rows, threads, s);
+    case 4: return launch_b<4>(a, geo, rows, threads, s);
+    case 8: return launch_b<8>(a, geo, rows, threads, s);
+    case 16: return launch_b<16>(a, geo, rows, threads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Kernel C. As kernel B, but pack is chunk-major (Fp / chunk, cols, chunk)
-// and bbox may be null (the plain body).
+// Kernel C's count pass (compacting body only): builds the item list of
+// `seg` list positions over every row (schedule_kernel without staged
+// counts; order, ends, n_items: rows each; next: 1), clears staged (rows)
+// and counts into it each row's staged faces, writing seg_counts (rows,
+// max_segments) where a segment exists; all on `stream`. Other arguments
+// as raster_streamed_launch.
+extern "C" int raster_streamed_count_launch(
+    const int* ids, const int* counts, const int* bbox, int* order,
+    int* ends, int* n_items, int* next, int* staged, int* seg_counts,
+    int rows, int P, int Fp, int chunk, int ccap, int tiles_per_view,
+    int n_chunks, int tile, int n1d, int seg, void* stream) {
+  const Args a = make_args(ids, counts, nullptr, bbox, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, P, 10, Fp, chunk, ccap,
+                           tiles_per_view, n_chunks, tile, n1d, 1);
+  const int threads = check_args(a, rows);
+  if (bbox == nullptr || threads == 0 || !segments_fit(n_chunks, ccap, seg)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Split sp{seg, max_segments(n_chunks, ccap, seg), staged, seg_counts};
+  const ItemList items{order, ends, rows, next, nullptr, nullptr};
+  int grid = 0;
+  int err = persistent_grid(raster_count_kernel, threads, 0, &grid);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ScheduleArgs sa{counts, nullptr, rows, n_chunks, seg, chunk, 0,
+                        order, ends, n_items, nullptr, next, staged};
+  err = build_items(sa, nullptr, P, s);
+  if (err != 0) return err;
+  raster_count_kernel<<<grid, threads, 0, s>>>(a, sp, items);
+  return (int)cudaGetLastError();
+}
+
+// Kernel C's sweep. As kernel B, but pack is chunk-major
+// (Fp / chunk, cols, chunk) and bbox may be null (the plain body). Builds
+// the item list (schedule_kernel with, for the compacting body, the count
+// pass's staged counts) and fills the merge words, then sweeps, all on
+// `stream`. The caller allocates the item list (order, ends, n_items,
+// done: rows each; next: 1) and the merge words (rows, P); staged and
+// seg_counts come from the count pass (null for the plain body).
 extern "C" int raster_streamed_launch(
     const int* ids, const int* counts, const float* origins,
     const float* pack, const int* bbox, const float* dx, const float* dy,
-    const float* dz, int* packed, float* acc, int rows, int P, int cols,
-    int Fp, int chunk, int ccap, int tiles_per_view, int n_chunks, int tile,
-    int n1d, int stage_cap, void* stream) {
+    const float* dz, int* order, int* ends, int* n_items, int* done,
+    int* next, unsigned long long* merge, int* staged, int* seg_counts,
+    int* packed, float* acc, int rows, int P, int cols, int Fp, int chunk,
+    int ccap, int tiles_per_view, int n_chunks, int tile, int n1d,
+    int stage_cap, int seg, void* stream) {
   const Args a = make_args(ids, counts, origins, bbox, dx, dy, dz, packed,
                            acc, P, cols, Fp, chunk, ccap, tiles_per_view,
                            n_chunks, tile, n1d, stage_cap);
-  return launch(a, ChunkMajor{pack, cols, chunk}, rows, stream);
+  const int threads = check_args(a, rows);
+  if (threads == 0 || !segments_fit(n_chunks, ccap, seg) ||
+      (bbox != nullptr) != (staged != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ChunkMajor geo{pack, cols, chunk};
+  const Split sp{seg, max_segments(n_chunks, ccap, seg), staged, seg_counts};
+  const ItemList items{order, ends, rows, next, done, merge};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ScheduleArgs sa{counts, staged, rows, n_chunks, seg, chunk,
+                        stage_cap, order, ends, n_items, done, next, nullptr};
+  const int err = build_items(sa, merge, P, s);
+  if (err != 0) return err;
+  switch (P / threads) {
+    case 1: return launch_c<1>(a, geo, sp, items, threads, s);
+    case 2: return launch_c<2>(a, geo, sp, items, threads, s);
+    case 4: return launch_c<4>(a, geo, sp, items, threads, s);
+    case 8: return launch_c<8>(a, geo, sp, items, threads, s);
+    case 16: return launch_c<16>(a, geo, sp, items, threads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

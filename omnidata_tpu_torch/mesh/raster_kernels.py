@@ -34,11 +34,18 @@ Each wrapper runs its CUDA kernel (``csrc/raster_chunklist.cu`` for A,
 ``csrc/raster_compact.cu`` for B and C) for CUDA tensors and its plain
 version for CPU tensors. Both compute the same operations in the same order
 without fused multiply-adds, so on one card they agree bit for bit.
+
+Kernels A and C cut each row's raw-list sweep into work items of at most
+``SPLIT_SEG`` list positions (``split_schedule``; C's compacting body keeps
+one item per row that stages at most its cap) and merge a row's items in
+segment order, which gives the sequential sweep's winners exactly
+(``raster_tiles_split_reference`` is that merge, plainly).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -56,6 +63,17 @@ _INT32_MAX = 2**31 - 1
 CHUNK_LIST_CAP = 48  # default chunks listed per tile (raster.admission_lists)
 STAGE_CAP = 512  # compacting kernel B: staged faces per row before fallback
 STREAMED_STAGE_CAP = 8192  # kernel C's compacting body
+# list positions per work item of kernels A and C (about 2.1 M pixel-face
+# pairs at chunk 128 and 1,024 pixels a tile); an argument of the wrappers
+# only so that tests can force every multi-chunk row to split
+SPLIT_SEG = 16
+_MAX_SEGMENTS = 1 << 13  # segment indices ride in the key's 13 tie bits
+
+
+def list_trips(counts: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """List positions each row sweeps (see ``chunk_schedule``)."""
+    return torch.where(counts == -1, n_chunks,
+                       torch.where(counts < -1, (-counts - 2) * 8, counts))
 
 
 def chunk_schedule(ids: torch.Tensor, counts: torch.Tensor, n_chunks: int):
@@ -72,8 +90,7 @@ def chunk_schedule(ids: torch.Tensor, counts: torch.Tensor, n_chunks: int):
     ccap = ids.shape[1]
     full = counts == -1
     block = counts < -1
-    trip = torch.where(full, n_chunks,
-                       torch.where(block, (-counts - 2) * 8, counts))
+    trip = list_trips(counts, n_chunks)
 
     def raw_of(i: int) -> torch.Tensor:
         j = torch.clamp(torch.where(block, i // 8, i), max=ccap - 1)
@@ -152,6 +169,62 @@ def stage_faces(ids, counts, bbox_words, n_chunks: int, chunk: int,
         slots[r[:, None].expand_as(faces)[keep], pos[keep]] = faces[keep]
         staged[r] += m.sum(1)
     return staged, slots
+
+
+class SplitSchedule(NamedTuple):
+    """Work items of one launch of kernel A or C. Item j belongs to row
+    order[p] for the first p with ends[p] > j and is that row's segment
+    j - (ends[p] - n_items[order[p]])."""
+
+    order: torch.Tensor  # (rows,) int32: rows, largest items first
+    ends: torch.Tensor  # (rows,) int32: inclusive prefix sum of n_items[order]
+    n_items: torch.Tensor  # (rows,) int32: items per row, >= 1
+    # (rows,) faces staged per row, past the cap included (compacting body;
+    # a row staging at most its cap is one dense item), else None
+    staged: torch.Tensor | None
+
+
+def cost_bucket(cost: torch.Tensor) -> torch.Tensor:
+    """The items' sort key: monotone in cost, 4 buckets per power of two
+    (0..127 for int32 costs), as the kernels' schedule computes it."""
+    cost = cost.long()
+    e = torch.frexp(cost.double().clamp(min=1))[1].long() - 1  # floor(log2)
+    top = cost >> torch.clamp(e - 2, min=0)
+    return torch.where(cost < 4, cost, 4 * e + top - 8)
+
+
+def split_schedule(counts, staged, n_chunks: int, seg: int,
+                   chunk: int = 128,
+                   stage_cap: int = STREAMED_STAGE_CAP) -> SplitSchedule:
+    """The item list of kernels A and C, plainly (the kernels build it on
+    the card, ``schedule_kernel`` in ``csrc/raster_common.cuh``, and equal
+    this bit for bit): each row's list cut into ceil(trip / seg) segments
+    of at most seg positions (one item for an empty list), except that with
+    ``staged`` (kernel C's compacting body: faces staged per row) a row
+    staging at most stage_cap faces is one dense item. Rows are in a stable
+    sort by the ``cost_bucket`` of the pixel-face pairs of their largest
+    item (min(trip, seg) * chunk faces for a raw-list row, ``staged`` for a
+    dense one), largest first, so the persistent CTAs start the long work
+    first."""
+    trip = list_trips(counts, n_chunks).long()
+    n_items = torch.clamp((trip + seg - 1) // seg, min=1)
+    cost = torch.clamp(trip, max=seg) * chunk
+    if staged is not None:
+        dense = staged.long() <= stage_cap
+        n_items = torch.where(dense, 1, n_items)
+        cost = torch.where(dense, staged.long(), cost)
+    order = torch.argsort(cost_bucket(cost), descending=True, stable=True)
+    ends = torch.cumsum(n_items[order], 0)
+    return SplitSchedule(order.int(), ends.int(), n_items.int(), staged)
+
+
+def schedule_items(sched: SplitSchedule):
+    """Every item of a schedule in the order the kernels take them -> (row,
+    segment) int64 tensors (syncs with the host)."""
+    n = sched.n_items[sched.order.long()].long()
+    rows = torch.repeat_interleave(sched.order.long(), n)
+    start = torch.repeat_interleave(sched.ends.long() - n, n)
+    return rows, torch.arange(rows.shape[0], device=rows.device) - start
 
 
 def _mt_precompute(rows, ox, oy, oz):
@@ -300,74 +373,178 @@ def raster_tiles_streamed_reference(ids, counts, origins, pack, dir_planes,
         tiles_per_view, stage_cap)
 
 
+def raster_tiles_split_reference(ids, counts, origins, pack, dir_planes,
+                                 chunk: int = 128, tiles_per_view: int = 64,
+                                 seg: int = SPLIT_SEG, bbox_words=None,
+                                 stage_cap: int = STREAMED_STAGE_CAP):
+    """Plain version of the work items of kernels A and C: the items of
+    ``split_schedule`` (with ``stage_faces``' counts when bbox_words are
+    given), each swept from scratch over its segment of the row's raw list
+    or, for a dense row, over its staged faces; then each row's segments
+    folded in segment order with the strict masked improvement. pack (COLS,
+    Fp) or chunk-major (NC, COLS, chunk). Equal bit for bit to
+    ``raster_tiles_chunklist_reference`` (no bbox_words) and
+    ``raster_tiles_streamed_reference`` at any seg."""
+    if pack.dim() == 3:
+        pack = pack.permute(1, 0, 2).reshape(pack.shape[1], -1)
+    rows, P = dir_planes[0].shape
+    dev = pack.device
+    n_chunks = pack.shape[1] // chunk
+    o = _row_origins(origins, rows, tiles_per_view)
+    staged = slots = None
+    if bbox_words is not None:
+        staged, slots = stage_faces(ids, counts, bbox_words, n_chunks, chunk,
+                                    tiles_per_view, math.isqrt(P), stage_cap)
+    sched = split_schedule(counts, staged, n_chunks, seg, chunk, stage_cap)
+    item_row, item_seg = schedule_items(sched)
+    best = torch.full((rows, P), BIG_PACKED, dtype=torch.int32, device=dev)
+    win = torch.zeros((rows, P), dtype=torch.int64, device=dev)
+    dense = (torch.zeros(rows, dtype=torch.bool, device=dev)
+             if staged is None else staged <= stage_cap)
+    if dense.any():
+        slots = torch.nn.functional.pad(slots[dense], (0, -stage_cap % chunk),
+                                        value=-1)
+        best[dense], win[dense] = _sweep(
+            o[dense], [d[dense] for d in dir_planes], pack,
+            (staged[dense] + chunk - 1) // chunk,
+            lambda i, r: slots[r, i * chunk:(i + 1) * chunk])
+    raw = ~dense[item_row]
+    item_row, item_seg = item_row[raw], item_seg[raw]
+    trip, chunk_of, _ = chunk_schedule(ids, counts, n_chunks)
+    lane = torch.arange(chunk, device=dev)
+    for s in range(int(item_seg.max()) + 1 if item_seg.numel() else 0):
+        r = item_row[item_seg == s]
+        b, w = _sweep(o[r], [d[r] for d in dir_planes], pack,
+                      torch.clamp(trip[r] - s * seg, max=seg),
+                      lambda i, rr: chunk_of(s * seg + i)[r[rr], None].long()
+                      * chunk + lane)
+        improved = (b & TIE_MASK) < (best[r] & TIE_MASK)
+        best[r] = torch.where(improved, b, best[r])
+        win[r] = torch.where(improved, w, win[r])
+    return best, _winner_columns(best, win, pack)
+
+
 def _check_inputs(name, ids, counts, origins, pack, cols, Fp, dir_planes,
-                  chunk, tiles_per_view, bbox_words=None, stage_cap=1):
+                  chunk, tiles_per_view, bbox_words=None, stage_cap=1,
+                  seg=None):
+    """Raise ValueError on what no kernel takes (each message formed only
+    on failure: the check runs on every launch)."""
     rows, P = dir_planes[0].shape
     dev = pack.device
     tensors = (ids, counts, origins, pack, *dir_planes)
     checks = [
         (ids.dtype == torch.int32 and ids.dim() == 2 and ids.shape[0] == rows,
-         f"ids must be int32 (rows={rows}, ccap), got {ids.dtype} {tuple(ids.shape)}"),
-        (counts.dtype == torch.int32 and tuple(counts.shape) == (rows,),
-         f"counts must be int32 ({rows},), got {counts.dtype} {tuple(counts.shape)}"),
+         lambda: f"ids must be int32 (rows={rows}, ccap), got {ids.dtype} "
+         f"{tuple(ids.shape)}"),
+        (counts.dtype == torch.int32 and counts.shape == (rows,),
+         lambda: f"counts must be int32 ({rows},), got {counts.dtype} "
+         f"{tuple(counts.shape)}"),
         (origins.dtype == torch.float32 and origins.dim() == 2
          and origins.shape[1] == 3 and origins.shape[0] * tiles_per_view == rows,
-         f"origins must be float32 ({rows // tiles_per_view}, 3), got "
+         lambda: f"origins must be float32 ({rows // tiles_per_view}, 3), got "
          f"{origins.dtype} {tuple(origins.shape)}"),
         (pack.dtype == torch.float32 and cols >= 10 and (cols - 10) % 3 == 0,
-         f"pack must be float32 with 10 + 3C columns, got {pack.dtype} "
+         lambda: f"pack must be float32 with 10 + 3C columns, got {pack.dtype} "
          f"{tuple(pack.shape)}"),
         (0 < chunk <= (1 << _LANE_BITS) and Fp % chunk == 0,
-         f"chunk {chunk} must be in 1..128 and divide Fp={Fp}"),
-        (Fp < (1 << 24), f"face ids ride as float32: Fp={Fp} must be < 2^24"),
-        (all(d.dtype == torch.float32 and tuple(d.shape) == (rows, P)
-             for d in dir_planes), "dir planes must be 3 float32 (rows, P)"),
+         lambda: f"chunk {chunk} must be in 1..128 and divide Fp={Fp}"),
+        (Fp < (1 << 24),
+         lambda: f"face ids ride as float32: Fp={Fp} must be < 2^24"),
+        (all(d.dtype == torch.float32 and d.shape == (rows, P)
+             for d in dir_planes), lambda: "dir planes must be 3 float32 (rows, P)"),
     ]
     if bbox_words is not None:
         tile, n1d = math.isqrt(P), math.isqrt(tiles_per_view)
         tensors += (bbox_words,)
         checks += [
             (bbox_words.dtype == torch.int32
-             and tuple(bbox_words.shape) == (origins.shape[0], Fp),
-             f"bbox_words must be int32 ({origins.shape[0]}, {Fp}), got "
+             and bbox_words.shape == (origins.shape[0], Fp),
+             lambda: f"bbox_words must be int32 ({origins.shape[0]}, {Fp}), "
+             f"got "
              f"{bbox_words.dtype} {tuple(bbox_words.shape)}"),
             (tile * tile == P and n1d * n1d == tiles_per_view and n1d <= 256,
-             f"tiles must be square, at most 256 a side: P={P}, "
+             lambda: f"tiles must be square, at most 256 a side: P={P}, "
              f"tiles_per_view={tiles_per_view}"),
-            (stage_cap >= 1, f"stage_cap must be >= 1, got {stage_cap}"),
+            (stage_cap >= 1, lambda: f"stage_cap must be >= 1, got {stage_cap}"),
         ]
+    if seg is not None:
+        longest = max(ids.shape[1], Fp // chunk + 7)
+        checks.append((seg >= 1 and -(-longest // seg) <= _MAX_SEGMENTS,
+                       lambda: f"seg {seg} must be >= 1 and cut a list of "
+                       f"{longest} positions into at most {_MAX_SEGMENTS} "
+                       "segments"))
     checks += [
-        (all(t.device == dev for t in tensors), "all inputs must be on one device"),
-        (all(t.is_contiguous() for t in tensors), "all inputs must be contiguous"),
+        (all(t.device == dev for t in tensors),
+         lambda: "all inputs must be on one device"),
+        (all(t.is_contiguous() for t in tensors),
+         lambda: "all inputs must be contiguous"),
     ]
     for ok, msg in checks:
         if not ok:
-            raise ValueError(f"{name}: {msg}")
+            raise ValueError(f"{name}: {msg()}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for {dev}")
 
 
-def _launch(lib: str, symbol: str, ptrs, ints, rows, P, cols, dev):
-    """Allocate the outputs and call a kernel's C entry point (pointers...,
-    packed, acc, ints..., stream), which returns a CUDA error code."""
+def _call(lib: str, symbol: str, ptrs, ints) -> None:
+    """Call a kernel's C entry point (pointers..., ints..., stream) on the
+    current device's current stream (the caller has made the inputs'
+    device current); raise on the CUDA error code it returns."""
     from .._build import load_kernel_library
 
     fn = getattr(load_kernel_library(lib), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 2)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
                    + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    packed = torch.empty((rows, P), dtype=torch.int32, device=dev)
-    acc = torch.empty((rows, cols, P), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*ptrs, packed.data_ptr(), acc.data_ptr(), *ints, stream)
+    err = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{lib} kernel launch failed: CUDA error {err}")
+
+
+def _launch(lib: str, symbol: str, ptrs, ints, rows, P, cols, dev):
+    """Allocate the outputs and call a kernel's C entry point (pointers...,
+    packed, acc, ints..., stream) as ``_call`` does."""
+    packed = torch.empty((rows, P), dtype=torch.int32, device=dev)
+    acc = torch.empty((rows, cols, P), dtype=torch.float32, device=dev)
+    _call(lib, symbol, [*ptrs, packed.data_ptr(), acc.data_ptr()], ints)
     return packed, acc
 
 
+class _Items(NamedTuple):
+    """Uninitialised memory for the item list that an entry point builds
+    and the merge words it fills: ``work`` holds order, ends, n_items, done
+    (rows each) and next (1). The caller holds it until the launch is
+    enqueued; the caching allocator then keeps the memory for this
+    stream's kernels."""
+
+    work: torch.Tensor
+    merge: torch.Tensor
+    rows: int
+
+    @staticmethod
+    def new(rows: int, P: int, dev) -> "_Items":
+        return _Items(torch.empty(4 * rows + 1, dtype=torch.int32, device=dev),
+                      torch.empty((rows, P), dtype=torch.int64, device=dev),
+                      rows)
+
+    def ptrs(self) -> list:
+        """order, ends, n_items, done, next."""
+        p = self.work.data_ptr()
+        return [p + 4 * self.rows * i for i in range(5)]
+
+    def schedule(self, staged=None) -> SplitSchedule:
+        r = self.rows
+        return SplitSchedule(self.work[:r], self.work[r:2 * r],
+                             self.work[2 * r:3 * r], staged)
+
+
+def _ptrs(*tensors) -> list:
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
 def raster_tiles_chunklist(ids, counts, origins, pack, dir_planes,
-                           chunk: int = 128, tiles_per_view: int = 64):
+                           chunk: int = 128, tiles_per_view: int = 64, *,
+                           seg: int = SPLIT_SEG):
     """Kernel A over all (view, tile) rows.
 
     ids (rows, ccap) int32, non-negative chunk (or block) ids as
@@ -379,25 +556,33 @@ def raster_tiles_chunklist(ids, counts, origins, pack, dir_planes,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which is built on first use, and raise if it fails to build or launch.
-    Each launch adds one to ``raster_tiles_chunklist.launches``."""
+    The launch builds the items of ``split_schedule`` on the card
+    (segments of ``seg`` list positions; seg is for tests) and sweeps them.
+    Each launch adds one to ``raster_tiles_chunklist.launches`` and leaves
+    its schedule in ``raster_tiles_chunklist.last_schedule``."""
     cols, Fp = pack.shape
     _check_inputs("raster_tiles_chunklist", ids, counts, origins, pack, cols,
-                  Fp, dir_planes, chunk, tiles_per_view)
+                  Fp, dir_planes, chunk, tiles_per_view, seg=seg)
     if pack.device.type == "cpu":
         return raster_tiles_chunklist_reference(
             ids, counts, origins, pack, dir_planes, chunk, tiles_per_view)
     rows, P = dir_planes[0].shape
-    out = _launch(
-        "raster_chunklist", "raster_chunklist_launch",
-        [ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
-         pack.data_ptr(), *(d.data_ptr() for d in dir_planes)],
-        [rows, P, cols, Fp, chunk, ids.shape[1], tiles_per_view, Fp // chunk],
-        rows, P, cols, pack.device)
+    with torch.cuda.device(pack.device):
+        items = _Items.new(rows, P, pack.device)
+        out = _launch(
+            "raster_chunklist", "raster_chunklist_launch",
+            [*_ptrs(ids, counts, origins, pack, *dir_planes), *items.ptrs(),
+             items.merge.data_ptr()],
+            [rows, P, cols, Fp, chunk, ids.shape[1], tiles_per_view, Fp // chunk,
+             seg],
+            rows, P, cols, pack.device)
     raster_tiles_chunklist.launches += 1
+    raster_tiles_chunklist.last_schedule = items.schedule()
     return out
 
 
 raster_tiles_chunklist.launches = 0
+raster_tiles_chunklist.last_schedule = None
 
 
 def _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
@@ -422,14 +607,15 @@ def raster_tiles_compact(ids, counts, origins, pack, bbox_words, dir_planes,
             ids, counts, origins, pack, bbox_words, dir_planes, chunk,
             tiles_per_view, stage_cap)
     rows, P = dir_planes[0].shape
-    out = _launch(
-        "raster_compact", "raster_compact_launch",
-        [ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
-         pack.data_ptr(), bbox_words.data_ptr(),
-         *(d.data_ptr() for d in dir_planes)],
-        _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
-                     stage_cap),
-        rows, P, cols, pack.device)
+    with torch.cuda.device(pack.device):
+        out = _launch(
+            "raster_compact", "raster_compact_launch",
+            [ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
+             pack.data_ptr(), bbox_words.data_ptr(),
+             *(d.data_ptr() for d in dir_planes)],
+            _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
+                         stage_cap),
+            rows, P, cols, pack.device)
     raster_tiles_compact.launches += 1
     return out
 
@@ -440,36 +626,63 @@ raster_tiles_compact.launches = 0
 def raster_tiles_streamed(ids, counts, origins, pack, dir_planes,
                           chunk: int = 128, tiles_per_view: int = 64,
                           bbox_words=None,
-                          stage_cap: int = STREAMED_STAGE_CAP):
+                          stage_cap: int = STREAMED_STAGE_CAP, *,
+                          seg: int = SPLIT_SEG):
     """Kernel C: kernel A's inputs with the pack chunk-major (NC, COLS,
     chunk); with bbox_words (K, Fp) int32 the compacting body, without them
-    the plain body. Same outputs and dispatch as ``raster_tiles_chunklist``;
-    each launch adds one to ``raster_tiles_streamed.launches``."""
+    the plain body. Same outputs and dispatch as ``raster_tiles_chunklist``.
+    The compacting body first counts each row's staged faces (the count
+    pass: its own launch, over items of ``seg`` list positions), then
+    sweeps ``split_schedule``'s items with those counts; both launches
+    build their items on the card. Each sweep adds one to
+    ``raster_tiles_streamed.launches``, each count pass one to
+    ``raster_tiles_streamed.count_launches``; the sweep's schedule (with
+    the counted staged faces) is left in
+    ``raster_tiles_streamed.last_schedule``."""
     if pack.dim() != 3 or pack.shape[2] != chunk:
         raise ValueError(f"raster_tiles_streamed: pack must be chunk-major "
                          f"(NC, COLS, {chunk}), got {tuple(pack.shape)}")
     nc, cols, _ = pack.shape
     Fp = nc * chunk
     _check_inputs("raster_tiles_streamed", ids, counts, origins, pack, cols,
-                  Fp, dir_planes, chunk, tiles_per_view, bbox_words, stage_cap)
+                  Fp, dir_planes, chunk, tiles_per_view, bbox_words, stage_cap,
+                  seg=seg)
     if pack.device.type == "cpu":
         return raster_tiles_streamed_reference(
             ids, counts, origins, pack, dir_planes, chunk, tiles_per_view,
             bbox_words, stage_cap)
     rows, P = dir_planes[0].shape
-    out = _launch(
-        "raster_compact", "raster_streamed_launch",
-        [ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
-         pack.data_ptr(), None if bbox_words is None else bbox_words.data_ptr(),
-         *(d.data_ptr() for d in dir_planes)],
-        _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
-                     stage_cap),
-        rows, P, cols, pack.device)
+    dev = pack.device
+    ints = _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
+                        stage_cap)
+    with torch.cuda.device(dev):
+        items = _Items.new(rows, P, dev)
+        order, ends, n_items, done, next_item = items.ptrs()
+        staged = seg_counts = None
+        if bbox_words is not None:
+            max_seg = -(-max(ids.shape[1], nc + 7) // seg)  # the longest list's
+            counted = torch.empty(rows * (1 + max_seg), dtype=torch.int32, device=dev)
+            staged, seg_counts = counted[:rows], counted[rows:]
+            _call("raster_compact", "raster_streamed_count_launch",
+                  [*_ptrs(ids, counts, bbox_words), order, ends, n_items,
+                   next_item, staged.data_ptr(), seg_counts.data_ptr()],
+                  [rows, P, Fp, chunk, ids.shape[1], tiles_per_view, nc,
+                   math.isqrt(P), math.isqrt(tiles_per_view), seg])
+            raster_tiles_streamed.count_launches += 1
+        out = _launch(
+            "raster_compact", "raster_streamed_launch",
+            [*_ptrs(ids, counts, origins, pack, bbox_words, *dir_planes),
+             order, ends, n_items, done, next_item, items.merge.data_ptr(),
+             *_ptrs(staged, seg_counts)],
+            ints + [seg], rows, P, cols, dev)
     raster_tiles_streamed.launches += 1
+    raster_tiles_streamed.last_schedule = items.schedule(staged)
     return out
 
 
 raster_tiles_streamed.launches = 0
+raster_tiles_streamed.count_launches = 0
+raster_tiles_streamed.last_schedule = None
 
 
 def decode_winners(packed, acc, origins, dir_planes, tiles_per_view: int):

@@ -2,7 +2,9 @@
 plain PyTorch version on the same CUDA tensors, for every list encoding and
 for the pixel-per-thread layouts of tiles 8 to 64; the compacting bodies
 also at a stage cap small enough to force the raw-list fallback and with a
-block-mode row whose tail runs past the last chunk. A refused launch raises.
+block-mode row whose tail runs past the last chunk; kernels A and C also
+with their work items cut to 1 and 3 list positions, so that every
+multi-chunk row is split across CTAs and merged. A refused launch raises.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports no JAX, so on a machine with a card
@@ -108,6 +110,112 @@ def test_staged_kernels_match_plain_versions_bitwise(cuda_scene, tile, body):
         staged, _ = tk.stage_faces(args[0], args[1], args[4], n_chunks, CHUNK, T,
                                    tile, 64)
         assert bool((staged > 64).any()) and bool((staged <= 64).any())
+
+
+SPLIT_BODIES = ["chunklist", "streamed", "streamed_compact",
+                "streamed_compact_cap64"]
+
+
+@pytest.mark.parametrize("seg", [1, 3])
+@pytest.mark.parametrize("body", SPLIT_BODIES)
+@pytest.mark.parametrize("tile", [8, 16, 32, 64])
+def test_split_items_match_plain_versions_bitwise(cuda_scene, tile, body, seg):
+    """Kernels A and C at segments of seg list positions: rows longer than
+    seg are swept by several CTAs and merged; the result is the sequential
+    plain version's, bit for bit, and the item list the launch built on the
+    card (and the count pass's staged faces) equal split_schedule's (and
+    stage_faces') bit for bit."""
+    mesh, cams = cuda_scene
+    args, T = mixed_inputs(mesh, cams, tile, CHUNK)
+    args, _, n_chunks = with_block_tail(args, T, CHUNK)
+    ids, counts, origins, pack, words, dirs = args
+    kw = dict(chunk=CHUNK, tiles_per_view=T)
+    if body == "chunklist":
+        wrapper = tk.raster_tiles_chunklist
+        got = wrapper(ids, counts, origins, pack, dirs, seg=seg, **kw)
+        want = tk.raster_tiles_chunklist_reference(ids, counts, origins, pack,
+                                                   dirs, **kw)
+        staged = None
+    else:
+        wrapper = tk.raster_tiles_streamed
+        cap = 64 if body.endswith("64") else tk.STREAMED_STAGE_CAP
+        w = None if body == "streamed" else words
+        cm = chunk_major(pack, CHUNK)
+        got = wrapper(ids, counts, origins, cm, dirs, bbox_words=w,
+                      stage_cap=cap, seg=seg, **kw)
+        want = tk.raster_tiles_streamed_reference(ids, counts, origins, cm,
+                                                  dirs, bbox_words=w,
+                                                  stage_cap=cap, **kw)
+        staged = None if w is None else tk.stage_faces(
+            ids, counts, words, n_chunks, CHUNK, T, tile, cap)[0]
+    torch.cuda.synchronize()
+    _assert_bitwise(got, want)
+    sched = wrapper.last_schedule
+    ref = tk.split_schedule(counts, staged, n_chunks, seg, CHUNK,
+                            cap if staged is not None else tk.STREAMED_STAGE_CAP)
+    for name in ("order", "ends", "n_items"):
+        assert torch.equal(getattr(sched, name), getattr(ref, name)), name
+    if staged is not None:
+        assert torch.equal(sched.staged.long(), staged)
+    if body in ("chunklist", "streamed") or (body.endswith("64") and tile >= 16):
+        assert bool((sched.n_items > 1).any())  # some row really was split
+
+
+@pytest.mark.parametrize("body", ["chunklist", "streamed_compact"])
+def test_schedule_of_many_rows_matches_split_schedule(cuda_scene, body):
+    """5,120 rows (the 2 views repeated 40 times at tile 8): the schedule
+    CTA walks 5 tiles of 1,024 rows; its item list equals split_schedule's
+    and the result the plain version's, bit for bit."""
+    mesh, cams = cuda_scene
+    args, T = mixed_inputs(mesh, cams, 8, CHUNK)
+    args, _, n_chunks = with_block_tail(args, T, CHUNK)
+    ids, counts, origins, pack, words, dirs = args
+    ids, counts, origins, words = (x.repeat((40,) + (1,) * (x.dim() - 1))
+                                   for x in (ids, counts, origins, words))
+    dirs = tuple(d.repeat(40, 1) for d in dirs)
+    kw = dict(chunk=CHUNK, tiles_per_view=T)
+    seg = 8
+    staged = None
+    if body == "chunklist":
+        wrapper = tk.raster_tiles_chunklist
+        got = wrapper(ids, counts, origins, pack, dirs, seg=seg, **kw)
+        want = tk.raster_tiles_chunklist_reference(ids, counts, origins, pack,
+                                                   dirs, **kw)
+    else:
+        wrapper = tk.raster_tiles_streamed
+        cm = chunk_major(pack, CHUNK)
+        got = wrapper(ids, counts, origins, cm, dirs, bbox_words=words,
+                      stage_cap=64, seg=seg, **kw)
+        want = tk.raster_tiles_streamed_reference(ids, counts, origins, cm, dirs,
+                                                  bbox_words=words, stage_cap=64,
+                                                  **kw)
+        staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, 8, 64)[0]
+    torch.cuda.synchronize()
+    assert counts.shape[0] == 5120
+    _assert_bitwise(got, want)
+    ref = tk.split_schedule(counts, staged, n_chunks, seg, CHUNK, 64)
+    for name in ("order", "ends", "n_items"):
+        assert torch.equal(getattr(wrapper.last_schedule, name),
+                           getattr(ref, name)), name
+    # several cost buckets to sort, and rows split
+    cost = torch.clamp(tk.list_trips(counts, n_chunks), max=seg) * CHUNK
+    if staged is not None:
+        cost = torch.where(staged <= 64, staged, cost)
+    assert tk.cost_bucket(cost).unique().numel() > 1
+    assert bool((ref.n_items > 1).any())
+
+
+def test_seg_below_one_is_refused(cuda_scene):
+    """A split below one list position a segment is refused before any
+    launch."""
+    mesh, cams = cuda_scene
+    (ids, counts, origins, pack, _, dirs), T = mixed_inputs(mesh, cams, 32, CHUNK)
+    before = tk.raster_tiles_chunklist.launches
+    for seg in (0, -1):
+        with pytest.raises(ValueError, match="seg"):
+            tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs,
+                                      chunk=CHUNK, tiles_per_view=T, seg=seg)
+    assert tk.raster_tiles_chunklist.launches == before
 
 
 def test_refused_launch_raises(cuda_scene):

@@ -8,7 +8,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "omnidata_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_annotator.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_annotator.py",
+    ROOT / "tools" / "raster_measure.py"]
 _BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "omnidata_tpu")
 
 

@@ -5,20 +5,31 @@ For one cell, K = 32 views at 512², tile 32, chunk 128, every device
 modality: the bench scene (``--scene bench``, ``scenes.build_scene(seed=0)``,
 cameras of seed 1, 4 batches) or the large scene (``--scene large``,
 ``scenes.build_large_scene(seed=0)``, cameras of seed 3, ccap 192, 2
-batches, as ``bench.py``'s large-scene measurement), on kernel A or, with
+batches, as ``bench.py``'s large-scene measurement; ``--scene large48``:
+the same at the annotator CLI's ccap 48), on kernel A or, with
 ``--streamed``, on kernel C's compacting body. Prints:
 - admission statistics per timed batch: rows per list encoding (exact,
   scan-all, block mode) and the trip counts the raster kernel will sweep;
-  with ``--streamed`` also the staged faces per row;
-- the raster kernel's time as is, with its tail rows emptied (scan-all
-  rows, and with ``--streamed`` the rows past the stage cap, which sweep
-  their raw lists), and with every row emptied (launch + output write), by
-  CUDA events;
+  the faces per row whose bbox overlaps the tile, and with ``--streamed``
+  the rows past the stage cap;
+- the raster kernel's time (CUDA events, median of 5 runs of 5 launches)
+  beside its pixel-face pairs and bound (``raster_measure.raster_work``)
+  and, where the checkout's wrapper records them, its work items and split
+  rows; its time with its tail rows emptied (scan-all rows, and with
+  ``--streamed`` the rows past the stage cap, which sweep their raw
+  lists) and with every row emptied (launch + output write); and its time
+  on the first 1, 2 and 8 views of the batch;
 - each stage timed alone: ``prepare_raster``, ``decode_winners``,
   ``keypoints2d``, ``edge_texture``, ``edge_occlusion``;
-- ``annotate_views`` per batch, then a ``torch.profiler`` table of device
-  time by kernel over the batches and the device idle share (kernel time
-  summed by the profiler against the unprofiled batch time).
+- ``annotate_views`` per batch (median of 3 runs over the batches), then a
+  ``torch.profiler`` table of device time by kernel over the batches and the
+  device idle share (kernel time summed by the profiler against the
+  unprofiled batch time).
+
+``--root DIR`` imports ``omnidata_tpu_torch`` from another checkout of the
+port (its kernels build under DIR/build/kernels), so that a parent commit
+unpacked into a git-ignored directory is timed by the same script on the
+same card: ``python3 tools/profile_torch_annotator.py --root build/parent``.
 
 Run from the repository root on a machine with a card:
 ``python3 tools/profile_torch_annotator.py [--scene large --streamed]``.
@@ -28,25 +39,21 @@ from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import sys
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from raster_measure import (cuda_ms, gpu_name_and_power_limit, item_counts,
+                            overlap_counts, raster_work, trips)
 
-from chip_smoke import cuda_ms, gpu_name_and_power_limit  # noqa: E402
-from omnidata_tpu_torch import scenes  # noqa: E402
-from omnidata_tpu_torch.annotator import DEVICE_MODALITIES, annotate_views  # noqa: E402
-from omnidata_tpu_torch.annotator.pipeline import _gather_attrs  # noqa: E402
-from omnidata_tpu_torch.cues.edges import edge_occlusion, edge_texture  # noqa: E402
-from omnidata_tpu_torch.cues.keypoints2d import keypoints2d  # noqa: E402
-from omnidata_tpu_torch.mesh import raster as R  # noqa: E402
-from omnidata_tpu_torch.mesh import raster_kernels as rk  # noqa: E402
-
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K, RES, TILE, CHUNK = 32, 512, 32, 128
-CELLS = {  # scene -> (builder, camera seed, ccap, timed batches)
-    "bench": (scenes.build_scene, 1, None, 4),
-    "large": (scenes.build_large_scene, 3, 192, 2),
+SMALL_K = (1, 2, 8)
+CELLS = {  # scene -> (large scene, camera seed, ccap, timed batches)
+    "bench": (False, 1, None, 4),
+    "large": (True, 3, 192, 2),
+    "large48": (True, 3, 48, 2),
 }
 
 
@@ -55,16 +62,29 @@ def main() -> int:
     ap.add_argument("--scene", choices=sorted(CELLS), default="bench")
     ap.add_argument("--streamed", action="store_true",
                     help="render with kernel C's compacting body")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose omnidata_tpu_torch is timed")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    print(gpu_name_and_power_limit(), flush=True)
+    sys.path.insert(0, os.path.abspath(a.root))
+    from omnidata_tpu_torch import scenes
+    from omnidata_tpu_torch.annotator import DEVICE_MODALITIES, annotate_views
+    from omnidata_tpu_torch.annotator.pipeline import _gather_attrs
+    from omnidata_tpu_torch.cues.edges import edge_occlusion, edge_texture
+    from omnidata_tpu_torch.cues.keypoints2d import keypoints2d
+    from omnidata_tpu_torch.mesh import raster as R
+    from omnidata_tpu_torch.mesh import raster_kernels as rk
+
+    card = gpu_name_and_power_limit()
+    print(f"{card}; package {os.path.dirname(rk.__file__)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda", 0)
-    build, cam_seed, ccap, n_batches = CELLS[a.scene]
+    large, cam_seed, ccap, n_batches = CELLS[a.scene]
+    build = scenes.build_large_scene if large else scenes.build_scene
     mesh, curv = build(device=dev)
     n_chunks = mesh.faces.shape[0] // CHUNK
     cams = scenes.sample_cameras_np((n_batches + 1) * K, seed=cam_seed)
@@ -79,12 +99,17 @@ def main() -> int:
         return annotate_views(b, mesh, curv, tile=TILE, chunk=CHUNK, ccap=ccap,
                               streamed=a.streamed)
 
-    def kernel(inp, counts):
-        args = (inp.ids, counts, inp.origins, inp.pack, inp.dir_planes)
-        kw = dict(chunk=CHUNK, tiles_per_view=inp.tiles_per_view)
+    def kernel_on(inp, counts, views=K):
+        """The raster kernel on the batch's first views, as a call."""
+        T = inp.tiles_per_view
+        r = slice(0, views * T)
+        args = (inp.ids[r], counts[r], inp.origins[:views], inp.pack,
+                tuple(d[r] for d in inp.dir_planes))
+        kw = dict(chunk=CHUNK, tiles_per_view=T)
         if a.streamed:
-            return rk.raster_tiles_streamed(*args, bbox_words=inp.bbox_words, **kw)
-        return rk.raster_tiles_chunklist(*args, **kw)
+            words = inp.bbox_words[:views]
+            return lambda: rk.raster_tiles_streamed(*args, bbox_words=words, **kw)
+        return lambda: rk.raster_tiles_chunklist(*args, **kw)
 
     for b in batches:  # warm-up: kernel build, cuDNN plans, allocator
         run(b)
@@ -93,35 +118,56 @@ def main() -> int:
     for i, b in enumerate(batches):
         inp = R.prepare_raster(b, mesh, TILE, CHUNK, vattrs, **render_kw)
         c = inp.counts
-        trip = torch.where(c == -1, n_chunks,
-                           torch.where(c < -1, (-c - 2) * 8, c)).float()
+        trip = trips(c, n_chunks).float()
         print(f"batch {i}: rows exact {int((c >= 0).sum())}, scan-all "
               f"{int((c == -1).sum())}, block {int((c <= -2).sum())}; trips "
               f"sum {int(trip.sum())}, mean {float(trip.mean()):.3f}, p99 "
               f"{float(trip.quantile(0.99)):.1f}, max {int(trip.max())}",
               flush=True)
+        # the bbox words of the batch (kernel A's inputs lack them)
+        winp = inp if a.streamed else R.prepare_raster(
+            b, mesh, TILE, CHUNK, vattrs, ccap=ccap, compact=True)
+        overlaps = overlap_counts(winp, CHUNK)
+        of = overlaps.float()
         tail = c == -1
+        past = overlaps > rk.STREAMED_STAGE_CAP
+        print(f"  bbox-overlapping faces per row: mean {float(of.mean()):.1f}, "
+              f"p50 {float(of.quantile(0.5)):.0f}, p99 "
+              f"{float(of.quantile(0.99)):.0f}, max {int(of.max())}; rows past "
+              f"{rk.STREAMED_STAGE_CAP}: {int(past.sum())}, their raw trips "
+              f"{int(trip[past].sum())}", flush=True)
         if a.streamed:
-            staged, _ = rk.stage_faces(inp.ids, c, inp.bbox_words, n_chunks,
-                                       CHUNK, inp.tiles_per_view, TILE, 1)
-            past = staged > rk.STREAMED_STAGE_CAP
             tail |= past
-            sf = staged.float()
-            print(f"  staged faces per row: mean {float(sf.mean()):.1f}, p50 "
-                  f"{float(sf.quantile(0.5)):.0f}, p99 "
-                  f"{float(sf.quantile(0.99)):.0f}, max {int(sf.max())}; rows "
-                  f"past {rk.STREAMED_STAGE_CAP}: {int(past.sum())}, their "
-                  f"raw trips {int(trip[past].sum())}", flush=True)
+        del winp
         if i:
             continue
-        no_tail = torch.where(tail, 0, c).contiguous()
-        empty = torch.zeros_like(c)
-        ms = [cuda_ms(lambda cc=cc: kernel(inp, cc), 10)
-              for cc in (c, no_tail, empty)]
-        print(f"raster kernel K={K}: {ms[0]:.3f} ms; tail rows "
-              f"({int(tail.sum())}) emptied {ms[1]:.3f} ms; all rows emptied "
-              f"{ms[2]:.3f} ms", flush=True)
-        packed, acc = kernel(inp, c)
+        kernel = kernel_on(inp, c)
+        kernel()
+        ms_runs = sorted(cuda_ms(kernel, 5) for _ in range(5))
+        ms = statistics.median(ms_runs)
+        work = raster_work(inp, overlaps, reads_bbox_words=a.streamed)
+        sched = getattr(rk.raster_tiles_streamed if a.streamed
+                        else rk.raster_tiles_chunklist, "last_schedule", None)
+        items = item_counts(sched) if sched is not None else "one CTA per row"
+        ms_no_tail, ms_empty = (
+            cuda_ms(kernel_on(inp, cc), 10)
+            for cc in (torch.where(tail, 0, c).contiguous(), torch.zeros_like(c)))
+        small = {}
+        for v in SMALL_K:
+            fn = kernel_on(inp, c, v)
+            fn()
+            small[v] = cuda_ms(fn, 20)
+        print(f"raster kernel K={K}: {ms:.3f} ms (runs "
+              f"{', '.join(f'{x:.3f}' for x in ms_runs)}); {work['pairs']:.4g} "
+              f"pixel-face pairs, bound {work['bound_ms']:.3f} ms (by "
+              f"{work['bound_by']}; operations {work['ops_ms']:.3f}, "
+              f"{work['ops_ms_unfused']:.3f} unfused; bytes "
+              f"{work['bytes_ms']:.3f}), {work['bound_ms'] / ms:.3f} of the "
+              f"bound; items {items}; tail rows ({int(tail.sum())}) emptied "
+              f"{ms_no_tail:.3f} ms; all rows emptied {ms_empty:.3f} ms; "
+              + ", ".join(f"K={v} {t:.3f} ms" for v, t in small.items())
+              + f"; card {card}", flush=True)
+        packed, acc = kernel()
         g = torch.rand(K, RES, RES, device=dev)
         codes = (torch.rand(K, RES, RES, device=dev) * 60000).to(torch.int32)
         stages = {
@@ -137,9 +183,13 @@ def main() -> int:
             f"{k} {cuda_ms(f, 5):.3f}" for k, f in stages.items()), flush=True)
         del packed, acc
 
-    ms_batch = cuda_ms(lambda: [run(b) for b in batches], 2) / n_batches
+    reps = sorted(cuda_ms(lambda: [run(b) for b in batches], 1) / n_batches
+                  for _ in range(3))
+    ms_batch = statistics.median(reps)
     print(f"annotate_views K={K}: {ms_batch:.3f} ms/batch, "
-          f"{K / ms_batch * 1e3:.2f} viewpoints/s", flush=True)
+          f"{K / ms_batch * 1e3:.2f} viewpoints/s (runs "
+          f"{', '.join(f'{K / r * 1e3:.2f}' for r in reps)} vps); card {card}",
+          flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
