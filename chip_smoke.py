@@ -31,18 +31,20 @@ bench scene it picks kernel A, on the large scene kernel C (scene pack over
 6. kernel B (compacting) on 2 bench views: bit for bit against its plain
    version at stage cap 512 and at 64 (rows forced to the raw-list
    fallback); ``render_views_fused(compact=True)`` bit for bit against
-   kernel A's render (valid, face, t, z, bary, attributes), its B launches
-   counted.
+   kernel A's render (valid, face, t, z, bary, attributes), its B sweeps
+   and count passes counted.
 7. kernel C on 2 large-scene views: the plain body and the compacting body
    bit for bit against their plain versions; both renders bit for bit
    against kernel A's render of the same views; the pipeline on kernel C
    against the plain raster on 1 view.
 7b. work items of one list position (``seg=1``, a test-only argument):
-   kernel A on the 2 bench views and kernel C's plain body, compacting body
-   and compacting body at stage cap 512 on the 2 large views, each bit for
-   bit against its plain version, with every multi-chunk raw-list row split
-   into one item per chunk and merged (split rows required but for the
-   compacting body at its own cap, whose rows on these views are dense).
+   kernel A and kernel B (stage caps 512 and 64) on the 2 bench views and
+   kernel C's plain body, compacting body and compacting body at stage cap
+   512 on the 2 large views, each bit for bit against its plain version,
+   with every multi-chunk raw-list row split into one item per chunk and
+   merged (split rows required wherever a multi-chunk row is past the
+   cap, or for the plain sweeps); B's item lists equal to
+   ``split_schedule``'s.
 8. large main path: ``annotate_views(K=32, ccap=192, streamed=True)`` must
    launch kernel C and its count pass (both counters reset just before,
    read just after) and return every label, face ids agreeing with
@@ -51,13 +53,17 @@ bench scene it picks kernel A, on the large scene kernel C (scene pack over
    (median of 5 repetitions); at K = 32 kernels A, C plain and C compacting
    alone, the render stage and ``prepare_raster`` (admission and decode by
    difference); the staged-faces tail; kernel B against A alone on the
-   bench scene at K = 32; B at K = 2 and C at K = 1 against their plain
-   versions, in turns. Then each kernel at K = 32, at the main paths'
-   shapes (A and B on the bench batch, C's bodies on the large batch at
-   ccap 192, C compacting also at the CLI's ccap 48): bit for bit against
+   bench scene at K = 32, and B on the batch's first 1, 2 and 8 views;
+   ``render_views_fused`` on the bench batch with kernel A and with B
+   (``compact=True``), admission included, in turns (A, B, B, A); B at K
+   = 2 and C at K = 1 against their plain versions, in turns. Then each
+   kernel at K = 32, at the main paths' shapes (A and B on the bench
+   batch, C's bodies on the large batch at ccap 192, C compacting also at
+   the CLI's ccap 48): bit for bit against
    its plain version on the same inputs (2 views at a time, timed), its
-   item list built on the card equal to ``split_schedule``'s and the count
-   pass's staged faces to ``stage_faces``'; beside its pixel-face pairs and
+   item list built on the card equal to ``split_schedule``'s and (B, C
+   compacting) the count pass's staged faces to ``stage_faces``'; beside
+   its pixel-face pairs and
    bound (``tools/raster_measure.raster_work``: 20 FP32 operations for each
    pixel and each face whose bbox overlaps its tile, at 67 TFLOP/s, or
    half that with -fmad=false, against each input read and each output
@@ -188,18 +194,20 @@ def check_kernel(what: str, got, want) -> float:
 
 
 def check_schedule(what: str, wrapper, counts, n_chunks: int,
-                   overlaps=None) -> dict:
-    """The item list a kernel A or C launch built on the card equal to the
-    plain ``split_schedule`` on the same counts, bit for bit (order, ends,
-    items per row), and for C's compacting body the count pass's staged
-    faces equal to ``overlaps`` (``stage_faces``' count with no cap).
-    -> the launch's work items and split rows."""
+                   overlaps=None, stage_cap=None, seg=None) -> dict:
+    """The item list a kernel A, B or C launch built on the card equal to
+    the plain ``split_schedule`` on the same counts (at the launch's stage
+    cap and segment, C's and ``SPLIT_SEG`` by default), bit for bit (order,
+    ends, items per row), and for the compacting kernels the count pass's
+    staged faces equal to ``overlaps`` (``stage_faces``' count with no
+    cap). -> the launch's work items and split rows."""
     import torch
 
     from omnidata_tpu_torch.mesh import raster_kernels as rk
 
     sched = wrapper.last_schedule
-    want = rk.split_schedule(counts, overlaps, n_chunks, rk.SPLIT_SEG, CHUNK)
+    want = rk.split_schedule(counts, overlaps, n_chunks, seg or rk.SPLIT_SEG,
+                             CHUNK, stage_cap or rk.STREAMED_STAGE_CAP)
     bad = [n for n in ("order", "ends", "n_items")
            if not torch.equal(getattr(sched, n), getattr(want, n))]
     if overlaps is not None and not torch.equal(sched.staged.long(),
@@ -585,14 +593,18 @@ def main() -> int:
     want_a = raster_mod.render_views_fused(cams2, mesh, TILE, CHUNK, vattrs,
                                            streamed=False)
     rk.raster_tiles_compact.launches = 0
+    rk.raster_tiles_compact.count_launches = 0
     got_b = raster_mod.render_views_fused(cams2, mesh, TILE, CHUNK, vattrs,
                                           compact=True)
     torch.cuda.synchronize()
     launches_b = rk.raster_tiles_compact.launches
-    if launches_b < 1:
-        raise AssertionError("render_views_fused(compact=True) launched no B")
+    count_launches_b = rk.raster_tiles_compact.count_launches
+    if launches_b < 1 or count_launches_b < 1:
+        raise AssertionError("render_views_fused(compact=True) launched no B "
+                             "sweep and count pass")
     check_renders(f"render compact=True vs kernel A's render ({K_CHECK} views; "
-                  f"B launches {launches_b})", got_b, want_a)
+                  f"B launches {launches_b}, count passes {count_launches_b})",
+                  got_b, want_a)
 
     # 7. kernel C on the large scene -----------------------------------------
     t0 = time.perf_counter()
@@ -653,6 +665,21 @@ def main() -> int:
                      f"rows split)", got, plain(*a_, **kw_))
         if must_split and not seg1[what]["split_rows"]:
             raise AssertionError(f"{what} at seg 1 split no row")
+    n_bchunks2 = inp2.pack.shape[1] // CHUNK
+    overlaps2, _ = rk.stage_faces(inp2.ids, inp2.counts, inp2c.bbox_words,
+                                  n_bchunks2, CHUNK, inp2.tiles_per_view, TILE, 1)
+    long_rows = rk.list_trips(inp2.counts, n_bchunks2) > 1
+    for cap in (rk.STAGE_CAP, 64):
+        what = f"kernel B, stage cap {cap} (bench)"
+        got = rk.raster_tiles_compact(*args2c, stage_cap=cap, seg=1, **kw)
+        seg1[what] = check_schedule(f"{what} at seg 1", rk.raster_tiles_compact,
+                                    inp2.counts, n_bchunks2, overlaps2, cap, 1)
+        check_kernel(f"{what} at seg 1 vs plain ({K_CHECK} views; "
+                     f"{seg1[what]['items']} items, {seg1[what]['split_rows']} "
+                     f"rows split)", got,
+                     rk.raster_tiles_compact_reference(*args2c, stage_cap=cap, **kw))
+        if bool(((overlaps2 > cap) & long_rows).any()) and not seg1[what]["split_rows"]:
+            raise AssertionError(f"{what} at seg 1 split no row past the cap")
     del got
     lcams1 = batch(0, 1, lcams)
     lkw_ann = dict(tile=TILE, chunk=CHUNK, streamed=True, **lkw)
@@ -741,6 +768,24 @@ def main() -> int:
     ms_a32 = cuda_ms(lambda: rk.raster_tiles_chunklist(
         *args32, inp32.dir_planes, **kw32), 10)
     log(f"bench K={K_MAIN} kernels alone: B {ms_b32:.3f} ms, A {ms_a32:.3f} ms")
+    ms_b_small = {}
+    for v in (1, 2, 8):  # B on the batch's first v views
+        r = slice(0, v * inp32.tiles_per_view)
+        b_args = (inp32.ids[r], inp32.counts[r], inp32.origins[:v], inp32.pack,
+                  inp32.bbox_words[:v], tuple(d[r] for d in inp32.dir_planes))
+        rk.raster_tiles_compact(*b_args, **kw32)
+        ms_b_small[v] = cuda_ms(
+            lambda a=b_args: rk.raster_tiles_compact(*a, **kw32), 20)
+
+    def render_bench(compact):
+        return lambda: raster_mod.render_views_fused(
+            batches[0], mesh, TILE, CHUNK, vattrs, streamed=False, compact=compact)
+
+    render_bench(True)()
+    ms_render_ab = [cuda_ms(render_bench(c), 5) for c in (False, True, True, False)]
+    log(f"kernel B bench K=1, 2, 8: {', '.join(f'{t:.3f}' for t in ms_b_small.values())} "
+        f"ms; render_views_fused K={K_MAIN}, admission included (A, B, B, A): "
+        f"{', '.join(f'{t:.3f}' for t in ms_render_ab)} ms; card {card}")
 
     # the K = 32 kernels against their plain versions on the same inputs,
     # beside their work, bound and items
@@ -759,7 +804,7 @@ def main() -> int:
     n_bchunks = inp32.pack.shape[1] // CHUNK
     streamed, chunklist = rk.raster_tiles_streamed, rk.raster_tiles_chunklist
     # name -> (ms, work, kernel call, plain version, (wrapper, counts,
-    # chunks, overlaps) of the item list's check or None)
+    # chunks, overlaps[, stage cap]) of the item list's check)
     k32 = {
         "A": (ms_a32, raster_work(inp32, staged_b),
               lambda: chunklist(*args32, inp32.dir_planes, **kw32),
@@ -770,7 +815,9 @@ def main() -> int:
               lambda: rk.raster_tiles_compact(
                   *args32, inp32.bbox_words, inp32.dir_planes, **kw32),
               lambda: by_views(rk.raster_tiles_compact_reference)(
-                  *args32, inp32.bbox_words, inp32.dir_planes, **kw32), None),
+                  *args32, inp32.bbox_words, inp32.dir_planes, **kw32),
+              (rk.raster_tiles_compact, inp32.counts, n_bchunks, staged_b,
+               rk.STAGE_CAP)),
         "C plain body": (lms_cp, raster_work(linpC, staged),
                          lambda: streamed(*lC, **kwA),
                          lambda: by_views(rk.raster_tiles_streamed_reference)(
@@ -790,8 +837,7 @@ def main() -> int:
     }
     for name, (ms, work, run, plain, sched_of) in k32.items():
         got = run()
-        if sched_of is not None:
-            work.update(check_schedule(f"kernel {name} K={K_MAIN}", *sched_of))
+        work.update(check_schedule(f"kernel {name} K={K_MAIN}", *sched_of))
         work["plain_ms"], want = timed(plain)
         work["max_abs_err"] = check_kernel(
             f"kernel {name} K={K_MAIN} vs plain ({want[0].shape[0]} rows)",
@@ -802,8 +848,7 @@ def main() -> int:
             f"{work['bound_ms']:.3f} ms (by {work['bound_by']}; operations "
             f"{work['ops_ms']:.3f}, {work['ops_ms_unfused']:.3f} unfused; bytes "
             f"{work['bytes_ms']:.3f}), {work['bound_ms'] / ms:.3f} of the bound; "
-            f"items {work.get('items', 'one per row')}, split rows "
-            f"{work.get('split_rows', 0)}; plain version "
+            f"items {work['items']}, split rows {work['split_rows']}; plain version "
             f"{work['plain_ms']:.1f} ms; card {card}")
     del linp48, l48
     ms_plain_b, ms_kernel_b = in_turns(
@@ -997,7 +1042,7 @@ def main() -> int:
                 "library": no_library, "pairs": work["pairs"],
                 "bytes": work["bytes"], "share_of_bound": work["bound_ms"] / ms,
                 "ops_ms_unfused": work["ops_ms_unfused"],
-                "items": work.get("items"), "split_rows": work.get("split_rows"),
+                "items": work["items"], "split_rows": work["split_rows"],
                 "ms_small": statistics.mean([k0, k1]),
                 "plain_ms_small": statistics.mean([p0, p1]), **extra}
 
@@ -1013,7 +1058,10 @@ def main() -> int:
               "render_views_fused(compact=True), bench scene", err_b,
               (ms_plain_b, ms_kernel_b),
               shape=f"bench K={K_MAIN}, stage_cap={rk.STAGE_CAP}; small: "
-              f"K={K_CHECK}"),
+              f"K={K_CHECK}", count_launches=count_launches_b,
+              items_seg1=seg1[f"kernel B, stage cap {rk.STAGE_CAP} (bench)"],
+              ms_k1_k2_k8=list(ms_b_small.values()),
+              render_ms_a_b_b_a=ms_render_ab),
         entry("raster_streamed (C, compacting body)", "C compacting",
               "raster_compact.cu", "879", launches_c,
               "large main path annotate_views", err_c["compacting"],

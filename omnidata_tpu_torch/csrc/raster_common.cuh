@@ -2,7 +2,7 @@
 // raster_compact.cu): the TPU's key and tie constants, the decode of one
 // row's chunk list, the two pack layouts, the per-face Moller-Trumbore
 // invariants, the per-chunk key sweep, the winner write, and the work items
-// of kernels A and C with their exact merge.
+// of kernels A, B and C with their exact merge.
 //
 // Every kernel that includes this file evaluates the operations of the
 // plain PyTorch versions (omnidata_tpu_torch/mesh/raster_kernels.py) in the
@@ -10,8 +10,9 @@
 // kernel and plain version agree bit for bit. Float constants are formed in
 // double and rounded once to float32, as the JAX package forms them.
 //
-// Work items (kernels A and C). A row's raw-list sweep is cut into segments
-// of at most `seg` consecutive list positions; each segment is one item.
+// Work items (kernels A, B and C). A row's raw-list sweep is cut into
+// segments of at most `seg` consecutive list positions; each segment is one
+// item.
 // Persistent CTAs (as many as fit on the card at once) take item blockIdx.x
 // first, then pull items from an atomic counter, in the order of an item
 // list that one CTA builds on the

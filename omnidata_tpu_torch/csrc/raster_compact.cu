@@ -8,9 +8,11 @@
 //     _streamed_compact_tile_kernel): the pack chunk-major
 //     (Fp / chunk, cols, chunk); with bbox words the compacting body (stage
 //     cap 8192), without them the plain body, which is kernel A's function.
-// B and C share the staging and the sweep; each has its own kernel and
-// entry point. They compute what the TPU kernels compute, not how: no
-// one-hot or triangular matmuls, no staging of whole pack columns.
+// B and C are one kernel on one schedule: the same count pass and the same
+// sweep kernel, templated on the pack layout (RowMajor for B, ChunkMajor
+// for C); only their entry points differ. They compute what the TPU
+// kernels compute, not how: no one-hot or triangular matmuls, no staging
+// of whole pack columns.
 //
 // Compacting, per (view, tile) row:
 //   pass 1 walks the row's list in (position, lane) order, blockDim.x faces
@@ -18,11 +20,12 @@
 //     list, and tests each face's u8-packed bbox word (x in tiles, y in
 //     8-row bands) against the tile. A warp ballot and __popc give each
 //     surviving face its slot; the face ids go to shared memory (4 bytes a
-//     face: 32 KB at cap 8192). The count includes faces past the cap.
+//     face: 2 KB at B's cap of 512, 32 KB at C's 8192). The count includes
+//     faces past the cap.
 //   pass 2 sweeps ceil(staged / chunk) dense chunks of staged faces (lane =
 //     slot % chunk), or, when more than stage_cap faces were staged, the raw
 //     list, which gives kernel A's result for the row.
-// Plain body: the raw list.
+// Plain body (C without bbox words): the raw list.
 //
 // What bounds it: FP32 ALU work on (pixel x swept face) pairs, as in kernel
 // A (raster_chunklist.cu); compaction cuts the pairs to the faces whose
@@ -33,21 +36,21 @@
 // kernel's double-buffered DMA. The chunk's invariants are then computed
 // once per CTA and every thread reuses them for its pixels.
 //
-// On this card kernel C is also bound by the imbalance of its rows: a row
-// that scans all 4,570 chunks of a 584,960-face scene, or stages more than
-// the cap and falls back to its raw list, is 10-100x the median row, and
-// with one CTA per row a few SMs ran for milliseconds after the rest had
-// drained. Kernel C therefore works in items (raster_common.cuh), each
-// item list built on the device by one CTA inside the entry point:
-//   - a count pass (raster_streamed_count_launch) splits pass 1 into items
-//     of `seg` list positions over every row and records each segment's
+// On this card both kernels are also bound by the imbalance of their rows:
+// a row that scans a whole scene's chunks, or stages more than the cap and
+// falls back to its raw list, is 10-100x the median row, and with one CTA
+// per row a few SMs ran for milliseconds after the rest had drained. So
+// they work in items (raster_common.cuh), each item list built on the
+// device by one CTA inside the entry point:
+//   - the count pass (raster_count_launch) splits pass 1 into items of
+//     `seg` list positions over every row and records each segment's
 //     staged count and each row's total, so every row is known to be dense
 //     or past the cap before the sweep starts;
-//   - the sweep (raster_streamed_launch) takes, longest first, one item per
-//     dense row (pass 1 again in the CTA, skipping segments that stage
-//     nothing, then the dense sweep) and one item per `seg` positions of
-//     every other row's raw list, merged exactly across the row's items.
-// Kernel B keeps one CTA per row.
+//   - the sweep (raster_compact_launch for B, raster_streamed_launch for C)
+//     takes, longest first, one item per dense row (pass 1 again in the
+//     CTA, skipping segments that stage nothing, then the dense sweep) and
+//     one item per `seg` positions of every other row's raw list, merged
+//     exactly across the row's items.
 //
 // Ties and exactness as in kernel A: see raster_common.cuh. The winner is
 // kept as a face index and its pack columns copied at the end; `packed`'s
@@ -89,7 +92,7 @@ struct Args {
       stage_cap;
 };
 
-// Kernel C's split: segments of seg list positions; per row the staged
+// The split: segments of seg list positions; per row the staged
 // count (rows) and per (row, segment) the segment's staged count
 // (rows, max_seg), written by the count pass, read by the sweep.
 struct Split {
@@ -240,31 +243,9 @@ struct RowSetup {
   }
 };
 
-// Kernel B: one CTA per row; pass 1 over the whole list, then the dense
-// sweep or, past the cap, the raw list.
-template <int PPT, class Pack>
-__global__ void __launch_bounds__(kMaxThreads)
-raster_staged_kernel(const Args a, const Pack pack) {
-  extern __shared__ int s_stage[];  // stage_cap staged face ids
-  __shared__ Shared sh;
-
-  const int row = blockIdx.x;
-  RowSetup<PPT> r(a, row);
-  const int chunk = a.chunk;
-  const int staged = stage_range(
-      r.sched, a.bbox + (size_t)r.view * a.Fp, chunk, r.tx, r.ty, a.tile,
-      a.stage_cap, 0, r.sched.trip * chunk, 0, s_stage, sh.wcount);
-  const bool dense = staged <= a.stage_cap;  // else: kernel A's result
-  const int n_units = dense ? (staged + chunk - 1) / chunk : r.sched.trip;
-  sweep_units<PPT>(sh, pack, n_units, [&](int u) -> Unit {
-    if (dense) return Unit{min(chunk, staged - u * chunk), 0, s_stage + u * chunk};
-    return Unit{chunk, r.sched.chunk_of(u) * chunk, nullptr};
-  }, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.best, r.win);
-  write_winners<PPT>(pack, r.best, r.win, row, a.P, a.cols, a.packed, a.acc);
-}
-
-// Kernel C's count pass: per item (row, segment), the segment's staged
-// count into seg_counts and the row's total into staged (zero before).
+// The count pass of kernels B and C (it reads no pack): per item (row,
+// segment), the segment's staged count into seg_counts and the row's total
+// into staged (zero before).
 __global__ void __launch_bounds__(kMaxThreads)
 raster_count_kernel(const Args a, const Split sp, const ItemList items) {
   __shared__ int s_wcount[2][kMaxWarps];
@@ -290,13 +271,14 @@ raster_count_kernel(const Args a, const Split sp, const ItemList items) {
   }
 }
 
-// Kernel C's sweep: per item, a dense row (compacting body, staged <=
-// stage_cap: pass 1 over the segments that stage anything, then the dense
-// sweep) or segment it.seg of a row's raw list.
-template <int PPT>
+// The sweep of kernels B (Pack = RowMajor) and C (ChunkMajor): per item, a
+// dense row (compacting, staged <= stage_cap: pass 1 over the segments
+// that stage anything, then the dense sweep) or segment it.seg of a row's
+// raw list.
+template <int PPT, class Pack>
 __global__ void __launch_bounds__(kMaxThreads)
-raster_streamed_kernel(const Args a, const ChunkMajor pack, const Split sp,
-                       const ItemList items) {
+raster_sweep_kernel(const Args a, const Pack pack, const Split sp,
+                    const ItemList items) {
   extern __shared__ int s_stage[];  // stage_cap staged face ids
   __shared__ Shared sh;
 
@@ -360,21 +342,10 @@ int allow_shared(Kernel kernel, size_t dyn) {
   return 0;
 }
 
-template <int PPT>
-int launch_b(const Args& a, const RowMajor& pack, int rows, int threads,
-             cudaStream_t stream) {
-  auto kernel = raster_staged_kernel<PPT, RowMajor>;
-  const size_t dyn = (size_t)a.stage_cap * sizeof(int);
-  const int err = allow_shared(kernel, dyn);
-  if (err != 0) return err;
-  kernel<<<rows, threads, dyn, stream>>>(a, pack);
-  return (int)cudaGetLastError();
-}
-
-template <int PPT>
-int launch_c(const Args& a, const ChunkMajor& pack, const Split& sp,
-             const ItemList& items, int threads, cudaStream_t stream) {
-  auto kernel = raster_streamed_kernel<PPT>;
+template <int PPT, class Pack>
+int launch_sweep(const Args& a, const Pack& pack, const Split& sp,
+                 const ItemList& items, int threads, cudaStream_t stream) {
+  auto kernel = raster_sweep_kernel<PPT, Pack>;
   const size_t dyn = a.bbox ? (size_t)a.stage_cap * sizeof(int) : 0;
   int err = allow_shared(kernel, dyn);
   int grid = 0;
@@ -382,6 +353,38 @@ int launch_c(const Args& a, const ChunkMajor& pack, const Split& sp,
   if (err != 0) return err;
   kernel<<<grid, threads, dyn, stream>>>(a, pack, sp, items);
   return (int)cudaGetLastError();
+}
+
+// The entry points' sweep: builds the item list (schedule_kernel with, when
+// compacting, the count pass's staged counts) and fills the merge words,
+// then sweeps on `pack`, all on `stream`.
+template <class Pack>
+int sweep(const Args& a, const Pack& pack, int rows, int seg, int* order,
+          int* ends, int* n_items, int* done, int* next,
+          unsigned long long* merge, int* staged, int* seg_counts,
+          void* stream) {
+  const int threads = check_args(a, rows);
+  if (threads == 0 || !segments_fit(a.n_chunks, a.ccap, seg) ||
+      (a.bbox != nullptr) != (staged != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Split sp{seg, max_segments(a.n_chunks, a.ccap, seg), staged,
+                 seg_counts};
+  const ItemList items{order, ends, rows, next, done, merge};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ScheduleArgs sa{a.counts, staged, rows, a.n_chunks, seg, a.chunk,
+                        a.stage_cap, order, ends, n_items, done, next,
+                        nullptr};
+  const int err = build_items(sa, merge, a.P, s);
+  if (err != 0) return err;
+  switch (a.P / threads) {
+    case 1: return launch_sweep<1>(a, pack, sp, items, threads, s);
+    case 2: return launch_sweep<2>(a, pack, sp, items, threads, s);
+    case 4: return launch_sweep<4>(a, pack, sp, items, threads, s);
+    case 8: return launch_sweep<8>(a, pack, sp, items, threads, s);
+    case 16: return launch_sweep<16>(a, pack, sp, items, threads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 Args make_args(const int* ids, const int* counts, const float* origins,
@@ -396,39 +399,13 @@ Args make_args(const int* ids, const int* counts, const float* origins,
 
 }  // namespace
 
-// Kernel B. Launches on `stream` and returns a CUDA error code (0 on
-// success). rows = K*T tiles of P = tile^2 pixels, T = n1d^2 tiles a view;
-// pack is (cols, Fp) row-major; bbox is (K, Fp), required.
-extern "C" int raster_compact_launch(
-    const int* ids, const int* counts, const float* origins,
-    const float* pack, const int* bbox, const float* dx, const float* dy,
-    const float* dz, int* packed, float* acc, int rows, int P, int cols,
-    int Fp, int chunk, int ccap, int tiles_per_view, int n_chunks, int tile,
-    int n1d, int stage_cap, void* stream) {
-  const Args a = make_args(ids, counts, origins, bbox, dx, dy, dz, packed,
-                           acc, P, cols, Fp, chunk, ccap, tiles_per_view,
-                           n_chunks, tile, n1d, stage_cap);
-  const int threads = check_args(a, rows);
-  if (bbox == nullptr || threads == 0) return (int)cudaErrorInvalidValue;
-  const RowMajor geo{pack, Fp};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (P / threads) {
-    case 1: return launch_b<1>(a, geo, rows, threads, s);
-    case 2: return launch_b<2>(a, geo, rows, threads, s);
-    case 4: return launch_b<4>(a, geo, rows, threads, s);
-    case 8: return launch_b<8>(a, geo, rows, threads, s);
-    case 16: return launch_b<16>(a, geo, rows, threads, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Kernel C's count pass (compacting body only): builds the item list of
-// `seg` list positions over every row (schedule_kernel without staged
-// counts; order, ends, n_items: rows each; next: 1), clears staged (rows)
-// and counts into it each row's staged faces, writing seg_counts (rows,
-// max_segments) where a segment exists; all on `stream`. Other arguments
-// as raster_streamed_launch.
-extern "C" int raster_streamed_count_launch(
+// The count pass of kernels B and C (compacting only): builds the item
+// list of `seg` list positions over every row (schedule_kernel without
+// staged counts; order, ends, n_items: rows each; next: 1), clears staged
+// (rows) and counts into it each row's staged faces, writing seg_counts
+// (rows, max_segments) where a segment exists; all on `stream`. Other
+// arguments as raster_compact_launch.
+extern "C" int raster_count_launch(
     const int* ids, const int* counts, const int* bbox, int* order,
     int* ends, int* n_items, int* next, int* staged, int* seg_counts,
     int rows, int P, int Fp, int chunk, int ccap, int tiles_per_view,
@@ -454,13 +431,31 @@ extern "C" int raster_streamed_count_launch(
   return (int)cudaGetLastError();
 }
 
-// Kernel C's sweep. As kernel B, but pack is chunk-major
-// (Fp / chunk, cols, chunk) and bbox may be null (the plain body). Builds
-// the item list (schedule_kernel with, for the compacting body, the count
-// pass's staged counts) and fills the merge words, then sweeps, all on
-// `stream`. The caller allocates the item list (order, ends, n_items,
-// done: rows each; next: 1) and the merge words (rows, P); staged and
-// seg_counts come from the count pass (null for the plain body).
+// Kernel B's sweep. Launches on `stream` and returns a CUDA error code (0
+// on success). rows = K*T tiles of P = tile^2 pixels, T = n1d^2 tiles a
+// view; pack is (cols, Fp) row-major; bbox is (K, Fp), required, and
+// staged and seg_counts come from the count pass. The caller allocates the
+// item list (order, ends, n_items, done: rows each; next: 1) and the merge
+// words (rows, P).
+extern "C" int raster_compact_launch(
+    const int* ids, const int* counts, const float* origins,
+    const float* pack, const int* bbox, const float* dx, const float* dy,
+    const float* dz, int* order, int* ends, int* n_items, int* done,
+    int* next, unsigned long long* merge, int* staged, int* seg_counts,
+    int* packed, float* acc, int rows, int P, int cols, int Fp, int chunk,
+    int ccap, int tiles_per_view, int n_chunks, int tile, int n1d,
+    int stage_cap, int seg, void* stream) {
+  if (bbox == nullptr) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(ids, counts, origins, bbox, dx, dy, dz, packed,
+                           acc, P, cols, Fp, chunk, ccap, tiles_per_view,
+                           n_chunks, tile, n1d, stage_cap);
+  return sweep(a, RowMajor{pack, Fp}, rows, seg, order, ends, n_items, done,
+               next, merge, staged, seg_counts, stream);
+}
+
+// Kernel C's sweep. As kernel B's, but pack is chunk-major
+// (Fp / chunk, cols, chunk) and bbox may be null (the plain body, with
+// staged and seg_counts null).
 extern "C" int raster_streamed_launch(
     const int* ids, const int* counts, const float* origins,
     const float* pack, const int* bbox, const float* dx, const float* dy,
@@ -472,25 +467,6 @@ extern "C" int raster_streamed_launch(
   const Args a = make_args(ids, counts, origins, bbox, dx, dy, dz, packed,
                            acc, P, cols, Fp, chunk, ccap, tiles_per_view,
                            n_chunks, tile, n1d, stage_cap);
-  const int threads = check_args(a, rows);
-  if (threads == 0 || !segments_fit(n_chunks, ccap, seg) ||
-      (bbox != nullptr) != (staged != nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const ChunkMajor geo{pack, cols, chunk};
-  const Split sp{seg, max_segments(n_chunks, ccap, seg), staged, seg_counts};
-  const ItemList items{order, ends, rows, next, done, merge};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ScheduleArgs sa{counts, staged, rows, n_chunks, seg, chunk,
-                        stage_cap, order, ends, n_items, done, next, nullptr};
-  const int err = build_items(sa, merge, P, s);
-  if (err != 0) return err;
-  switch (P / threads) {
-    case 1: return launch_c<1>(a, geo, sp, items, threads, s);
-    case 2: return launch_c<2>(a, geo, sp, items, threads, s);
-    case 4: return launch_c<4>(a, geo, sp, items, threads, s);
-    case 8: return launch_c<8>(a, geo, sp, items, threads, s);
-    case 16: return launch_c<16>(a, geo, sp, items, threads, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return sweep(a, ChunkMajor{pack, cols, chunk}, rows, seg, order, ends,
+               n_items, done, next, merge, staged, seg_counts, stream);
 }

@@ -35,11 +35,12 @@ Each wrapper runs its CUDA kernel (``csrc/raster_chunklist.cu`` for A,
 version for CPU tensors. Both compute the same operations in the same order
 without fused multiply-adds, so on one card they agree bit for bit.
 
-Kernels A and C cut each row's raw-list sweep into work items of at most
-``SPLIT_SEG`` list positions (``split_schedule``; C's compacting body keeps
-one item per row that stages at most its cap) and merge a row's items in
-segment order, which gives the sequential sweep's winners exactly
-(``raster_tiles_split_reference`` is that merge, plainly).
+Kernels A, B and C cut each row's raw-list sweep into work items of at
+most ``SPLIT_SEG`` list positions (``split_schedule``; the compacting
+kernels keep one item per row that stages at most its cap) and merge a
+row's items in segment order, which gives the sequential sweep's winners
+exactly (``raster_tiles_split_reference`` is that merge, plainly). B and C
+run one count pass and one sweep kernel, on their two pack layouts.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ _INT32_MAX = 2**31 - 1
 CHUNK_LIST_CAP = 48  # default chunks listed per tile (raster.admission_lists)
 STAGE_CAP = 512  # compacting kernel B: staged faces per row before fallback
 STREAMED_STAGE_CAP = 8192  # kernel C's compacting body
-# list positions per work item of kernels A and C (about 2.1 M pixel-face
+# list positions per work item of kernels A, B and C (about 2.1 M pixel-face
 # pairs at chunk 128 and 1,024 pixels a tile); an argument of the wrappers
 # only so that tests can force every multi-chunk row to split
 SPLIT_SEG = 16
@@ -172,7 +173,7 @@ def stage_faces(ids, counts, bbox_words, n_chunks: int, chunk: int,
 
 
 class SplitSchedule(NamedTuple):
-    """Work items of one launch of kernel A or C. Item j belongs to row
+    """Work items of one launch of kernel A, B or C. Item j belongs to row
     order[p] for the first p with ends[p] > j and is that row's segment
     j - (ends[p] - n_items[order[p]])."""
 
@@ -196,16 +197,16 @@ def cost_bucket(cost: torch.Tensor) -> torch.Tensor:
 def split_schedule(counts, staged, n_chunks: int, seg: int,
                    chunk: int = 128,
                    stage_cap: int = STREAMED_STAGE_CAP) -> SplitSchedule:
-    """The item list of kernels A and C, plainly (the kernels build it on
-    the card, ``schedule_kernel`` in ``csrc/raster_common.cuh``, and equal
-    this bit for bit): each row's list cut into ceil(trip / seg) segments
-    of at most seg positions (one item for an empty list), except that with
-    ``staged`` (kernel C's compacting body: faces staged per row) a row
-    staging at most stage_cap faces is one dense item. Rows are in a stable
-    sort by the ``cost_bucket`` of the pixel-face pairs of their largest
-    item (min(trip, seg) * chunk faces for a raw-list row, ``staged`` for a
-    dense one), largest first, so the persistent CTAs start the long work
-    first."""
+    """The item list of kernels A, B and C, plainly (the kernels build it
+    on the card, ``schedule_kernel`` in ``csrc/raster_common.cuh``, and
+    equal this bit for bit): each row's list cut into ceil(trip / seg)
+    segments of at most seg positions (one item for an empty list), except
+    that with ``staged`` (the compacting kernels: faces staged per row) a
+    row staging at most stage_cap faces is one dense item. Rows are in a
+    stable sort by the ``cost_bucket`` of the pixel-face pairs of their
+    largest item (min(trip, seg) * chunk faces for a raw-list row,
+    ``staged`` for a dense one), largest first, so the persistent CTAs
+    start the long work first."""
     trip = list_trips(counts, n_chunks).long()
     n_items = torch.clamp((trip + seg - 1) // seg, min=1)
     cost = torch.clamp(trip, max=seg) * chunk
@@ -377,14 +378,15 @@ def raster_tiles_split_reference(ids, counts, origins, pack, dir_planes,
                                  chunk: int = 128, tiles_per_view: int = 64,
                                  seg: int = SPLIT_SEG, bbox_words=None,
                                  stage_cap: int = STREAMED_STAGE_CAP):
-    """Plain version of the work items of kernels A and C: the items of
+    """Plain version of the work items of kernels A, B and C: the items of
     ``split_schedule`` (with ``stage_faces``' counts when bbox_words are
     given), each swept from scratch over its segment of the row's raw list
     or, for a dense row, over its staged faces; then each row's segments
     folded in segment order with the strict masked improvement. pack (COLS,
     Fp) or chunk-major (NC, COLS, chunk). Equal bit for bit to
-    ``raster_tiles_chunklist_reference`` (no bbox_words) and
-    ``raster_tiles_streamed_reference`` at any seg."""
+    ``raster_tiles_chunklist_reference`` (no bbox_words),
+    ``raster_tiles_compact_reference`` and ``raster_tiles_streamed_reference``
+    at any seg."""
     if pack.dim() == 3:
         pack = pack.permute(1, 0, 2).reshape(pack.shape[1], -1)
     rows, P = dir_planes[0].shape
@@ -585,42 +587,73 @@ raster_tiles_chunklist.launches = 0
 raster_tiles_chunklist.last_schedule = None
 
 
-def _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
-                 stage_cap):
+def _sweep_launch(wrapper, symbol, ids, counts, origins, pack, bbox_words,
+                  dir_planes, cols, Fp, chunk, tiles_per_view, stage_cap, seg):
+    """Kernel B or C on CUDA tensors (``symbol``: its sweep's entry point).
+    With bbox_words, first the count pass (its own launch, over items of
+    ``seg`` list positions: each row's staged faces), then the sweep of
+    ``split_schedule``'s items with those counts; both launches build their
+    items on the card. Adds one to ``wrapper.count_launches`` for the count
+    pass and to ``wrapper.launches`` for the sweep, and leaves the sweep's
+    schedule (with the counted staged faces) in ``wrapper.last_schedule``."""
     rows, P = dir_planes[0].shape
-    return [rows, P, cols, Fp, chunk, ids.shape[1], tiles_per_view,
-            Fp // chunk, math.isqrt(P), math.isqrt(tiles_per_view), stage_cap]
+    dev = pack.device
+    nc = Fp // chunk
+    shape = [Fp, chunk, ids.shape[1], tiles_per_view, nc, math.isqrt(P),
+             math.isqrt(tiles_per_view)]
+    with torch.cuda.device(dev):
+        items = _Items.new(rows, P, dev)
+        order, ends, n_items, done, next_item = items.ptrs()
+        staged = seg_counts = None
+        if bbox_words is not None:
+            max_seg = -(-max(ids.shape[1], nc + 7) // seg)  # the longest list's
+            counted = torch.empty(rows * (1 + max_seg), dtype=torch.int32, device=dev)
+            staged, seg_counts = counted[:rows], counted[rows:]
+            _call("raster_compact", "raster_count_launch",
+                  [*_ptrs(ids, counts, bbox_words), order, ends, n_items,
+                   next_item, staged.data_ptr(), seg_counts.data_ptr()],
+                  [rows, P, *shape, seg])
+            wrapper.count_launches += 1
+        out = _launch(
+            "raster_compact", symbol,
+            [*_ptrs(ids, counts, origins, pack, bbox_words, *dir_planes),
+             order, ends, n_items, done, next_item, items.merge.data_ptr(),
+             *_ptrs(staged, seg_counts)],
+            [rows, P, cols, *shape, stage_cap, seg],
+            rows, P, cols, dev)
+    wrapper.launches += 1
+    wrapper.last_schedule = items.schedule(staged)
+    return out
 
 
 def raster_tiles_compact(ids, counts, origins, pack, bbox_words, dir_planes,
                          chunk: int = 128, tiles_per_view: int = 64,
-                         stage_cap: int = STAGE_CAP):
+                         stage_cap: int = STAGE_CAP, *, seg: int = SPLIT_SEG):
     """Kernel B: kernel A's inputs plus bbox_words (K, Fp) int32
     (``raster.bbox_words``); tiles square (P = tile², tiles_per_view =
-    n1d²). Same outputs and dispatch as ``raster_tiles_chunklist``; each
-    launch adds one to ``raster_tiles_compact.launches``."""
+    n1d²). Same outputs and dispatch as ``raster_tiles_chunklist``. A CUDA
+    launch runs the count pass and then sweeps ``split_schedule``'s items
+    (one per dense row, one per ``seg`` list positions of a row past the
+    cap; seg is for tests), as kernel C's compacting body does on its pack.
+    Each sweep adds one to ``raster_tiles_compact.launches``, each count
+    pass one to ``raster_tiles_compact.count_launches``; the sweep's
+    schedule is left in ``raster_tiles_compact.last_schedule``."""
     cols, Fp = pack.shape
     _check_inputs("raster_tiles_compact", ids, counts, origins, pack, cols,
-                  Fp, dir_planes, chunk, tiles_per_view, bbox_words, stage_cap)
+                  Fp, dir_planes, chunk, tiles_per_view, bbox_words, stage_cap,
+                  seg=seg)
     if pack.device.type == "cpu":
         return raster_tiles_compact_reference(
             ids, counts, origins, pack, bbox_words, dir_planes, chunk,
             tiles_per_view, stage_cap)
-    rows, P = dir_planes[0].shape
-    with torch.cuda.device(pack.device):
-        out = _launch(
-            "raster_compact", "raster_compact_launch",
-            [ids.data_ptr(), counts.data_ptr(), origins.data_ptr(),
-             pack.data_ptr(), bbox_words.data_ptr(),
-             *(d.data_ptr() for d in dir_planes)],
-            _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
-                         stage_cap),
-            rows, P, cols, pack.device)
-    raster_tiles_compact.launches += 1
-    return out
+    return _sweep_launch(raster_tiles_compact, "raster_compact_launch", ids,
+                         counts, origins, pack, bbox_words, dir_planes, cols,
+                         Fp, chunk, tiles_per_view, stage_cap, seg)
 
 
 raster_tiles_compact.launches = 0
+raster_tiles_compact.count_launches = 0
+raster_tiles_compact.last_schedule = None
 
 
 def raster_tiles_streamed(ids, counts, origins, pack, dir_planes,
@@ -651,33 +684,9 @@ def raster_tiles_streamed(ids, counts, origins, pack, dir_planes,
         return raster_tiles_streamed_reference(
             ids, counts, origins, pack, dir_planes, chunk, tiles_per_view,
             bbox_words, stage_cap)
-    rows, P = dir_planes[0].shape
-    dev = pack.device
-    ints = _staged_ints(ids, dir_planes, cols, Fp, chunk, tiles_per_view,
-                        stage_cap)
-    with torch.cuda.device(dev):
-        items = _Items.new(rows, P, dev)
-        order, ends, n_items, done, next_item = items.ptrs()
-        staged = seg_counts = None
-        if bbox_words is not None:
-            max_seg = -(-max(ids.shape[1], nc + 7) // seg)  # the longest list's
-            counted = torch.empty(rows * (1 + max_seg), dtype=torch.int32, device=dev)
-            staged, seg_counts = counted[:rows], counted[rows:]
-            _call("raster_compact", "raster_streamed_count_launch",
-                  [*_ptrs(ids, counts, bbox_words), order, ends, n_items,
-                   next_item, staged.data_ptr(), seg_counts.data_ptr()],
-                  [rows, P, Fp, chunk, ids.shape[1], tiles_per_view, nc,
-                   math.isqrt(P), math.isqrt(tiles_per_view), seg])
-            raster_tiles_streamed.count_launches += 1
-        out = _launch(
-            "raster_compact", "raster_streamed_launch",
-            [*_ptrs(ids, counts, origins, pack, bbox_words, *dir_planes),
-             order, ends, n_items, done, next_item, items.merge.data_ptr(),
-             *_ptrs(staged, seg_counts)],
-            ints + [seg], rows, P, cols, dev)
-    raster_tiles_streamed.launches += 1
-    raster_tiles_streamed.last_schedule = items.schedule(staged)
-    return out
+    return _sweep_launch(raster_tiles_streamed, "raster_streamed_launch", ids,
+                         counts, origins, pack, bbox_words, dir_planes, cols,
+                         Fp, chunk, tiles_per_view, stage_cap, seg)
 
 
 raster_tiles_streamed.launches = 0

@@ -2,8 +2,8 @@
 plain PyTorch version on the same CUDA tensors, for every list encoding and
 for the pixel-per-thread layouts of tiles 8 to 64; the compacting bodies
 also at a stage cap small enough to force the raw-list fallback and with a
-block-mode row whose tail runs past the last chunk; kernels A and C also
-with their work items cut to 1 and 3 list positions, so that every
+block-mode row whose tail runs past the last chunk; kernels A, B and C
+also with their work items cut to 1 and 3 list positions, so that every
 multi-chunk row is split across CTAs and merged. A refused launch raises.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
@@ -113,18 +113,19 @@ def test_staged_kernels_match_plain_versions_bitwise(cuda_scene, tile, body):
 
 
 SPLIT_BODIES = ["chunklist", "streamed", "streamed_compact",
-                "streamed_compact_cap64"]
+                "streamed_compact_cap64", "compact", "compact_cap64"]
 
 
 @pytest.mark.parametrize("seg", [1, 3])
 @pytest.mark.parametrize("body", SPLIT_BODIES)
 @pytest.mark.parametrize("tile", [8, 16, 32, 64])
 def test_split_items_match_plain_versions_bitwise(cuda_scene, tile, body, seg):
-    """Kernels A and C at segments of seg list positions: rows longer than
-    seg are swept by several CTAs and merged; the result is the sequential
-    plain version's, bit for bit, and the item list the launch built on the
-    card (and the count pass's staged faces) equal split_schedule's (and
-    stage_faces') bit for bit."""
+    """Kernels A, B and C at segments of seg list positions: rows longer
+    than seg (past the cap, for the compacting bodies) are swept by several
+    CTAs and merged; the result is the sequential plain version's, bit for
+    bit, and the item list the launch built on the card (and the count
+    pass's staged faces) equal split_schedule's (and stage_faces') bit for
+    bit."""
     mesh, cams = cuda_scene
     args, T = mixed_inputs(mesh, cams, tile, CHUNK)
     args, _, n_chunks = with_block_tail(args, T, CHUNK)
@@ -136,6 +137,16 @@ def test_split_items_match_plain_versions_bitwise(cuda_scene, tile, body, seg):
         want = tk.raster_tiles_chunklist_reference(ids, counts, origins, pack,
                                                    dirs, **kw)
         staged = None
+    elif body.startswith("compact"):
+        wrapper = tk.raster_tiles_compact
+        cap = 64 if body.endswith("64") else tk.STAGE_CAP
+        got = wrapper(ids, counts, origins, pack, words, dirs, stage_cap=cap,
+                      seg=seg, **kw)
+        want = tk.raster_tiles_compact_reference(ids, counts, origins, pack,
+                                                 words, dirs, stage_cap=cap,
+                                                 **kw)
+        staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, tile,
+                                cap)[0]
     else:
         wrapper = tk.raster_tiles_streamed
         cap = 64 if body.endswith("64") else tk.STREAMED_STAGE_CAP
@@ -161,7 +172,7 @@ def test_split_items_match_plain_versions_bitwise(cuda_scene, tile, body, seg):
         assert bool((sched.n_items > 1).any())  # some row really was split
 
 
-@pytest.mark.parametrize("body", ["chunklist", "streamed_compact"])
+@pytest.mark.parametrize("body", ["chunklist", "streamed_compact", "compact"])
 def test_schedule_of_many_rows_matches_split_schedule(cuda_scene, body):
     """5,120 rows (the 2 views repeated 40 times at tile 8): the schedule
     CTA walks 5 tiles of 1,024 rows; its item list equals split_schedule's
@@ -181,6 +192,14 @@ def test_schedule_of_many_rows_matches_split_schedule(cuda_scene, body):
         got = wrapper(ids, counts, origins, pack, dirs, seg=seg, **kw)
         want = tk.raster_tiles_chunklist_reference(ids, counts, origins, pack,
                                                    dirs, **kw)
+    elif body == "compact":
+        wrapper = tk.raster_tiles_compact
+        got = wrapper(ids, counts, origins, pack, words, dirs, stage_cap=64,
+                      seg=seg, **kw)
+        want = tk.raster_tiles_compact_reference(ids, counts, origins, pack,
+                                                 words, dirs, stage_cap=64,
+                                                 **kw)
+        staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, 8, 64)[0]
     else:
         wrapper = tk.raster_tiles_streamed
         cm = chunk_major(pack, CHUNK)

@@ -1,10 +1,12 @@
-"""The work items of raster kernels A and C (omnidata_tpu_torch): the item
-list ``split_schedule`` covers every (row, list position) once and keeps a
-dense row whole, and the plain segmented sweep-and-fold
+"""The work items of raster kernels A, B and C (omnidata_tpu_torch): the
+item list ``split_schedule`` covers every (row, list position) once and
+keeps a dense row whole, and the plain segmented sweep-and-fold
 (``raster_tiles_split_reference``: each segment swept from scratch, the
 segments folded in order) equals the sequential plain versions bit for bit
-at segments of 1, 3 and 16 list positions; one case also against the JAX
-package's streamed Pallas kernel in interpret mode.
+at segments of 1, 3 and 16 list positions; B's (row-major pack, stage cap
+512 or 64) as C's (chunk-major pack, cap 8192 or 64). Two cases also against
+the JAX package's Pallas kernels in interpret mode: C's streamed kernel, and
+B's compacting kernel on the scenes of tests/test_mesh.py:554,590.
 
 Inputs: the scenes of tests/test_mesh.py's kernel tests (:523 room, :554
 room and sphere, :590 horizontal strips) and the port's room-and-sphere
@@ -39,7 +41,11 @@ torch.set_num_threads(1)
 
 RES = 64
 SEGS = [1, 3, 16]
-BODIES = ["chunklist", "streamed", "streamed_compact", "streamed_compact_cap64"]
+BODIES = ["chunklist", "streamed", "streamed_compact", "streamed_compact_cap64",
+          "compact", "compact_cap64"]
+# the compacting bodies: kernel B (row-major pack) and C's (chunk-major)
+COMPACTING = ["streamed_compact", "streamed_compact_cap64", "compact",
+              "compact_cap64"]
 
 
 def _views(jmesh, locs, tgts, fovs):
@@ -101,7 +107,9 @@ def inputs(request):
 
 
 def _cap(body):
-    return 64 if body.endswith("64") else tk.STREAMED_STAGE_CAP
+    if body.endswith("64"):
+        return 64
+    return tk.STAGE_CAP if body == "compact" else tk.STREAMED_STAGE_CAP
 
 
 def _staged(args, T, tile, chunk, cap):
@@ -116,8 +124,7 @@ def _assert_bitwise(got, want):
 
 
 @pytest.mark.parametrize("seg", SEGS)
-@pytest.mark.parametrize("body", ["chunklist", "streamed_compact",
-                                  "streamed_compact_cap64"])
+@pytest.mark.parametrize("body", ["chunklist", *COMPACTING])
 def test_split_schedule_covers_every_position_once(inputs, body, seg):
     args, T, tile, chunk = inputs
     ids, counts, _, pack, _, _ = args
@@ -172,7 +179,7 @@ def test_cost_bucket_is_monotone_with_four_buckets_an_octave():
 def test_segmented_fold_equals_sequential_plain_versions(inputs, body, seg):
     """Each segment swept from scratch and the segments folded in order
     give the sequential sweep's packed keys and acc columns, bit for bit,
-    for kernel A's function and both bodies of kernel C."""
+    for kernel A's function, both bodies of kernel C and kernel B."""
     args, T, tile, chunk = inputs
     ids, counts, origins, pack, words, dirs = args
     kw = dict(chunk=chunk, tiles_per_view=T)
@@ -181,6 +188,12 @@ def test_segmented_fold_equals_sequential_plain_versions(inputs, body, seg):
                                                    dirs, **kw)
         got = tk.raster_tiles_split_reference(ids, counts, origins, pack, dirs,
                                               seg=seg, **kw)
+    elif body.startswith("compact"):
+        want = tk.raster_tiles_compact_reference(
+            ids, counts, origins, pack, words, dirs, stage_cap=_cap(body), **kw)
+        got = tk.raster_tiles_split_reference(
+            ids, counts, origins, pack, dirs, seg=seg, bbox_words=words,
+            stage_cap=_cap(body), **kw)
     else:
         w = None if body == "streamed" else words
         cm = chunk_major(pack, chunk)
@@ -223,6 +236,41 @@ def test_segmented_fold_matches_pallas_streamed_interpret():
     np.testing.assert_allclose(tt[agree], jt[agree], atol=1e-4)
 
 
+@pytest.mark.parametrize("scene, cap", [("room_sphere_554", 64),
+                                        ("strips_590", 8)])
+def test_compact_split_matches_pallas_compact_interpret(scene, cap):
+    """Kernel B's items at segments of one list position (rows past the
+    cap split into one item per chunk), decoded, against
+    raster_tiles_pallas_compact in interpret mode on the same lists and
+    bbox words. Cap 64 on tests/test_mesh.py:554's room and sphere (rows
+    dense and past the cap); 8 on :590's strips, whose tiles stage at most
+    10 faces."""
+    build, tile, chunk, _ = SCENES[scene]
+    mesh, cams = build()
+    args, T = mixed_inputs(mesh, cams, tile, chunk)
+    ids, counts, origins, pack, words, dirs = args
+    assert bool((_staged(args, T, tile, chunk, cap) > cap).any())
+    out = tk.raster_tiles_split_reference(
+        ids, counts, origins, pack, dirs, chunk=chunk, tiles_per_view=T,
+        seg=1, bbox_words=words, stage_cap=cap)
+    tv, tt, _, _, tf, _ = (a.numpy() for a in tk.decode_winners(*out, origins,
+                                                                 dirs, T))
+    pairs = ids.numpy().reshape(ids.shape[0], -1, 2)
+    jout = pallas_raster.raster_tiles_pallas_compact(
+        jnp.asarray((pairs[..., 0] | (pairs[..., 1] << 16)).reshape(-1)),
+        jnp.asarray(counts.numpy()), jnp.asarray(origins.numpy()),
+        jnp.asarray(pack.numpy()), jnp.asarray(words.numpy()),
+        tuple(jnp.asarray(d.numpy()) for d in dirs), chunk=chunk,
+        interpret=True, tiles_per_view=T, n1d=RES // tile, ccap=ids.shape[1],
+        stage_cap=cap)
+    jv, jt, _, _, jf, _ = (np.asarray(a) for a in jout)
+    same = (tv == jv) & (~jv | (tf == jf))
+    assert same.mean() >= 0.999, same.mean()
+    agree = jv & tv & (tf == jf)
+    assert agree.mean() > 0.15  # the strips cover 18% of their view
+    np.testing.assert_allclose(tt[agree], jt[agree], atol=1e-4)
+
+
 @pytest.mark.parametrize("seg", [0, -2])
 def test_wrappers_refuse_a_seg_below_one(seg):
     """seg is checked before any dispatch, so also for CPU tensors."""
@@ -235,3 +283,6 @@ def test_wrappers_refuse_a_seg_below_one(seg):
         tk.raster_tiles_streamed(ids, counts, origins, chunk_major(pack, 64),
                                  dirs, chunk=64, tiles_per_view=T,
                                  bbox_words=words, seg=seg)
+    with pytest.raises(ValueError, match="seg"):
+        tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs,
+                                chunk=64, tiles_per_view=T, seg=seg)

@@ -7,18 +7,23 @@ cameras of seed 1, 4 batches) or the large scene (``--scene large``,
 ``scenes.build_large_scene(seed=0)``, cameras of seed 3, ccap 192, 2
 batches, as ``bench.py``'s large-scene measurement; ``--scene large48``:
 the same at the annotator CLI's ccap 48), on kernel A or, with
-``--streamed``, on kernel C's compacting body. Prints:
+``--streamed``, on kernel C's compacting body. ``--compact`` times kernel B
+(the compacting kernel on the row-major pack, stage cap 512) in A's place
+and ``render_views_fused(compact=True)`` against A's render, admission
+included; ``annotate_views`` has no compact route, so its numbers stay
+kernel A's. Prints:
 - admission statistics per timed batch: rows per list encoding (exact,
   scan-all, block mode) and the trip counts the raster kernel will sweep;
-  the faces per row whose bbox overlaps the tile, and with ``--streamed``
-  the rows past the stage cap;
+  the faces per row whose bbox overlaps the tile, and the rows past the
+  stage cap (8,192; 512 with ``--compact``);
 - the raster kernel's time (CUDA events, median of 5 runs of 5 launches)
   beside its pixel-face pairs and bound (``raster_measure.raster_work``)
   and, where the checkout's wrapper records them, its work items and split
   rows; its time with its tail rows emptied (scan-all rows, and with
-  ``--streamed`` the rows past the stage cap, which sweep their raw
-  lists) and with every row emptied (launch + output write); and its time
-  on the first 1, 2 and 8 views of the batch;
+  ``--streamed`` or ``--compact`` the rows past the stage cap, which sweep
+  their raw lists) and with every row emptied (launch + output write); and
+  its time on the first 1, 2 and 8 views of the batch; with ``--compact``,
+  the render on kernel A and on kernel B, in turns (A, B, B, A);
 - each stage timed alone: ``prepare_raster``, ``decode_winners``,
   ``keypoints2d``, ``edge_texture``, ``edge_occlusion``;
 - ``annotate_views`` per batch (median of 3 runs over the batches), then a
@@ -32,7 +37,8 @@ unpacked into a git-ignored directory is timed by the same script on the
 same card: ``python3 tools/profile_torch_annotator.py --root build/parent``.
 
 Run from the repository root on a machine with a card:
-``python3 tools/profile_torch_annotator.py [--scene large --streamed]``.
+``python3 tools/profile_torch_annotator.py [--scene large --streamed]``
+(or ``--compact`` on the bench scene).
 Imports no JAX.
 """
 from __future__ import annotations
@@ -62,9 +68,14 @@ def main() -> int:
     ap.add_argument("--scene", choices=sorted(CELLS), default="bench")
     ap.add_argument("--streamed", action="store_true",
                     help="render with kernel C's compacting body")
+    ap.add_argument("--compact", action="store_true",
+                    help="time kernel B and the compact=True render in "
+                    "kernel A's place")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose omnidata_tpu_torch is timed")
     a = ap.parse_args()
+    if a.compact and a.streamed:
+        ap.error("--compact and --streamed time different kernels")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
@@ -91,9 +102,14 @@ def main() -> int:
     batches = [scenes.camera_batch(cams, range(K * (b + 1), K * (b + 2)), RES, dev)
                for b in range(n_batches)]
     vattrs, _ = _gather_attrs(mesh, curv, DEVICE_MODALITIES)
-    render_kw = dict(ccap=ccap, compact=a.streamed, streamed=a.streamed)
+    compacting = a.streamed or a.compact
+    render_kw = dict(ccap=ccap, compact=compacting, streamed=a.streamed)
+    cap = rk.STAGE_CAP if a.compact else rk.STREAMED_STAGE_CAP
+    wrapper = (rk.raster_tiles_streamed if a.streamed else rk.raster_tiles_compact
+               if a.compact else rk.raster_tiles_chunklist)
     print(f"cell: {a.scene} scene, {mesh.num_faces} faces, streamed "
-          f"{a.streamed}, ccap {ccap}, {n_batches} batches of K={K}", flush=True)
+          f"{a.streamed}, compact {a.compact}, ccap {ccap}, {n_batches} "
+          f"batches of K={K}", flush=True)
 
     def run(b):
         return annotate_views(b, mesh, curv, tile=TILE, chunk=CHUNK, ccap=ccap,
@@ -108,8 +124,11 @@ def main() -> int:
         kw = dict(chunk=CHUNK, tiles_per_view=T)
         if a.streamed:
             words = inp.bbox_words[:views]
-            return lambda: rk.raster_tiles_streamed(*args, bbox_words=words, **kw)
-        return lambda: rk.raster_tiles_chunklist(*args, **kw)
+            return lambda: wrapper(*args, bbox_words=words, **kw)
+        if a.compact:
+            words = inp.bbox_words[:views]
+            return lambda: wrapper(*args[:4], words, args[4], **kw)
+        return lambda: wrapper(*args, **kw)
 
     for b in batches:  # warm-up: kernel build, cuDNN plans, allocator
         run(b)
@@ -125,18 +144,18 @@ def main() -> int:
               f"{float(trip.quantile(0.99)):.1f}, max {int(trip.max())}",
               flush=True)
         # the bbox words of the batch (kernel A's inputs lack them)
-        winp = inp if a.streamed else R.prepare_raster(
+        winp = inp if compacting else R.prepare_raster(
             b, mesh, TILE, CHUNK, vattrs, ccap=ccap, compact=True)
         overlaps = overlap_counts(winp, CHUNK)
         of = overlaps.float()
         tail = c == -1
-        past = overlaps > rk.STREAMED_STAGE_CAP
+        past = overlaps > cap
         print(f"  bbox-overlapping faces per row: mean {float(of.mean()):.1f}, "
               f"p50 {float(of.quantile(0.5)):.0f}, p99 "
               f"{float(of.quantile(0.99)):.0f}, max {int(of.max())}; rows past "
-              f"{rk.STREAMED_STAGE_CAP}: {int(past.sum())}, their raw trips "
+              f"{cap}: {int(past.sum())}, their raw trips "
               f"{int(trip[past].sum())}", flush=True)
-        if a.streamed:
+        if compacting:
             tail |= past
         del winp
         if i:
@@ -145,9 +164,8 @@ def main() -> int:
         kernel()
         ms_runs = sorted(cuda_ms(kernel, 5) for _ in range(5))
         ms = statistics.median(ms_runs)
-        work = raster_work(inp, overlaps, reads_bbox_words=a.streamed)
-        sched = getattr(rk.raster_tiles_streamed if a.streamed
-                        else rk.raster_tiles_chunklist, "last_schedule", None)
+        work = raster_work(inp, overlaps, reads_bbox_words=compacting)
+        sched = getattr(wrapper, "last_schedule", None)
         items = item_counts(sched) if sched is not None else "one CTA per row"
         ms_no_tail, ms_empty = (
             cuda_ms(kernel_on(inp, cc), 10)
@@ -167,6 +185,17 @@ def main() -> int:
               f"{ms_no_tail:.3f} ms; all rows emptied {ms_empty:.3f} ms; "
               + ", ".join(f"K={v} {t:.3f} ms" for v, t in small.items())
               + f"; card {card}", flush=True)
+        if a.compact:
+            def render(compact):
+                return lambda: R.render_views_fused(
+                    b, mesh, TILE, CHUNK, vattrs, ccap=ccap, streamed=False,
+                    compact=compact)
+
+            render(True)()
+            turns = [cuda_ms(render(x), 5) for x in (False, True, True, False)]
+            print(f"render_views_fused K={K}, admission included (A, B, B, "
+                  f"A): {', '.join(f'{t:.3f}' for t in turns)} ms; card "
+                  f"{card}", flush=True)
         packed, acc = kernel()
         g = torch.rand(K, RES, RES, device=dev)
         codes = (torch.rand(K, RES, RES, device=dev) * 60000).to(torch.int32)
