@@ -11,7 +11,10 @@ modality at 512², tile 32, chunk 128, K = 32 views per call:
 And the annotator CLI (``omnidata_tpu_torch.annotator.cli``), the entry
 point users run, on the same two scenes written as ``mesh.ply``: on the
 bench scene it picks kernel A, on the large scene kernel C (scene pack over
-8 MB). Phases, each of which fails the run on error:
+8 MB), its host cues on their device prefixes. And the models' serving
+path: DPT-hybrid-384 at full width through ``models.create_model`` and
+``python -m omnidata_tpu_torch.demo``. Phases, each of which fails the run
+on error:
 
 1. set-up: the card's name and power limit; float32 matmuls and
    convolutions without TF32; build the CUDA kernels from csrc/ with nvcc,
@@ -84,18 +87,43 @@ bench scene it picks kernel A, on the large scene kernel C (scene pack over
     and of the same batches rendered and fetched without them. Then the
     CLI batch with the most scan-all and block-mode rows at the CLI's own
     ``ccap``: kernel C bit for bit against its plain version on its 2
-    hardest views, and the batch's written outputs equal to
+    hardest views, and the written outputs of its 8 hardest views equal to
     ``annotate_views`` on the plain rasters with the CLI's arguments; the
     check prints the launch's work items and split rows.
 13. CLI ``--task pano`` at 2048x1024 on the bench scene for 2 camera
     locations, each panorama's render timed; outputs decode.
+14. the host cues' device prefixes: NARF border maps, 2D blur and 2.5D
+    channel maps (``annotator.cli.device_cue_maps``) of the bench and the
+    large K = 32 batches on the card (timed), against the port on the CPU
+    from the same label codes (NARF on the first 2 views): every code equal
+    (the CPU tests' tolerances, change within 2e-3 and directions aligned,
+    are met with room: the port rounds each operation alike on both).
+    Phase 11's CLI run must have
+    taken the device-prefix route (``device_cue_maps`` called with all
+    three prefixes), and its keypoints3d and segment PNGs of 2 views must
+    equal the host cues recomputed from its label PNGs with maps made on
+    the card. Host-cue seconds per view with and without the prefixes,
+    serially and through ``run_device_tasks`` with the three host cues.
+15. DPT-hybrid-384 (``omnidata_tpu_torch.models``), depth and normal heads
+    on seeded weights at 384²: float32 on the card against the CPU at
+    batch 1 (max |diff| <= 1e-3 of max |CPU|, TF32 off); bfloat16 against
+    float32 on the card (one EncoderBlock within 0.01 relative, the whole
+    net correlated > 0.9, tests/test_models.py:302's bounds); img/s at
+    float32 and bfloat16, batch 1, 8, 16, by CUDA events (median, min, max
+    of 5 reps), beside the FLOPs per image counted from the layer shapes
+    and their share of the card's dense peak; peak device memory. Then
+    ``python -m omnidata_tpu_torch.demo`` on a seeded 640x480 PNG for both
+    tasks at once; its PNGs must decode and not be constant. No TPU kernel's
+    counterpart runs on this path (its convolutions, matmuls and attention
+    are PyTorch's).
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
 
 Prints the kernel table as one JSON line (per kernel its K = 32 time,
 plain version, bound and work items, its main-path launches; no PyTorch
-call computes these kernels' function, so ``library_ms`` is null), the
+call computes these kernels' function, so ``library_ms`` is null; phases
+14-15's numbers under "device_prefixes" and "dpt"), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
@@ -105,8 +133,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import shutil
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -151,6 +181,7 @@ CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 CLI_LOG = CLI_DIR / "cli.log"
 CLI_BENCH_ARGS = ["with", "NUM_POINTS=4", "STOP_VIEW_NUMBER=3"]
 PANO_CAMERAS = 2
+CLI_PLAIN_VIEWS = 8  # the CLI batch's hardest views held against the plain pipeline
 # image outputs of `--task all` per view (semantic needs face labels)
 CLI_IMAGE_TASKS = ("rgb", "normal", "depth_zbuffer", "depth_euclidean",
                    "mask_valid", "reshading", "principal_curvature",
@@ -394,9 +425,9 @@ def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
     """The CLI's own kernel-C inputs (its default ccap) against the plain
     versions, on the CLI batch with the most scan-all, then block-mode,
     rows: kernel C's compacting body bit for bit on the batch's K_CHECK
-    views with the most such rows, and every written output of the batch
-    equal to annotate_views on the plain rasters with the CLI's arguments.
-    -> what was checked."""
+    views with the most such rows, and every written output of its
+    CLI_PLAIN_VIEWS hardest views equal to annotate_views on the plain
+    rasters with the CLI's arguments. -> what was checked."""
     import torch
 
     from omnidata_tpu_torch.annotator.pipeline import _gather_attrs
@@ -437,13 +468,17 @@ def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
         f"batch {b}, ccap {ccap}; scan-all, block rows {hard_rows(args[1])}; "
         f"{items['items']} work items, {items['split_rows']} rows split)",
         got, rk.raster_tiles_streamed_reference(*args, **ckw))
+    # the plain pipeline on the batch's CLI_PLAIN_VIEWS hardest views (views
+    # are independent, so their outputs are the whole batch's)
+    hard = per_view.argsort(descending=True, stable=True)[:CLI_PLAIN_VIEWS]
+    views = [views[i] for i in hard.sort().values.tolist()]
     del inp, args, ckw, got
     t0 = time.perf_counter()
     with plain_raster():
         want = render_batch(cli, views, mesh, curv, settings, mods, dev)
     unequal = unequal_outputs(d, views, want)
-    log(f"CLI outputs of batch {b} vs annotate_views on the plain rasters "
-        f"({len(views)} views x {len(want)} labels, "
+    log(f"CLI outputs of batch {b}'s {len(views)} hardest views vs "
+        f"annotate_views on the plain rasters ({len(want)} labels each, "
         f"{time.perf_counter() - t0:.1f} s): {len(unequal)} unequal")
     if unequal:
         raise AssertionError(f"CLI outputs differ from the plain pipeline: "
@@ -452,6 +487,354 @@ def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
             "checked_scan_all_rows": rows_of[b][0],
             "checked_block_rows": rows_of[b][1], "max_abs_err_kernel_c": err,
             "checked_items": items}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the host cues' device prefixes
+# ---------------------------------------------------------------------------
+
+ALL_PREFIXES = {"narf": True, "seg2d": True, "seg25d": True}
+CUE_INPUTS = ("depth_zbuffer", "rgb", "normal", "edge_occlusion")
+HOST_CUES = ("keypoints3d", "segment_unsup2d", "segment_unsup25d")
+
+
+def check_device_maps(what: str, out, cams, settings) -> dict:
+    """The host cues' input maps of one rendered K = 32 batch on the card
+    against the port on the CPU from the same label codes: every code equal
+    (NARF change, direction and shadow at every level; the 2D and 2.5D seg
+    codes). The CPU computes the NARF maps of the batch's first K_CHECK
+    views (views are independent) and the seg maps of all. -> numbers."""
+    from omnidata_tpu_torch.annotator import cli
+
+    def maps(o, fov, **on):
+        return cli.device_cue_maps(o, fov, settings, dict(ALL_PREFIXES, **on))
+
+    ms = cuda_ms(lambda: maps(out, cams.fov), 3)
+    gpu = maps(out, cams.fov)
+    t0 = time.perf_counter()
+    cpu_narf = maps({k: out[k][:K_CHECK].cpu() for k in CUE_INPUTS},
+                    cams.fov[:K_CHECK].cpu(), seg2d=False, seg25d=False)["narf"]
+    cpu_seg = maps({k: out[k].cpu() for k in CUE_INPUTS}, cams.fov.cpu(), narf=False)
+    s_cpu = time.perf_counter() - t0
+    differ = {"change": 0, "cdir": 0, "shadow": 0}
+    for g, c in zip(gpu["narf"], cpu_narf):
+        for name, gm, cm in zip(differ, g, c):
+            differ[name] += int((gm[:K_CHECK].cpu().int() != cm.int()).sum())
+    for k in ("seg2d_q", "seg25d_q"):
+        differ[k] = int((gpu[k].cpu().int() != cpu_seg[k].int()).sum())
+    log(f"device prefixes, {what} (K={out['rgb'].shape[0]} at {RES}², "
+        f"{len(gpu['narf'])} NARF levels): card {ms:.3f} ms for NARF + seg "
+        f"maps; codes differing from the CPU's ({s_cpu:.1f} s; NARF on "
+        f"{K_CHECK} views): {differ}")
+    if any(differ.values()):
+        raise AssertionError(f"device prefixes on the card differ from the CPU ({what})")
+    return {"ms": ms, "codes_differing": differ}
+
+
+def cues_from_pngs(cli, d: str, view: dict, settings, dev, out_dir: str,
+                   with_maps: bool) -> float:
+    """One view's three host cues from its written label PNGs into out_dir,
+    with the device maps computed on the card (as the CLI's device-prefix
+    route does) or wholly on the host. -> host-cue seconds."""
+    import torch
+
+    pngs = {t: load_output(output_path(d, view, t)) for t in CUE_INPUTS}
+    vmaps = None
+    if with_maps:
+        cams = cli.view_batch([view], settings.RESOLUTION, dev)
+        maps = cli.device_cue_maps(
+            {t: torch.from_numpy(a)[None].to(dev) for t, a in pngs.items()},
+            cams.fov, settings, ALL_PREFIXES)
+        maps = {k: ([[m.cpu().numpy() for m in lvl] for lvl in v] if k == "narf"
+                    else v.cpu().numpy()) for k, v in maps.items()}
+        vmaps = cli.view_cue_maps(maps, 0, view, settings.RESOLUTION)
+    t0 = time.perf_counter()
+    cli.host_cues_for_view(out_dir, view, HOST_CUES, settings, pngs.__getitem__,
+                           dev_maps=vmaps)
+    return time.perf_counter() - t0
+
+
+def check_cli_route(cli, bdir: str, views, settings, dev, route_calls: int) -> dict:
+    """The bench CLI run of phase 11 took the device-prefix route: its
+    keypoints3d and segment PNGs equal the host cues recomputed from its
+    label PNGs with maps computed on the card, on K_CHECK views; the host
+    route's differ. Then the host-cue seconds per view, serially here, with
+    the maps and without, and of run_device_tasks with the three host cues
+    (its device prefixes on, then off). -> numbers."""
+    import numpy as np
+
+    if route_calls < 1:
+        raise AssertionError("the bench CLI run computed no device prefixes")
+    s_with, s_without, differ = [], [], 0
+    warm = str(CLI_DIR / "cues_warm-up")
+    for t in HOST_CUES:
+        Path(warm, t).mkdir(parents=True, exist_ok=True)
+    for with_maps in (True, False):  # native libraries loaded, caches warm
+        cues_from_pngs(cli, bdir, views[0], settings, dev, warm, with_maps)
+    for view in views[:K_CHECK]:
+        for with_maps, secs in ((True, s_with), (False, s_without)):
+            out_dir = str(CLI_DIR / f"cues_{'maps' if with_maps else 'host'}")
+            for t in HOST_CUES:
+                Path(out_dir, t).mkdir(parents=True, exist_ok=True)
+            secs.append(cues_from_pngs(cli, bdir, view, settings, dev, out_dir,
+                                       with_maps))
+            for t in HOST_CUES:
+                same = np.array_equal(load_output(output_path(bdir, view, t)),
+                                      load_output(output_path(out_dir, view, t)))
+                if with_maps and not same:
+                    raise AssertionError(f"CLI {t} of view {view['view_id']} is not "
+                                         "the device-prefix route's")
+                differ += (not with_maps) and not same
+    log(f"CLI --task all (bench) took the device-prefix route: "
+        f"device_cue_maps {route_calls} calls; keypoints3d and segment PNGs of "
+        f"{K_CHECK} views equal to the cues recomputed with card maps; the host "
+        f"route differs on {differ} of {K_CHECK * len(HOST_CUES)}")
+    log(f"host-cue seconds per view, serial ({settings.RESOLUTION}², 3 cues, "
+        f"{K_CHECK} views): with device "
+        f"prefixes {statistics.mean(s_with):.3f}, without "
+        f"{statistics.mean(s_without):.3f}")
+    rdir = CLI_DIR / "route"
+    rdir.mkdir()
+    shutil.copy(Path(bdir, "mesh.ply"), rdir)
+    shutil.copytree(Path(bdir, "point_info"), rdir / "point_info")
+    prefixes, s_pass = cli.device_prefixes, {}
+    try:
+        for on in (True, False):
+            if not on:  # the same pass with every prefix on the host
+                cli.device_prefixes = lambda *a: dict.fromkeys(ALL_PREFIXES, False)
+            t0 = time.perf_counter()
+            run_cli(cli.run_device_tasks, str(rdir), list(CUE_INPUTS), settings,
+                    host_tasks=HOST_CUES, device=dev)
+            s_pass[on] = (time.perf_counter() - t0) / len(views)
+    finally:
+        cli.device_prefixes = prefixes
+    log(f"run_device_tasks, 4 label tasks + 3 host cues, {len(views)} bench "
+        f"views: {s_pass[True]:.3f} s/view with device prefixes, "
+        f"{s_pass[False]:.3f} without (pool of {min(128, os.cpu_count() or 1)} "
+        f"workers, spawn included)")
+    return {"route_calls": route_calls, "host_route_differs": differ,
+            "serial_s_per_view_with": statistics.mean(s_with),
+            "serial_s_per_view_without": statistics.mean(s_without),
+            "pass_s_per_view_with": s_pass[True],
+            "pass_s_per_view_without": s_pass[False]}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: DPT-hybrid-384
+# ---------------------------------------------------------------------------
+
+DPT_RES = 384
+DPT_BATCHES = (1, 8, 16)
+DPT_REPS = 5
+DPT_F32_TOL = 1e-3  # max |card - CPU| / max |CPU|, float32 without TF32
+# dense peaks of one H100 SXM (data sheet): FP32 without tensor cores (TF32
+# off), BF16 tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+DEMO_TIMEOUT_S = 300
+
+
+def model_flops(model, x) -> float:
+    """Multiply-adds x 2 of one forward on x, from the layer shapes: every
+    convolution and linear layer, and attention's two matrix products (no
+    interpolation, normalisation or elementwise work)."""
+    import torch
+
+    from omnidata_tpu_torch.models.layers import Attention
+
+    total = [0.0]
+
+    def conv(m, inp, out):
+        total[0] += 2.0 * out.numel() * (m.in_channels // m.groups) \
+            * m.kernel_size[0] * m.kernel_size[1]
+
+    def linear(m, inp, out):
+        total[0] += 2.0 * out.numel() * m.in_features
+
+    def attention(m, inp, out):
+        B, N, C = inp[0].shape
+        total[0] += 2.0 * 2 * B * N * N * C  # q k^T and attn v over all heads
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(conv))
+        elif isinstance(m, torch.nn.Linear):
+            hooks.append(m.register_forward_hook(linear))
+        elif isinstance(m, Attention):
+            hooks.append(m.register_forward_hook(attention))
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total[0] / x.shape[0]
+
+
+def seeded_png(path: Path, seed: int = 0) -> None:
+    """A seeded 640x480 RGB photo stand-in: gradients, discs, noise."""
+    import numpy as np
+
+    from omnidata_tpu_torch.cues.encode import save_png
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    img = np.stack([xx / 640, yy / 480, 0.5 + 0.5 * np.sin(xx / 37 + yy / 53)], -1)
+    for _ in range(6):
+        cy, cx, r = rng.rand() * 480, rng.rand() * 640, 30 + rng.rand() * 90
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.rand(3)
+    img = img + 0.05 * rng.standard_normal(img.shape)
+    save_png(str(path), (np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+
+def dpt_profile(net, bs: int, gen, dev, what: str, top: int = 6) -> dict:
+    """torch.profiler over 3 forwards of net at batch bs: the window's wall
+    time, the device's busy time (kernels' self time) and idle share, and
+    the kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.rand(bs, 3, DPT_RES, DPT_RES, generator=gen).to(dev)
+    with torch.no_grad():
+        net(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                net(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return e.self_device_time_total
+
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    kern = sorted(events, key=dev_us, reverse=True)[:top]
+    tops = [(e.key[:60], dev_us(e) / 1e3 / 3, e.count // 3) for e in kern]
+    log(f"DPT profile, {what} ({DPT_RES}², 3 forwards): wall {wall_ms / 3:.2f} ms "
+        f"a forward, kernels {busy_ms / 3:.2f} ms, idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; top kernels (ms a forward, "
+        f"launches): " + "; ".join(f"{k} {ms:.2f} x{n}" for k, ms, n in tops))
+    return {"wall_ms": wall_ms / 3, "kernel_ms": busy_ms / 3,
+            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "top": [{"kernel": k, "ms": ms, "launches": n} for k, ms, n in tops]}
+
+
+def phase_dpt(dev, card: str) -> dict:
+    """DPT-hybrid-384, depth and normal heads, seeded weights, at 384²."""
+    import numpy as np
+    import torch
+
+    from omnidata_tpu_torch.models import create_model
+    from omnidata_tpu_torch.models import layers as L
+    from omnidata_tpu_torch.models.registry import cast_params_bf16, init_weights
+
+    gen = torch.Generator().manual_seed(0)
+    x1 = torch.rand(1, 3, DPT_RES, DPT_RES, generator=gen)
+    res = {}
+    for name in ("depth_dpt_hybrid_384", "surface_normal_dpt_hybrid_384"):
+        cpu = create_model(name, device="cpu", generator=torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = cpu(x1)
+        s_cpu = time.perf_counter() - t0
+        model = cpu.to(dev)
+        del cpu
+        with torch.no_grad():
+            got = model(x1.to(dev)).cpu()
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        log(f"DPT {name} f32 at {DPT_RES}², batch 1: card vs CPU ({s_cpu:.1f} s) "
+            f"max |diff| / max |CPU| = {err:.3g} (tol {DPT_F32_TOL}); output "
+            f"{tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        if not err <= DPT_F32_TOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: the card's float32 output differs from the CPU")
+        res[name] = {"f32_card_vs_cpu": err}
+    flops = model_flops(model.net, x1.to(dev))
+
+    # bf16 against f32 on the card: one block, and the whole net
+    blk = L.EncoderBlock(768, 12)
+    init_weights(blk, gen)
+    with torch.no_grad():
+        blk = blk.to(dev)
+        xb = torch.randn(1, 10, 768, generator=gen).to(dev)
+        a = blk(xb)
+        b = cast_params_bf16(blk)(xb.to(torch.bfloat16)).float()
+    block_rel = float((a - b).abs().max() / (a.abs().max() + 1e-6))
+    m16 = create_model("surface_normal_dpt_hybrid_384", dtype="bfloat16",
+                       device=dev, generator=torch.Generator().manual_seed(0))
+    xg = x1.to(dev)
+    with torch.no_grad():
+        y32, y16 = model(xg).flatten(), m16(xg).flatten()
+    corr = float(torch.corrcoef(torch.stack([y32, y16]))[0, 1])
+    log(f"DPT bf16 vs f32 on the card: one EncoderBlock(768, 12) max rel err "
+        f"{block_rel:.4g} (< 0.01); whole net (normals, {DPT_RES}²) correlation "
+        f"{corr:.4f} (> 0.9)")
+    if not block_rel < 0.01 or not corr > 0.9:
+        raise AssertionError("bf16 DPT out of tests/test_models.py:302's bounds")
+
+    # throughput: CUDA events, median / min / max over DPT_REPS reps; with
+    # cuDNN as phase 1 set it (deterministic algorithms), then as a server
+    # would run it (autotuned, cudnn.benchmark)
+    rates = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for cudnn_mode in ("deterministic", "benchmark"):
+        torch.backends.cudnn.deterministic = cudnn_mode == "deterministic"
+        torch.backends.cudnn.benchmark = cudnn_mode == "benchmark"
+        for dtype, net in (("float32", model), ("bfloat16", m16)):
+            for bs in DPT_BATCHES:
+                xb = torch.rand(bs, 3, DPT_RES, DPT_RES, generator=gen).to(dev)
+                with torch.no_grad():
+                    net(xb)  # warm-up (and the autotuner's search)
+                    iters = max(2, 32 // bs)
+                    per = sorted(cuda_ms(lambda: net(xb), iters)
+                                 for _ in range(DPT_REPS))
+                ips = [bs / (ms / 1e3) for ms in per]
+                med = statistics.median(ips)
+                rates[f"{dtype}_b{bs}_{cudnn_mode}"] = {
+                    "img_s_median": med, "img_s_min": min(ips), "img_s_max": max(ips),
+                    "share_of_peak": med * flops / PEAK_FLOPS[dtype]}
+                log(f"DPT {dtype} batch {bs} at {DPT_RES}², cuDNN {cudnn_mode}: "
+                    f"{med:.2f} img/s (min {min(ips):.2f}, max {max(ips):.2f}; "
+                    f"{DPT_REPS} reps of {iters}); {med * flops / 1e12:.2f} TFLOP/s "
+                    f"= {med * flops / PEAK_FLOPS[dtype]:.3f} of the "
+                    f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s {dtype} peak; card {card}")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"DPT: {flops / 1e9:.2f} GFLOP per image at {DPT_RES}² (convs, linears, "
+        f"attention products); peak device memory {peak_gib:.2f} GiB")
+    profiles = {f"{dtype}_b{bs}": dpt_profile(net, bs, gen, dev, f"{dtype} batch {bs}")
+                for dtype, net, bs in (("bfloat16", m16, 16), ("float32", model, 16),
+                                       ("float32", model, 1))}
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    del model, m16
+
+    # the demo, as a user runs it, both tasks at once
+    ddir = CLI_DIR / "demo"
+    ddir.mkdir()
+    seeded_png(ddir / "photo.png")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "omnidata_tpu_torch.demo", "--task", task,
+         "--img_path", str(ddir / "photo.png"), "--output_path", str(ddir / "out")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for task in ("depth", "normal")]
+    for p in procs:
+        text, _ = p.communicate(timeout=DEMO_TIMEOUT_S)
+        if p.returncode:
+            print(text[-4000:], file=sys.stderr)
+            raise AssertionError(f"demo exited {p.returncode}")
+    s_demo = time.perf_counter() - t0
+    shapes = {}
+    for name in ("photo_rgb", "photo_depth", "photo_normal"):
+        a = load_output(str(ddir / "out" / f"{name}.png"))
+        if len(np.unique(a.reshape(-1, a.shape[-1]), axis=0)) < 2:
+            raise AssertionError(f"demo output {name} is constant")
+        shapes[name] = a.shape
+    log(f"demo (python -m omnidata_tpu_torch.demo, depth and normal at once on "
+        f"a 640x480 PNG): {s_demo:.1f} s; outputs decode and vary: {shapes}")
+    return {"gflop_per_image": flops / 1e9, "peak_gib": peak_gib,
+            "bf16_block_rel_err": block_rel, "bf16_net_corr": corr,
+            "img_s": rates, "profiles": profiles, "checks": res, "demo_s": s_demo}
 
 
 def main() -> int:
@@ -901,10 +1284,22 @@ def main() -> int:
     bdir = write_mesh_dir(CLI_DIR / "bench", mesh)
     rk.raster_tiles_chunklist.launches = 0
     rk.raster_tiles_streamed.launches = 0
+    device_cue_maps, route_calls = cli.device_cue_maps, []
+
+    def counted_cue_maps(out, fov, settings, prefixes):
+        maps = device_cue_maps(out, fov, settings, prefixes)
+        route_calls.append(sorted(maps))
+        return maps
+
+    cli.device_cue_maps = counted_cue_maps
     t0 = time.perf_counter()
-    run_cli(cli.main, ["--model_path", bdir, "--task", "all", *CLI_BENCH_ARGS])
+    try:
+        run_cli(cli.main, ["--model_path", bdir, "--task", "all", *CLI_BENCH_ARGS])
+    finally:
+        cli.device_cue_maps = device_cue_maps
     torch.cuda.synchronize()
     s_cli_bench = time.perf_counter() - t0
+    route_calls = sum(m == ["narf", "seg25d_q", "seg2d_q"] for m in route_calls)
     cli_a_bench = rk.raster_tiles_chunklist.launches
     cli_c_bench = rk.raster_tiles_streamed.launches
     bsettings = load_settings(CLI_BENCH_ARGS[1:])
@@ -1021,6 +1416,20 @@ def main() -> int:
         f"{s_pano_task:.1f} s; render_pano {', '.join(f'{x:.2f}' for x in pano_s)} "
         f"s = {pano_rate:.4g} ray-triangle tests/s; card {card}")
 
+    # 14. the host cues' device prefixes ----------------------------------
+    dsettings = load_settings([])
+    prefixes = {}
+    for what, cams_, args_ in (
+            ("bench batch", cams_main, (mesh, curv, dict(tile=TILE, chunk=CHUNK))),
+            ("large batch", lcams_main, (lmesh, lcurv, lkw_ann))):
+        out = annotate_views(cams_, *args_[:2], modalities=DEVICE_MODALITIES, **args_[2])
+        prefixes[what] = check_device_maps(what, out, cams_, dsettings)
+        del out
+    prefixes["cli"] = check_cli_route(cli, bdir, bviews, bsettings, dev, route_calls)
+
+    # 15. DPT-hybrid-384 and the demo ---------------------------------------
+    dpt = phase_dpt(dev, card)
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -1086,7 +1495,8 @@ def main() -> int:
         "s_kernel_build": s_build, "s_large_scene_build": s_large_scene,
         "raycast_tests_per_s": ray_tests / s_ray, "raycast_face_agreement": face_eq,
         "cli_bench_all_s": s_cli_bench, "cli_large": cli_large,
-        "pano_s": pano_s, "pano_tests_per_s": pano_rate}
+        "pano_s": pano_s, "pano_tests_per_s": pano_rate,
+        "device_prefixes": prefixes, "dpt": dpt, "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(card)

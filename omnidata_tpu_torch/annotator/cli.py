@@ -14,15 +14,23 @@ point_info/*.json and camera_poses.json.
 
 The device labels go through ``annotate_views``, K = VIEWS_PER_DISPATCH
 views per raster launch, which picks the raster kernel by the size of the
-scene pack (``mesh.raster.render_views_fused``). The host cues (keypoints3d, segment_unsup2d,
-segment_unsup25d) run wholly on the host, in a spawned process pool kept
-off the card.
+scene pack (``mesh.raster.render_views_fused``). The host cues (keypoints3d,
+segment_unsup2d, segment_unsup25d) run in a spawned process pool kept off
+the card. On ``--device cuda`` (or with FORCE_BATCHED_PATH=1 on the CPU,
+the JAX CLI's batched path off a TPU) their convolution-shaped prefixes run
+on the device beside the render — NARF border maps
+(``cues.narf_device``), the 2D blur and 2.5D channel maps
+(``cues.seg_device``) — and the pool runs only the sequential cores
+(region growing, Kruskal, normalized cuts) on those codes. On ``--device
+cpu`` without the flag the cues run wholly on the host, as the JAX CLI's
+per-view path does.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import math
 import os
 import sys
 import time
@@ -342,6 +350,68 @@ def device_views(model_path: str, settings) -> list:
     return [v for views in infos for v in views]
 
 
+def device_prefixes(host_tasks, mods, settings, device: torch.device | str) -> dict:
+    """Which of the host cues' prefixes a pass computes on the device: those
+    whose cue it feeds and whose inputs it renders, on a card (the JAX CLI's
+    batched path on a TPU) or on the CPU with FORCE_BATCHED_PATH set (that
+    path off a TPU); none otherwise -> {"narf", "seg2d", "seg25d": bool}."""
+    route = (torch.device(device).type == "cuda"
+             or bool(getattr(settings, "FORCE_BATCHED_PATH", 0)))
+    return {
+        "narf": route and "keypoints3d" in host_tasks and "depth_zbuffer" in mods,
+        "seg2d": (route and "segment_unsup2d" in host_tasks and "rgb" in mods
+                  and float(settings.SEGMENTATION_2D_BLUR) > 0),
+        "seg25d": route and "segment_unsup25d" in host_tasks and all(
+            m in mods for m in ("depth_zbuffer", "normal", "edge_occlusion")),
+    }
+
+
+def device_cue_maps(out: dict, fov: torch.Tensor, settings, prefixes: dict) -> dict:
+    """The host cues' input maps of one rendered batch, on its device:
+    "narf" (per level (change, cdir, shadow) codes, every view at
+    ``max_levels_for(RESOLUTION)`` levels), "seg2d_q" and "seg25d_q" (uint16
+    codes), as ``prefixes`` asks."""
+    maps = {}
+    if prefixes["narf"]:
+        from ..cues import narf_device
+
+        res = settings.RESOLUTION
+        maxm = float(settings.DEPTH_ZBUFFER_MAX_DISTANCE_METERS)
+        depth_m = out["depth_zbuffer"].to(torch.int32).to(torch.float32) * (
+            maxm / 65535.0)
+        maps["narf"] = narf_device.narf_border_maps(
+            depth_m, narf_device.focal_px(fov, res),
+            narf_device.max_levels_for(res, res), maxm)
+    if prefixes["seg2d"] and "rgb" in out:
+        from ..cues.seg_device import seg2d_blur_maps
+
+        maps["seg2d_q"] = seg2d_blur_maps(
+            out["rgb"], sigma=float(settings.SEGMENTATION_2D_BLUR))
+    if prefixes["seg25d"]:
+        from ..cues.seg_device import seg25d_channel_maps
+
+        maps["seg25d_q"] = seg25d_channel_maps(
+            out["depth_zbuffer"], out["normal"], out["edge_occlusion"])
+    return maps
+
+
+def view_cue_maps(maps: dict, vi: int, view: dict, resolution: int) -> dict | None:
+    """One view's slice of a fetched batch's device maps: the NARF levels cut
+    to its own pyramid depth (n_levels_for its focal)."""
+    vmaps = {}
+    if "narf" in maps:
+        from ..cues.narf_device import n_levels_for
+
+        f_px = resolution / (2.0 * math.tan(view["field_of_view_rads"] / 2.0))
+        S = min(len(maps["narf"]), n_levels_for(f_px, resolution, resolution))
+        vmaps["narf"] = [(lvl[0][vi], lvl[1][vi], lvl[2][vi])
+                         for lvl in maps["narf"][:S]]
+    for key in ("seg2d_q", "seg25d_q"):
+        if key in maps:
+            vmaps[key] = maps[key][vi]
+    return vmaps or None
+
+
 def run_device_tasks(model_path: str, tasks: list[str], settings,
                      host_tasks: tuple = (), mesh_task: str | None = None,
                      device: torch.device | str = "cpu") -> None:
@@ -350,9 +420,12 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
     A one-thread fetcher waits for batch b and copies it to the host while
     the main thread enqueues batch b+1 and hands batch b-1 to the PNG
     writers (8 threads) and, for host_tasks (keypoints3d / segment_*), to
-    the host-cue pool, which computes them from the in-flight arrays. On a
-    card the copy is pageable and shares the one stream with the renders,
-    so it runs between batch b's render and b+1's, not beside them."""
+    the host-cue pool, which computes them from the in-flight arrays. On the
+    device-prefix route (``device_prefixes``) the cues' input maps are
+    computed on the device from each batch and fetched with it, in the same
+    copy. On a card the copy is pageable and shares the one stream with the
+    renders, so it runs between batch b's render and b+1's, not beside
+    them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ..cues.encode import save_png
@@ -370,11 +443,13 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
     kw = annotate_kwargs(settings, mods)
     K = int(getattr(settings, "VIEWS_PER_DISPATCH", 32))
     host_kv = _host_cue_settings_kv(settings) if host_tasks else None
+    prefixes = device_prefixes(host_tasks, mods, settings, device)
     pending: list = []
 
-    def write_outputs(view, arrs, io_pool, host_pool):
+    def write_outputs(view, arrs, io_pool, host_pool, dev_maps=None):
         """arrs: {modality: host array} for one view (a subset of mods, e.g.
-        no 'semantic' without face labels)."""
+        no 'semantic' without face labels); dev_maps: its device-computed
+        cue input maps (``view_cue_maps``)."""
         for t in arrs:
             ext = "npy" if t == "fragments" else settings.PREFERRED_IMG_EXT
             path = file_name_for(os.path.join(model_path, t),
@@ -383,12 +458,23 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
             pending.append(io_pool.submit(writer, path, arrs[t]))
         if host_pool is not None:
             cue_in = {t: arrs[t] for t in _HOST_CUE_INPUTS if t in arrs}
+            if dev_maps and "seg25d_q" in dev_maps:
+                # segment_25d then reads only the channel maps: send the
+                # pool no normal or edge planes
+                cue_in.pop("normal", None)
+                cue_in.pop("edge_occlusion", None)
             pending.append(host_pool.submit(
                 _host_cue_job, model_path, view, tuple(host_tasks), host_kv,
-                cue_in))
+                cue_in, dev_maps))
 
-    def fetch(out):
-        return {t: out[t].cpu().numpy() for t in mods if t in out}
+    def host(x):
+        if isinstance(x, (tuple, list)):
+            return [host(y) for y in x]
+        return x.cpu().numpy()
+
+    def fetch(out, maps):
+        return ({t: host(out[t]) for t in mods if t in out},
+                {k: host(v) for k, v in maps.items()})
 
     i = 0
     host_pool_cm = _host_cue_pool() if host_tasks else contextlib.nullcontext()
@@ -397,21 +483,23 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
             ThreadPoolExecutor(max_workers=1) as fetcher, \
             host_pool_cm as host_pool:
 
-        def process(chunk_views, arrs):
+        def process(chunk_views, fetched):
             nonlocal i
+            arrs, maps = fetched
             for vi, view in enumerate(chunk_views):
                 write_outputs(view, {t: a[vi] for t, a in arrs.items()},
-                              io_pool, host_pool)
+                              io_pool, host_pool,
+                              view_cue_maps(maps, vi, view, settings.RESOLUTION))
                 i += 1
                 pflr.step(f"finished img {i}/{n_imgs}")
 
         prev = None
         for s in range(0, n_imgs, K):
             chunk_views = flat_views[s: s + K]
-            out = annotate_views(view_batch(chunk_views, settings.RESOLUTION,
-                                            mesh.vertices.device),
-                                 mesh, curv, **kw)
-            fut = fetcher.submit(fetch, out)
+            cams = view_batch(chunk_views, settings.RESOLUTION, mesh.vertices.device)
+            out = annotate_views(cams, mesh, curv, **kw)
+            fut = fetcher.submit(fetch, out,
+                                 device_cue_maps(out, cams.fov, settings, prefixes))
             del out
             if prev is not None:
                 process(prev[0], prev[1].result())
@@ -549,12 +637,13 @@ def _host_cue_pool():
             os.environ["CUDA_VISIBLE_DEVICES"] = saved
 
 
-def _host_cue_job(model_path, view, tasks, settings_kv, arrs) -> None:
+def _host_cue_job(model_path, view, tasks, settings_kv, arrs,
+                  dev_maps=None) -> None:
     """Pool entry: host cues for one view from in-memory arrays."""
     from types import SimpleNamespace
 
     host_cues_for_view(model_path, view, tasks, SimpleNamespace(**settings_kv),
-                       arrs.__getitem__)
+                       arrs.__getitem__, dev_maps=dev_maps)
 
 
 def _host_cue_disk_job(model_path, view, tasks, settings_kv) -> None:
@@ -575,13 +664,18 @@ def _host_cue_disk_job(model_path, view, tasks, settings_kv) -> None:
     host_cues_for_view(model_path, view, tasks, s, get)
 
 
-def host_cues_for_view(model_path: str, view: dict, tasks, settings, get) -> None:
+def host_cues_for_view(model_path: str, view: dict, tasks, settings, get,
+                       dev_maps=None) -> None:
     """Compute and write one view's host cues (keypoints3d / segment_2d /
     segment_25d); ``get(task)`` returns the task's decoded image, from disk
-    or from the in-flight device batch."""
+    or from the in-flight device batch. dev_maps: the view's device-computed
+    input maps, if any — "narf" (keypoints3d then runs only its
+    region-growing interest stage), "seg2d_q" / "seg25d_q" (the segmentation
+    cues then skip their host gaussians)."""
     from ..cues.encode import save_png
     from ..sampling import file_name_for
 
+    dev_maps = dev_maps or {}
     p, v = view["point_uuid"], view["view_id"]
 
     def out_path(task):
@@ -595,11 +689,16 @@ def host_cues_for_view(model_path: str, view: dict, tasks, settings, get) -> Non
             get("depth_zbuffer"), view["field_of_view_rads"],
             settings.RESOLUTION, support_size=settings.KEYPOINT_SUPPORT_SIZE,
             max_meters=settings.DEPTH_ZBUFFER_MAX_DISTANCE_METERS,
+            border_maps=dev_maps.get("narf"),
         )
         save_png(out_path("keypoints3d"), out)
     if "segment_unsup2d" in tasks:
+        from ..cues.seg_device import seg2d_blurred_from_maps
         from ..cues.segmentation import segment_2d
 
+        blurred = None
+        if "seg2d_q" in dev_maps:
+            blurred = seg2d_blurred_from_maps(dev_maps["seg2d_q"])
         # keep uint8: felzenszwalb's img_as_float scaling depends on the
         # dtype (a float64 0-255 array would be double-scaled)
         labels = segment_2d(
@@ -608,19 +707,30 @@ def host_cues_for_view(model_path: str, view: dict, tasks, settings, get) -> Non
             blur=settings.SEGMENTATION_2D_BLUR,
             cut_thresh=settings.SEGMENTATION_2D_CUT_THRESH,
             self_edge_weight=settings.SEGMENTATION_2D_SELF_EDGE_WEIGHT,
+            blurred255=blurred,
         )
         save_png(out_path("segment_unsup2d"), labels.astype(np.uint8))
     if "segment_unsup25d" in tasks:
+        from ..cues.seg_device import seg25d_input_from_maps
         from ..cues.segmentation import segment_25d
 
+        input_img = None
+        if "seg25d_q" in dev_maps:
+            input_img = seg25d_input_from_maps(
+                dev_maps["seg25d_q"], settings.SEGMENTATION_25D_DEPTH_WEIGHT,
+                settings.SEGMENTATION_25D_NORMAL_WEIGHT,
+                settings.SEGMENTATION_25D_EDGE_WEIGHT)
         labels = segment_25d(
-            get("depth_zbuffer"), get("normal"), get("edge_occlusion"),
+            get("depth_zbuffer"),
+            None if input_img is not None else get("normal"),
+            None if input_img is not None else get("edge_occlusion"),
             depth_weight=settings.SEGMENTATION_25D_DEPTH_WEIGHT,
             normal_weight=settings.SEGMENTATION_25D_NORMAL_WEIGHT,
             edge_weight=settings.SEGMENTATION_25D_EDGE_WEIGHT,
             scale=settings.SEGMENTATION_25D_SCALE,
             cut_thresh=settings.SEGMENTATION_25D_CUT_THRESH,
             self_edge_weight=settings.SEGMENTATION_25D_SELF_EDGE_WEIGHT,
+            input_img=input_img,
         )
         save_png(out_path("segment_unsup25d"), labels.astype(np.uint8))
 

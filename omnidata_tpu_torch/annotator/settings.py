@@ -98,8 +98,9 @@ class Settings:
     MAX_FACE_EDGE_METERS: float = 1.0  # split longer edges at load (0 = off);
     # no-op for real scans, kills pathological big faces (walls as 2 tris)
     VIEWS_PER_DISPATCH: int = 32  # cameras per raster launch
-    FORCE_BATCHED_PATH: int = 0  # accepted for the vocabulary; the port
-    # always takes the batched path
+    FORCE_BATCHED_PATH: int = 0  # 1: on the CPU, run the host cues'
+    # convolution-shaped prefixes on the device path as on a card (the JAX
+    # CLI's batched path off a TPU); the renders are batched either way
 
 
 def _coerce(value: str):

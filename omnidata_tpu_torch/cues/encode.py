@@ -94,17 +94,18 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(arr: np.ndarray, level: int = 6) -> bytes:
-    """(H,W) uint8 or uint16 grey, or (H,W,3) uint8 RGB -> PNG bytes."""
+    """(H,W) uint8 or uint16 grey, or (H,W,3) uint8 RGB, or (H,W,4) uint8
+    RGBA -> PNG bytes."""
     arr = np.asarray(arr)
     if arr.ndim == 2 and arr.dtype == np.uint8:
         depth, ctype = 8, 0
     elif arr.ndim == 2 and arr.dtype == np.uint16:
         depth, ctype, arr = 16, 0, arr.astype(">u2")
-    elif arr.ndim == 3 and arr.shape[2] == 3 and arr.dtype == np.uint8:
-        depth, ctype = 8, 2
+    elif arr.ndim == 3 and arr.shape[2] in (3, 4) and arr.dtype == np.uint8:
+        depth, ctype = 8, 2 if arr.shape[2] == 3 else 6
     else:
         raise ValueError(f"cannot write a PNG from {arr.dtype} {arr.shape}: "
-                         "need (H,W) uint8/uint16 or (H,W,3) uint8")
+                         "need (H,W) uint8/uint16 or (H,W,3|4) uint8")
     H, W = arr.shape[:2]
     rows = np.ascontiguousarray(arr).view(np.uint8).reshape(H, -1)
     raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], 1)  # filter 0
@@ -204,13 +205,19 @@ def load_png(path: str) -> np.ndarray:
         return decode_png(fh.read())
 
 
-def load_rgb_float(path: str) -> np.ndarray:
-    """An 8-bit PNG as (H,W,3) float32 RGB in [0,1] (grey repeated, alpha
-    dropped): the texture loader's conversion."""
+def load_rgb_u8(path: str) -> np.ndarray:
+    """An 8-bit PNG as (H,W,3) uint8 RGB, as PIL's convert("RGB") gives it:
+    grey repeated, alpha dropped."""
     a = load_png(path)
     if a.dtype != np.uint8:
-        raise ValueError(f"{path}: textures must be 8-bit PNGs")
+        raise ValueError(f"{path}: need an 8-bit PNG, not {a.dtype}")
     if a.ndim == 2:
         a = a[..., None]
-    a = np.repeat(a[..., :1], 3, -1) if a.shape[2] in (1, 2) else a[..., :3]
-    return a.astype(np.float32) / 255.0
+    return np.ascontiguousarray(
+        np.repeat(a[..., :1], 3, -1) if a.shape[2] in (1, 2) else a[..., :3])
+
+
+def load_rgb_float(path: str) -> np.ndarray:
+    """An 8-bit PNG as (H,W,3) float32 RGB in [0,1]: the texture loader's
+    conversion."""
+    return load_rgb_u8(path).astype(np.float32) / 255.0

@@ -105,8 +105,8 @@ def narf_interest_with_maps(
     max_range: float = 128.0,
 ) -> np.ndarray:
     """Split-pipeline NARF: the convolution-shaped border prefix (74% of
-    the host cost, measured) was computed on a device (the JAX package's
-    narf_device.py; not ported yet) — per-level quantized (change u16, cdir i8, shadow u8) tuples); only the
+    the host cost, measured) was computed on a device (``narf_device``:
+    per-level quantized (change u16, cdir i8, shadow u8) tuples); only the
     data-dependent region-growing interest stage runs here. Falls back to
     the full native path on level-count mismatch (wrong focal/resolution
     pairing) or when the native library is unavailable."""

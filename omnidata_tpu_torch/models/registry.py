@@ -1,0 +1,139 @@
+"""Model registry: the hub names of the reference (omnidata_tools/torch/
+README.md:23-29: dpt_hybrid_384, depth_dpt_hybrid_384,
+surface_normal_dpt_hybrid_384, surface_normal_unet), the counterpart of
+the JAX package's ``models/registry.py``.
+
+Each entry returns a ``Predictor``: an ``nn.Module`` in eval mode that
+takes an NCHW float32 batch and returns the reference's output convention
+in float32 — depth (B, H, W) with the channel squeezed, normals
+(B, 3, H, W). Weights come from a published torch checkpoint
+(``torch.load`` -> ``convert.strip_prefix`` -> ``load_state_dict(strict=
+True)``) or, without one, from a seeded ``torch.Generator`` (Flax's
+initialisers: LeCun-normal kernels, zero biases, unit norm scales, pos
+embed N(0, 0.02)); they are made on the CPU, then moved, so a seed gives
+the same weights on every device.
+
+``dtype="bfloat16"`` follows the JAX package's ``cast_params_bf16``: every
+parameter goes to bfloat16 except those of the normalisation layers, which
+stay float32 (their statistics are computed in float32 too); activations
+run in bfloat16 and the output comes back as float32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .convert import strip_prefix
+from .dpt import DPTHybrid
+from .unet import UNet
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class Predictor(nn.Module):
+    """net + the reference's input/output convention (see the module doc)."""
+
+    def __init__(self, net: nn.Module, squeeze: bool, dtype: torch.dtype):
+        super().__init__()
+        self.net, self.squeeze, self.dtype = net, squeeze, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.net(x.to(self.dtype)).float()
+        return y[:, 0] if self.squeeze else y
+
+
+def init_weights(net: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default initialisers from ``generator``, in module order:
+    kernels N(0, 1/fan_in), biases 0, norm scales 1 and shifts 0, the ViT's
+    cls token 0 and position embedding N(0, 0.02)."""
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "pos_embed":
+                p.normal_(0.0, 0.02, generator=generator)
+            elif leaf == "cls_token" or leaf == "bias":
+                p.zero_()
+            elif p.dim() == 1:  # a norm's scale
+                p.fill_(1.0)
+            else:
+                fan_in = p[0].numel()
+                p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+
+
+def cast_params_bf16(net: nn.Module) -> nn.Module:
+    """Every parameter to bfloat16 except the GroupNorm / LayerNorm ones."""
+    for mod in net.modules():
+        if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
+            continue
+        for name, p in mod.named_parameters(recurse=False):
+            p.data = p.data.to(torch.bfloat16)
+    return net
+
+
+def load_checkpoint(net: nn.Module, path: str) -> None:
+    """A published torch checkpoint (Lightning 'state_dict' with 'model.'
+    prefixes, or a bare state dict) into net, every key accounted for."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    net.load_state_dict(strip_prefix(ckpt), strict=True)
+
+
+def _build(net: nn.Module, squeeze: bool, checkpoint, dtype: str, device,
+           generator) -> Predictor:
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype {dtype!r}: one of {sorted(_DTYPES)}")
+    if checkpoint:
+        load_checkpoint(net, checkpoint)
+    else:
+        init_weights(net, generator if generator is not None
+                     else torch.Generator().manual_seed(0))
+    if dtype == "bfloat16":
+        cast_params_bf16(net)
+    return Predictor(net, squeeze, _DTYPES[dtype]).to(device).eval()
+
+
+def dpt_hybrid_384(num_channels: int = 1, checkpoint: str | None = None,
+                   dtype: str = "float32", device: torch.device | str = "cuda",
+                   generator: torch.Generator | None = None) -> Predictor:
+    """DPT-hybrid: depth (num_channels=1, output (B, H, W)) or normals
+    (num_channels=3, output (B, 3, H, W))."""
+    return _build(DPTHybrid(num_channels=num_channels), num_channels == 1,
+                  checkpoint, dtype, device, generator)
+
+
+def depth_dpt_hybrid_384(checkpoint: str | None = None, **kw) -> Predictor:
+    return dpt_hybrid_384(num_channels=1, checkpoint=checkpoint, **kw)
+
+
+def surface_normal_dpt_hybrid_384(checkpoint: str | None = None, **kw) -> Predictor:
+    return dpt_hybrid_384(num_channels=3, checkpoint=checkpoint, **kw)
+
+
+def surface_normal_unet(checkpoint: str | None = None,
+                        device: torch.device | str = "cuda",
+                        generator: torch.Generator | None = None) -> Predictor:
+    """The v1 UNet normal model (the reference demo's commented v1 path),
+    float32 as in the JAX package."""
+    return _build(UNet(out_channels=3), False, checkpoint, "float32", device,
+                  generator)
+
+
+MODELS = {
+    "dpt_hybrid_384": dpt_hybrid_384,
+    "depth_dpt_hybrid_384": depth_dpt_hybrid_384,
+    "surface_normal_dpt_hybrid_384": surface_normal_dpt_hybrid_384,
+    "surface_normal_unet": surface_normal_unet,
+}
+
+
+def create_model(name: str, **kwargs) -> Predictor:
+    """create_model(name, checkpoint=None, dtype="float32", device="cuda",
+    generator=None); a CUDA device without a card raises."""
+    if name not in MODELS:
+        raise KeyError(f"unknown model {name!r}; available: {sorted(MODELS)}")
+    device = torch.device(kwargs.get("device", "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+    return MODELS[name](**kwargs)

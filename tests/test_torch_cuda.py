@@ -290,3 +290,71 @@ def test_render_views_fused_kernel_equals_plain_raster(cuda_scene, monkeypatch,
                                       **kw)
     for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
         assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (runs the port on the card against "
+                    "itself on the CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _label_batch():
+    """Seeded encoded labels of 3 views at 96²: depth codes with planes,
+    boxes, no-hit pixels and noise; normals; edges; rgb."""
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:96, 0:96].astype(np.float32)
+    depth = np.stack([2.0 + 0.02 * xx, 4.0 - 0.03 * yy, 3.0 + 0.5 * np.sin(xx / 9)])
+    depth[0, 30:60, 10:50] = 1.2
+    depth[1, :10, :12] = 0.0
+    depth[2, 50:, 40:] = 1.7
+    depth += 0.003 * rng.rand(*depth.shape).astype(np.float32)
+    code = np.where(depth > 0, np.round(depth * 512), 65535).astype(np.uint16)
+    normal = (rng.rand(3, 96, 96, 3) * 255).astype(np.uint8)
+    edge = (rng.rand(3, 96, 96) * 5000).astype(np.uint16)
+    rgb = (rng.rand(3, 96, 96, 3) * 255).astype(np.uint8)
+    return code, normal, edge, rgb
+
+
+def test_device_cue_maps_on_the_card_equal_the_cpu(card):
+    """narf_border_maps, seg2d_blur_maps and seg25d_channel_maps on the card
+    against the port on the CPU from the same codes: every code equal (every
+    division and square root rounds as IEEE float32 on both, and the
+    transcendental functions are taken in float64 and rounded once)."""
+    from omnidata_tpu_torch.cues import narf_device as nd
+    from omnidata_tpu_torch.cues import seg_device as sd
+
+    code, normal, edge, rgb = _label_batch()
+    depth_m = torch.from_numpy(code.astype(np.float32) * (128.0 / 65535.0))
+    focal = nd.focal_px(torch.tensor([1.0, 1.2, 0.9]), 96)
+    n = nd.max_levels_for(96, 96)
+    cpu = nd.narf_border_maps(depth_m, focal, n)
+    gpu = nd.narf_border_maps(depth_m.to(card), focal.to(card), n)
+    assert len(cpu) == len(gpu) == n
+    for lvl, glvl in zip(cpu, gpu):
+        for m, gm in zip(lvl, glvl):
+            assert gm.device.type == card.type and gm.dtype == m.dtype
+            assert torch.equal(gm.cpu().int(), m.int())
+    t = [torch.from_numpy(x) for x in (code, normal, edge, rgb)]
+    assert torch.equal(sd.seg2d_blur_maps(t[3].to(card)).cpu().int(),
+                       sd.seg2d_blur_maps(t[3]).int())
+    got = sd.seg25d_channel_maps(*(x.to(card) for x in t[:3])).cpu()
+    assert torch.equal(got.int(), sd.seg25d_channel_maps(*t[:3]).int())
+
+
+def test_dpt_on_the_card_matches_the_cpu(card):
+    """DPT-hybrid, depth and normals, seeded weights, float32 with TF32 off
+    at 128²: max |card - CPU| <= 1e-3 x max |CPU|."""
+    from omnidata_tpu_torch.models import create_model
+
+    x = torch.from_numpy(np.random.RandomState(1).rand(1, 3, 128, 128).astype(np.float32))
+    for name in ("depth_dpt_hybrid_384", "surface_normal_dpt_hybrid_384"):
+        cpu = create_model(name, device="cpu", generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            want = cpu(x)
+            got = cpu.to(card)(x.to(card)).cpu()
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
