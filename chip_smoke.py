@@ -13,8 +13,10 @@ point users run, on the same two scenes written as ``mesh.ply``: on the
 bench scene it picks kernel A, on the large scene kernel C (scene pack over
 8 MB), its host cues on their device prefixes. And the models' serving
 path: DPT-hybrid-384 at full width through ``models.create_model`` and
-``python -m omnidata_tpu_torch.demo``. Phases, each of which fails the run
-on error:
+``python -m omnidata_tpu_torch.demo``. And training: the DPT depth and
+UNet normal trainers (``python -m omnidata_tpu_torch.train_depth`` /
+``train_normal``) on the labels the CLI wrote. Phases, each of which fails
+the run on error:
 
 1. set-up: the card's name and power limit; float32 matmuls and
    convolutions without TF32; build the CUDA kernels from csrc/ with nvcc,
@@ -116,6 +118,35 @@ on error:
     tasks at once; its PNGs must decode and not be constant. No TPU kernel's
     counterpart runs on this path (its convolutions, matmuls and attention
     are PyTorch's).
+16. training on phase 11's labels (the CLI's 16 bench views at 512²):
+    a. one DPT-hybrid-384 depth step (published widths, seeded weights,
+       batch 1 at 384², fixed triplets) before and after the 15k schedule
+       switch, and one UNet (downsample 6) normal step (batch 2 at 512²),
+       each on the card against the CPU with TF32 off: the loss within
+       1e-3; each parameter's gradient, backpropagated on the card from the
+       CPU's dL/dpred, against the same in float64 on the CPU, within 3
+       times the CPU float32's error plus 1e-2 of its norm; the update from
+       the CPU's gradients within 0.1 lr. Printed: the whole step's
+       differences (the loss's median and hard-example picks and Adam's
+       sign-like first step amplify last-bit differences) and whether two
+       card steps from one state agree bit for bit;
+    b. ``python -m omnidata_tpu_torch.train_depth`` (384², batch 8, 12
+       steps, validation and checkpoints every 6, top 2, augment, 8 loader
+       threads) and ``train_normal`` (UNet, 512², batch 4, 6 steps, every 3)
+       as subprocesses at once on phase 11's output: finite logged losses,
+       ``scores.json`` on the validation loss, validation PNGs, ``last`` at
+       the final step; then both again with ``--resume``: resumed at that
+       step, ``last`` unchanged bit for bit;
+    c. times by CUDA events (3 warm-up steps, median, min, max of 10): the
+       depth step at batch 8, 384² before and after the switch, the normal
+       step at batch 16, 512² with remat on and off, each with the script's
+       cuDNN setting (TF32 off, deterministic) and with torch's defaults
+       (which the trainers run with); img/s, training FLOPs (3 forwards,
+       ``model_flops``), share of 67 TFLOP/s, peak memory; each step's
+       parts by CUDA events and a ``torch.profiler`` window; the loader's ms
+       a sample and a batch (8 threads); the trainer loop's device idle
+       share (loader, copy and step, torch's defaults). No TPU kernel's
+       counterpart runs here either; the labels are kernel A's (phase 11).
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
@@ -123,7 +154,7 @@ log's last lines to stderr.
 Prints the kernel table as one JSON line (per kernel its K = 32 time,
 plain version, bound and work items, its main-path launches; no PyTorch
 call computes these kernels' function, so ``library_ms`` is null; phases
-14-15's numbers under "device_prefixes" and "dpt"), the
+14-16's numbers under "device_prefixes", "dpt" and "train"), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
@@ -685,39 +716,19 @@ def seeded_png(path: Path, seed: int = 0) -> None:
     save_png(str(path), (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
 
-def dpt_profile(net, bs: int, gen, dev, what: str, top: int = 6) -> dict:
-    """torch.profiler over 3 forwards of net at batch bs: the window's wall
-    time, the device's busy time (kernels' self time) and idle share, and
-    the kernels that take most of it."""
+def dpt_profile(net, bs: int, gen, dev, what: str) -> dict:
+    """profile_window over 3 forwards of net at batch bs."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     x = torch.rand(bs, 3, DPT_RES, DPT_RES, generator=gen).to(dev)
     with torch.no_grad():
         net(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                net(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return e.self_device_time_total
-
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    kern = sorted(events, key=dev_us, reverse=True)[:top]
-    tops = [(e.key[:60], dev_us(e) / 1e3 / 3, e.count // 3) for e in kern]
-    log(f"DPT profile, {what} ({DPT_RES}², 3 forwards): wall {wall_ms / 3:.2f} ms "
-        f"a forward, kernels {busy_ms / 3:.2f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; top kernels (ms a forward, "
-        f"launches): " + "; ".join(f"{k} {ms:.2f} x{n}" for k, ms, n in tops))
-    return {"wall_ms": wall_ms / 3, "kernel_ms": busy_ms / 3,
-            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "top": [{"kernel": k, "ms": ms, "launches": n} for k, ms, n in tops]}
+        r = profile_window(lambda: net(x), 3)
+    log(f"DPT profile, {what} ({DPT_RES}², 3 forwards): wall {r['wall_ms']:.2f} ms "
+        f"a forward, kernels {r['kernel_ms']:.2f} ms, idle share "
+        f"{r['idle_share']:.3f}; top kernels (ms a forward, launches): " + "; ".join(
+            f"{t['kernel']} {t['ms']:.2f} x{t['launches']}" for t in r["top"]))
+    return r
 
 
 def phase_dpt(dev, card: str) -> dict:
@@ -835,6 +846,586 @@ def phase_dpt(dev, card: str) -> dict:
     return {"gflop_per_image": flops / 1e9, "peak_gib": peak_gib,
             "bf16_block_rel_err": block_rel, "bf16_net_corr": corr,
             "img_s": rates, "profiles": profiles, "checks": res, "demo_s": s_demo}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+DEPTH_RES, NORMAL_RES = 384, 512
+DEPTH_BS, NORMAL_BS = 8, 16
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAINER_TIMEOUT_S = 420
+STEP_LOSS_TOL = 1e-3  # |card - CPU| / |CPU| of the loss, TF32 off
+STEP_GRAD_TOL = 3.0  # per parameter: card's error vs float64 <= 3x the CPU's + 1e-2
+STEP_UPDATE_TOL = 0.1  # x lr: the update from the same gradients (a flip is 2 lr)
+DEPTH_TASKS = ("rgb", "depth_zbuffer", "mask_valid")
+NORMAL_TASKS = ("rgb", "normal", "mask_valid")
+
+
+def bench_dataset(bdir: str, tasks, size: int):
+    from omnidata_tpu_torch.data.dataset import OmnidataDataset, Options
+
+    return OmnidataDataset(Options(data_path=bdir, tasks=tasks, image_size=size,
+                                   random_flip=False))
+
+
+def train_batch(bdir: str, tasks, size: int, n: int, depth_rgb: bool) -> dict:
+    """The first n views of phase 11's CLI output as the trainers' batch
+    (CPU tensors): rgb in [0, 1] (depth_rgb: in [-1, 1]), labels, bool mask."""
+    import torch
+
+    b = next(bench_dataset(bdir, tasks, size).batches(n, shuffle=False))
+    out = {"rgb": torch.from_numpy(b["rgb"] * 2.0 - 1.0 if depth_rgb else b["rgb"]),
+           "mask_valid": torch.from_numpy(b["mask_valid"] > 0.5)}
+    if "depth_zbuffer" in b:
+        out["depth"] = torch.from_numpy(b["depth_zbuffer"])
+    else:
+        out["normal"] = torch.from_numpy(b["normal"])
+    return out
+
+
+def one_step(dev, net, tx, pred_fn, loss_fn, batch, step: int, cotangent=None,
+             grads=None, dtype=None):
+    """One step (forward, loss, backward, optimizer) of a copy of net on
+    dev -> dict of the loss, dL/dpred, the parameters' gradients and the
+    parameters after, on the CPU. cotangent: backpropagate it from the
+    prediction in place of the loss's own; grads: step the optimizer on
+    these in place of the computed ones; dtype: the net's and the batch's
+    floats (float32 by default)."""
+    import copy
+
+    import torch
+
+    from omnidata_tpu_torch import train as T
+
+    dtype = dtype or torch.float32
+    state = T.create_train_state(copy.deepcopy(net).to(dev, dtype), tx)
+    state.step = step
+    b = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+         for k, v in batch.items()}
+    pred = pred_fn(state.net, b)
+    pred.retain_grad()
+    loss, _ = loss_fn(pred, b, step)
+    if cotangent is None:
+        loss.backward()
+    else:
+        pred.backward(cotangent.to(dev, dtype))
+    named = dict(state.net.named_parameters())
+    got = {n: named[n].grad.detach().cpu().clone() for n in state.names
+           if named[n].grad is not None}
+    if grads is not None:
+        for n in state.names:
+            named[n].grad = grads[n].to(dev, copy=True) if n in grads else None
+    state.apply_gradients()
+    return {"loss": float(loss.detach()), "cotangent": pred.grad.detach().cpu().clone(),
+            "grads": got, "after": {n: named[n].detach().cpu().clone() for n in state.names}}
+
+
+def rel_err(a, b) -> float:
+    return float((a - b).norm() / b.norm()) if float(b.norm()) else float((a - b).norm())
+
+
+def step_card_vs_cpu(what: str, dev, net, tx, pred_fn, loss_fn, batch, step: int) -> dict:
+    """One step from the same weights on the CPU and on the card, TF32 off.
+    Held to tolerance: the loss (STEP_LOSS_TOL); each parameter's gradient
+    backpropagated on the card from the CPU's dL/dpred, against the same
+    backpropagated in float64 on the CPU: within STEP_GRAD_TOL times the
+    CPU float32's own error plus 1e-2 of its norm (DPT's weight-standardized
+    convolutions and GroupNorms make float32 gradients ill-conditioned:
+    the CPU's reach 2.3% from float64 on some backbone tensors at 384²);
+    the optimizer's update on the card from the CPU's gradients
+    (STEP_UPDATE_TOL lr, plus the rounding of p + u: well short of the 2 lr
+    of a sign flip). Printed: the whole step on the card against the CPU
+    (the loss's median and hard-example
+    selections take other elements when the prediction differs in its last
+    bits, and Adam's first step maps each gradient to ±lr by its sign);
+    whether two card steps agree bit for bit."""
+    import torch
+
+    cpu = torch.device("cpu")
+    args = (tx, pred_fn, loss_fn, batch, step)
+    start = {n: p.detach().clone() for n, p in net.named_parameters()}
+    t0 = time.perf_counter()
+    c = one_step(cpu, net, *args)
+    s_cpu = time.perf_counter() - t0
+    g = one_step(dev, net, *args)
+    g2 = one_step(dev, net, *args)
+    same_cot = one_step(dev, net, *args, cotangent=c["cotangent"])
+    cpu_cot = one_step(cpu, net, *args, cotangent=c["cotangent"])
+    f64 = one_step(cpu, net, *args, cotangent=c["cotangent"], dtype=torch.float64)
+    same_grads = one_step(dev, net, *args, grads=c["grads"])
+    loss_err = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    card_err, cpu_err, over = {}, {}, {}
+    for n in c["grads"]:
+        ref = f64["grads"][n].double()
+        card_err[n] = rel_err(same_cot["grads"][n].double(), ref)
+        cpu_err[n] = rel_err(cpu_cot["grads"][n].double(), ref)
+        over[n] = card_err[n] / (STEP_GRAD_TOL * cpu_err[n] + 1e-2)
+    worst = max(over, key=over.get)
+    own = max(rel_err(c["grads"][n], cpu_cot["grads"][n]) for n in c["grads"])
+    lr = tx.lr
+    upd_over = max(float(((same_grads["after"][n] - c["after"][n]).abs()
+                          - 2**-22 * c["after"][n].abs()).max()) / lr for n in c["after"])
+    flat = lambda d, names: torch.cat([d[n].flatten() for n in names])
+    names = list(c["after"])
+    moves = rel_err(flat(g["after"], names) - flat(start, names),
+                    flat(c["after"], names) - flat(start, names))
+    flips = int(((flat(g["after"], names) - flat(c["after"], names)).abs() > lr).sum())
+    gnames = list(c["grads"])
+    res = {"loss_rel_err": loss_err, "grad_err_vs_f64_card": max(card_err.values()),
+           "grad_err_vs_f64_cpu": max(cpu_err.values()), "worst_tensor": worst,
+           "worst_card_cpu_err": (card_err[worst], cpu_err[worst]),
+           "update_diff_over_lr_same_grads": upd_over, "cpu_own_vs_cotangent": own,
+           "step_cotangent_rel_err": rel_err(g["cotangent"], c["cotangent"]),
+           "step_grad_rel_err": rel_err(flat(g["grads"], gnames), flat(c["grads"], gnames)),
+           "step_moves_rel_err": moves, "step_flipped_params": flips,
+           "params": len(flat(start, names)),
+           "repeat_bitwise": g["loss"] == g2["loss"] and all(
+               torch.equal(g["grads"][n], g2["grads"][n]) for n in gnames),
+           "s_cpu": s_cpu}
+    log(f"train step {what}, card vs CPU ({s_cpu:.1f} s on the CPU): loss {g['loss']:.6g} "
+        f"vs {c['loss']:.6g} (rel err {loss_err:.3g}, tol {STEP_LOSS_TOL}); gradients "
+        f"from the CPU's dL/dpred against float64: card largest {res['grad_err_vs_f64_card']:.3g}, "
+        f"CPU float32 largest {res['grad_err_vs_f64_cpu']:.3g}; tightest tensor {worst} card "
+        f"{card_err[worst]:.3g} vs CPU {cpu_err[worst]:.3g} (tol {STEP_GRAD_TOL}x CPU + 1e-2; "
+        f"the CPU's own backward against its dL/dpred backpropagated: {own:.3g}); update "
+        f"from the CPU's gradients within {upd_over:.3g} lr (tol {STEP_UPDATE_TOL}). The whole "
+        f"step: dL/dpred rel err {res['step_cotangent_rel_err']:.3g}, gradients "
+        f"{res['step_grad_rel_err']:.3g}, moves {moves:.3g}, {flips} of {res['params']} "
+        f"parameters more than lr apart; two card steps bit for bit equal: "
+        f"{res['repeat_bitwise']}")
+    if not (loss_err <= STEP_LOSS_TOL and over[worst] <= 1.0 and upd_over <= STEP_UPDATE_TOL):
+        raise AssertionError(f"train step {what}: the card differs from the CPU")
+    return res
+
+
+def depth_fns(triplets, params):
+    """(pred_fn, loss_fn) of the depth step with fixed triplets."""
+    from omnidata_tpu_torch import train as T
+
+    def loss_fn(pred, b, step):
+        return T.depth_loss_fn(pred, b, step, triplets.to(pred.device), params)
+
+    return (lambda net, b: net(b["rgb"])[:, 0]), loss_fn
+
+
+def normal_fns():
+    from omnidata_tpu_torch import train as T
+
+    return (lambda net, b: net(b["rgb"])), (lambda pred, b, step: T.normal_loss_fn(pred, b))
+
+
+def write_config(path: Path, cfg: dict) -> str:
+    """A trainer config in the YAML subset the port reads."""
+    def scalar(v):
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, float):
+            return f"{v:.6e}"
+        if isinstance(v, str):
+            return "'" + v.replace("'", "''") + "'"
+        return str(v)
+
+    lines = []
+    for k, v in cfg.items():
+        if isinstance(v, dict):
+            lines.append(f"{k}:")
+            lines += [f"  {kk}: {scalar(vv)}" for kk, vv in v.items()]
+        else:
+            lines.append(f"{k}: {scalar(v)}")
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def trainer_runs(runs) -> list:
+    """Each (module, args) as `python -m module args`, all at once ->
+    their outputs; a non-zero exit fails with the output's tail."""
+    procs = [subprocess.Popen([sys.executable, "-m", m, *a], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for m, a in runs]
+    outs = []
+    for (m, _), p in zip(runs, procs):
+        text, _ = p.communicate(timeout=TRAINER_TIMEOUT_S)
+        if p.returncode:
+            print(text[-4000:], file=sys.stderr)
+            raise AssertionError(f"{m} exited {p.returncode}")
+        outs.append(text)
+    return outs
+
+
+def check_trained(what: str, out: str, ckpt: Path, loss_key: str, steps: int,
+                  val_steps, size: int) -> dict:
+    """Finite logged losses, the validation loss logged at val_steps, top-k
+    scores on it, decodable validation images, 'last' at the final step."""
+    import ast
+    import math
+
+    import torch
+
+    from omnidata_tpu_torch.cues.encode import load_png
+
+    logged = [ast.literal_eval(line.split(": ", 1)[1].rsplit(" (", 1)[0])
+              for line in out.splitlines()
+              if line.startswith("step ") and ": {" in line]
+    if not logged or not all(math.isfinite(v) for m in logged for v in m.values()):
+        raise AssertionError(f"{what}: logged losses {logged}")
+    vals = [float(line.rsplit(" ", 1)[1]) for line in out.splitlines()
+            if f": {loss_key} " in line]
+    scores = json.loads((ckpt / "scores.json").read_text())
+    if len(vals) != len(val_steps) or sorted(scores) != sorted(f"step_{s}" for s in val_steps):
+        raise AssertionError(f"{what}: validation {vals}, scores {scores}")
+    for s in val_steps:
+        img = load_png(str(ckpt / "val_images" / f"step{s}_sample0.png"))
+        if img.shape != (size, 3 * size, 3):
+            raise AssertionError(f"{what}: validation image {img.shape}")
+    last = torch.load(ckpt / "last" / "state.pt", map_location="cpu", weights_only=True)
+    if int(last["step"]) != steps or int(last["opt_state"]["count"]) != steps:
+        raise AssertionError(f"{what}: last at step {int(last['step'])}")
+    s_step = [float(line.rsplit("(", 1)[1].split("s/step")[0]) for line in out.splitlines()
+              if "s/step)" in line]
+    log(f"{what}: {steps} steps, losses {[round(m['loss'], 5) for m in logged]}, "
+        f"{loss_key} {vals}, scores {scores}, last at step {steps}; s/step as "
+        f"logged {s_step}")
+    return {"losses": [m["loss"] for m in logged], "val": vals, "s_per_step": s_step,
+            "last": last}
+
+
+def same_tree(a, b) -> bool:
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def trainers_end_to_end(bdir: str) -> dict:
+    """16b: both trainers as users run them on phase 11's labels, then
+    again with --resume."""
+    tdir = CLI_DIR / "train"
+    tdir.mkdir()
+    common = {"val_fraction": 0.25, "augment": True, "num_workers": 8,
+              "save_top_k": 2, "log_step": 2}
+    depth_cfg = write_config(tdir / "depth.yml", {
+        "image_size": DEPTH_RES, "batch_size": 8, "max_steps": 12, "val_step": 6,
+        "ckpt_step": 6, "checkpoint_dir": str(tdir / "depth"), **common,
+        "data_paths": {"bench": bdir}})
+    normal_cfg = write_config(tdir / "normal.yml", {
+        "model": "unet", "image_size": NORMAL_RES, "batch_size": 4, "max_steps": 6,
+        "val_step": 3, "ckpt_step": 3, "checkpoint_dir": str(tdir / "normal"), **common,
+        "data_paths": {"bench": bdir}})
+    runs = [("omnidata_tpu_torch.train_depth", ["--config_file", depth_cfg]),
+            ("omnidata_tpu_torch.train_normal", ["--config_file", normal_cfg])]
+    t0 = time.perf_counter()
+    outs = trainer_runs(runs)
+    s_first = time.perf_counter() - t0
+    res = {"depth": check_trained("train_depth", outs[0], tdir / "depth",
+                                  "val_depth_loss", 12, (6, 12), DEPTH_RES),
+           "normal": check_trained("train_normal", outs[1], tdir / "normal",
+                                   "val_normal_loss", 6, (3, 6), NORMAL_RES)}
+    t0 = time.perf_counter()
+    outs = trainer_runs([(m, a + ["--resume"]) for m, a in runs])
+    s_resume = time.perf_counter() - t0
+    for (name, steps), out in zip((("depth", 12), ("normal", 6)), outs):
+        if "resumed from" not in out or f"at step {steps}" not in out:
+            raise AssertionError(f"train_{name} --resume: {out[-2000:]}")
+        import torch
+
+        again = torch.load(tdir / name / "last" / "state.pt", map_location="cpu",
+                           weights_only=True)
+        if not same_tree(again, res[name].pop("last")):
+            raise AssertionError(f"train_{name} --resume changed 'last'")
+    log(f"trainers end to end (depth and normal at once): {s_first:.1f} s; "
+        f"again with --resume: {s_resume:.1f} s, each resumed at its last step "
+        "and left 'last' equal bit for bit")
+    return {**res, "s_first": s_first, "s_resume": s_resume}
+
+
+def paeth_png(arr) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes with every row Paeth-filtered (filter 4),
+    as encoders that choose filters per row often write them; the CLI's
+    encoder writes filter 0."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from omnidata_tpu_torch.cues.encode import _png_chunk
+
+    H, W, C = arr.shape
+    x = arr.reshape(H, W * C).astype(np.int16)
+    a = np.pad(x, ((0, 0), (C, 0)))[:, :-C]  # left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]  # up
+    c = np.pad(b, ((0, 0), (C, 0)))[:, :-C]  # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x - pred) & 255).astype(np.uint8)
+    raw = np.concatenate([np.full((H, 1), 4, np.uint8), rows], 1)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _png_chunk(b"IEND", b""))
+
+
+def decode_ms(bdir: str) -> dict:
+    """ms to decode one of the CLI's 512² rgb PNGs (filter 0) and the same
+    pixels Paeth-filtered (the decoder undoes Paeth pixel by pixel in
+    Python)."""
+    import glob
+
+    import numpy as np
+
+    from omnidata_tpu_torch.cues.encode import decode_png, encode_png
+
+    rgb = decode_png(open(sorted(glob.glob(f"{bdir}/rgb/*.png"))[0], "rb").read())
+    out = {}
+    for name, data in (("filter0", encode_png(rgb)), ("paeth", paeth_png(rgb))):
+        t0 = time.perf_counter()
+        got = decode_png(data)
+        out[name] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, rgb):
+            raise AssertionError(f"{name} PNG decodes to other pixels")
+    return out
+
+
+def cudnn_mode(mode: str) -> None:
+    """'phase1': TF32 off, deterministic cuDNN (the script's setting);
+    'defaults': what the trainers run with, torch's defaults (cuDNN may use
+    TF32 and pick nondeterministic algorithms; matmuls stay float32)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = mode == "defaults"
+    torch.backends.cudnn.deterministic = mode == "phase1"
+
+
+def step_times(step) -> list:
+    """ms of each of TRAIN_TIMED calls after TRAIN_WARMUP, by CUDA events."""
+    import torch
+
+    for _ in range(TRAIN_WARMUP):
+        step()
+    out = []
+    for _ in range(TRAIN_TIMED):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        step()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def split_step(state, batch, gen, pred_fn, loss_fn, image_size: int, depth: bool) -> dict:
+    """Device ms of one training step's parts, by CUDA events between them:
+    augment, forward, loss, backward, optimizer."""
+    import torch
+
+    from omnidata_tpu_torch.augment import augment_batch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    b = augment_batch(batch, gen, image_size, normalize=depth)
+    ev[1].record()
+    pred = pred_fn(state.net, b)
+    ev[2].record()
+    loss, _ = loss_fn(pred, b, state.step)
+    ev[3].record()
+    loss.backward()
+    ev[4].record()
+    state.apply_gradients()
+    ev[5].record()
+    ev[5].synchronize()
+    names = ("augment", "forward", "loss", "backward", "optimizer")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def profile_window(run, reps: int, top: int = 6) -> dict:
+    """torch.profiler over reps calls of run: wall time, the kernels' busy
+    time, the device's idle share, the kernels that take most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kern = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    return {"wall_ms": wall_ms / reps, "kernel_ms": busy_ms / reps,
+            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "top": [{"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3 / reps,
+                     "launches": e.count // reps} for e in kern]}
+
+
+def train_timings(dev, bdir: str, card: str) -> dict:
+    """16c: the depth step (DPT, bs 8, 384²) before and after the switch and
+    the normal step (UNet, bs 16, 512²) with remat on and off, each in both
+    cuDNN modes; img/s, FLOPs, share of peak, peak memory; the step split;
+    the loader; the trainer loop's idle share."""
+    import numpy as np
+    import torch
+
+    from omnidata_tpu_torch import train as T
+    from omnidata_tpu_torch.data.loader import MixedLoader
+    from omnidata_tpu_torch.losses import VNLParams, sample_triplets
+    from omnidata_tpu_torch.models import DPTHybrid, UNet
+    from omnidata_tpu_torch.models.registry import init_weights
+    from omnidata_tpu_torch.train.driver import to_device
+
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vnl = VNLParams(1.0, 1.0, (DEPTH_RES, DEPTH_RES))
+    configs = []  # (name, net factory, batch, step fn, optimizer, first step, size)
+    dbatch = {k: v.to(dev) for k, v in
+              train_batch(bdir, DEPTH_TASKS, DEPTH_RES, DEPTH_BS, False).items()}
+    nbatch = {k: v.to(dev) for k, v in
+              train_batch(bdir, NORMAL_TASKS, NORMAL_RES, NORMAL_BS, False).items()}
+
+    def dpt_apply(net, rgb):
+        return net(rgb)[:, 0]
+
+    def unet_apply(net, rgb):
+        return net(rgb)
+
+    for sched, step0 in (("ssi_only", 0), ("full_loss", T.SSI_ONLY_STEPS + 1)):
+        configs.append((f"dpt_depth_bs{DEPTH_BS}_{sched}", lambda: DPTHybrid(num_channels=1),
+                        dbatch, T.make_depth_train_step(dpt_apply, vnl, True, DEPTH_RES),
+                        T.depth_optimizer(1e-5), step0, DEPTH_RES))
+    for remat in (True, False):
+        configs.append((f"unet_normal_bs{NORMAL_BS}_remat_{'on' if remat else 'off'}",
+                        lambda r=remat: UNet(out_channels=3, downsample=6, remat=r),
+                        nbatch, T.make_normal_train_step(unet_apply, True, NORMAL_RES),
+                        T.normal_optimizer(1e-4), 0, NORMAL_RES))
+    for name, make, batch, step_fn, tx, step0, size in configs:
+        net = make()
+        init_weights(net, torch.Generator().manual_seed(0))
+        net = net.to(dev)
+        fwd_flops = model_flops(net, torch.zeros(1, 3, size, size, device=dev))
+        state = T.create_train_state(net, tx)
+        state.step = step0
+        entry = {"train_gflop_per_image": 3 * fwd_flops / 1e9}
+        for mode in ("phase1", "defaults"):
+            cudnn_mode(mode)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = step_times(lambda: step_fn(state, batch, gen))
+            med = statistics.median(ms)
+            bs = batch["rgb"].shape[0]
+            ips = bs / (med / 1e3)
+            entry[mode] = {"ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
+                           "img_s": ips, "share_of_fp32_peak": ips * 3 * fwd_flops / 67e12,
+                           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+            log(f"train step {name} at {size}², cuDNN {mode}: {med:.1f} ms (min "
+                f"{min(ms):.1f}, max {max(ms):.1f}; {TRAIN_TIMED} steps after "
+                f"{TRAIN_WARMUP}) = {ips:.2f} img/s; {3 * fwd_flops / 1e9:.1f} GFLOP "
+                f"a training image (3x forward) = {ips * 3 * fwd_flops / 1e12:.2f} "
+                f"TFLOP/s = {ips * 3 * fwd_flops / 67e12:.3f} of 67 TFLOP/s; peak "
+                f"{entry[mode]['peak_gib']:.2f} GiB; card {card}")
+        cudnn_mode("phase1")
+        depth = name.startswith("dpt")
+        fns = depth_fns(sample_triplets(gen, vnl, dev), vnl) if depth else normal_fns()
+        parts = [split_step(state, batch, gen, *fns, size, depth) for _ in range(4)][1:]
+        entry["split_ms"] = {k: statistics.mean(p[k] for p in parts) for k in parts[0]}
+        entry["profile"] = profile_window(lambda: step_fn(state, batch, gen), 3)
+        log(f"train step {name}, parts (device ms, cuDNN phase1): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in entry["split_ms"].items()) + "; profile: "
+            f"wall {entry['profile']['wall_ms']:.1f} ms, kernels "
+            f"{entry['profile']['kernel_ms']:.1f} ms, idle share "
+            f"{entry['profile']['idle_share']:.3f}; top kernels: " + "; ".join(
+                f"{t['kernel']} {t['ms']:.1f} x{t['launches']}"
+                for t in entry["profile"]["top"]))
+        res[name] = entry
+        del state, net
+        torch.cuda.empty_cache()
+
+    # the loader: one thread's decode + PIL-equal resize, and 8 threads
+    ds = bench_dataset(bdir, DEPTH_TASKS, DEPTH_RES)
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds.item(i, i)
+    ms_sample = (time.perf_counter() - t0) * 1e3 / len(ds)
+    loader = MixedLoader([ds], DEPTH_BS, num_workers=8)
+    stamps = []
+    for _ in loader.batches(steps=12, seed=0):
+        stamps.append(time.perf_counter())
+    ms_batch = (stamps[-1] - stamps[1]) * 1e3 / (len(stamps) - 2)
+    png_ms = decode_ms(bdir)
+    res["loader"] = {"ms_per_sample_one_thread": ms_sample, "ms_per_batch_8_threads": ms_batch,
+                     "decode_ms_rgb512": png_ms}
+    log(f"loader (rgb, depth, mask PNGs at 512² -> {DEPTH_RES}²): {ms_sample:.1f} ms a "
+        f"sample on one thread; {ms_batch:.1f} ms a batch of {DEPTH_BS} with 8 threads "
+        f"(the depth step takes {res[f'dpt_depth_bs{DEPTH_BS}_ssi_only']['defaults']['ms_median']:.1f} "
+        f"ms); decoding one 512² rgb PNG: {png_ms['filter0']:.1f} ms as the CLI writes "
+        f"it (filter 0), {png_ms['paeth']:.1f} ms Paeth-filtered")
+
+    # the trainer's loop at steady state: loader, host-to-card copy, step
+    cudnn_mode("defaults")
+    net = DPTHybrid(num_channels=1)
+    init_weights(net, torch.Generator().manual_seed(0))
+    state = T.create_train_state(net.to(dev), T.depth_optimizer(1e-5))
+    step_fn = T.make_depth_train_step(dpt_apply, vnl, True, DEPTH_RES)
+    batches = MixedLoader([ds], DEPTH_BS, num_workers=8).batches(steps=12, seed=1)
+
+    def loop_step():
+        b = next(batches)
+        step_fn(state, to_device({"rgb": b["rgb"].astype(np.float32),
+                                  "depth": b["depth_zbuffer"].astype(np.float32),
+                                  "mask_valid": b["mask_valid"] > 0.5}, dev), gen)
+
+    for _ in range(4):
+        loop_step()
+    res["trainer_loop"] = profile_window(loop_step, 6)
+    cudnn_mode("phase1")
+    log(f"trainer loop (depth, bs {DEPTH_BS}, loader + copy + step, torch defaults): "
+        f"{res['trainer_loop']['wall_ms']:.1f} ms a step, kernels "
+        f"{res['trainer_loop']['kernel_ms']:.1f} ms, device idle share "
+        f"{res['trainer_loop']['idle_share']:.3f}")
+    del state, net
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train(dev, card: str, bdir: str) -> dict:
+    """Phase 16: training on phase 11's labels (see the module doc)."""
+    checks = train_checks(dev, bdir)
+    # 16b. the trainers, annotate -> train, then resume
+    trainers = trainers_end_to_end(bdir)
+    # 16c. times
+    times = train_timings(dev, bdir, card)
+    return {"checks": checks, "trainers": trainers, "times": times}
+
+
+def train_checks(dev, bdir: str) -> dict:
+    """16a: the depth and normal steps, card against CPU, TF32 off."""
+    import torch
+
+    from omnidata_tpu_torch import train as T
+    from omnidata_tpu_torch.losses import VNLParams, sample_triplets
+    from omnidata_tpu_torch.models import DPTHybrid, UNet
+    from omnidata_tpu_torch.models.registry import init_weights
+
+    checks = {}
+    net = DPTHybrid(num_channels=1)
+    init_weights(net, torch.Generator().manual_seed(0))
+    batch = train_batch(bdir, DEPTH_TASKS, DEPTH_RES, 1, True)
+    vnl = VNLParams(1.0, 1.0, (DEPTH_RES, DEPTH_RES))
+    triplets = sample_triplets(torch.Generator().manual_seed(1), vnl)
+    for sched, step in (("ssi_only", 0), ("full_loss", T.SSI_ONLY_STEPS + 1)):
+        checks[f"dpt_depth_{sched}"] = step_card_vs_cpu(
+            f"DPT depth {DEPTH_RES}² bs 1 {sched}", dev, net, T.depth_optimizer(1e-5),
+            *depth_fns(triplets, vnl), batch, step)
+    # remat off: the same values (tests/test_torch_train.py), less CPU time
+    net = UNet(out_channels=3, downsample=6)
+    init_weights(net, torch.Generator().manual_seed(0))
+    checks["unet_normal"] = step_card_vs_cpu(
+        f"UNet normal {NORMAL_RES}² bs 2", dev, net, T.normal_optimizer(1e-4), *normal_fns(),
+        train_batch(bdir, NORMAL_TASKS, NORMAL_RES, 2, False), 0)
+    return checks
 
 
 def main() -> int:
@@ -1430,6 +2021,9 @@ def main() -> int:
     # 15. DPT-hybrid-384 and the demo ---------------------------------------
     dpt = phase_dpt(dev, card)
 
+    # 16. training on phase 11's labels --------------------------------------
+    train = phase_train(dev, card, bdir)
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -1496,7 +2090,7 @@ def main() -> int:
         "raycast_tests_per_s": ray_tests / s_ray, "raycast_face_agreement": face_eq,
         "cli_bench_all_s": s_cli_bench, "cli_large": cli_large,
         "pano_s": pano_s, "pano_tests_per_s": pano_rate,
-        "device_prefixes": prefixes, "dpt": dpt, "card": card}
+        "device_prefixes": prefixes, "dpt": dpt, "train": train, "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(card)

@@ -158,9 +158,9 @@ def _unfilter(raw: bytes, H: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(buf: bytes) -> np.ndarray:
+def decode_png(buf: bytes, expand_palette: bool = True) -> np.ndarray:
     """PNG bytes -> (H,W) or (H,W,C) uint8 / uint16 array (palette images
-    expand to RGB)."""
+    expand to RGB, or give their (H,W) indices as PIL's arrays do)."""
     if buf[:8] != _PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, idat, plte, hdr = 8, [], None, None
@@ -190,7 +190,7 @@ def decode_png(buf: bytes) -> np.ndarray:
         arr = rows.view(">u2").astype(np.uint16).reshape(H, W, C)
     else:
         arr = rows.reshape(H, W, C)
-    if ctype == 3:
+    if ctype == 3 and expand_palette:
         return plte[arr[..., 0]]
     return arr[..., 0] if C == 1 else arr
 
@@ -200,9 +200,9 @@ def save_png(path: str, arr: np.ndarray) -> None:
         fh.write(encode_png(arr))
 
 
-def load_png(path: str) -> np.ndarray:
+def load_png(path: str, expand_palette: bool = True) -> np.ndarray:
     with open(path, "rb") as fh:
-        return decode_png(fh.read())
+        return decode_png(fh.read(), expand_palette)
 
 
 def load_rgb_u8(path: str) -> np.ndarray:

@@ -14,22 +14,23 @@ viridis colour map as ``plt.imsave`` writes it; normals as an RGB PNG.
 
 It needs neither PIL nor matplotlib: it reads PNGs with
 ``cues.encode.load_rgb_u8``, reproduces PIL's BILINEAR resize
-(fixed-point, antialiased when shrinking, each pass rounded to uint8) and
-``plt.imsave`` (min-max autoscale, index floor(x 256) clipped to 255,
-RGBA) with viridis's 256-entry table carried here; other image formats go
-through PIL where it imports. Without --checkpoint the weights are seeded
+(``utils.pil_image``: fixed-point, antialiased when shrinking, each pass
+rounded to uint8) and ``plt.imsave`` (min-max autoscale, index floor(x
+256) clipped to 255, RGBA) with viridis's 256-entry table carried here;
+other image formats raise. Without --checkpoint the weights are seeded
 (useful only to check the path).
 """
 from __future__ import annotations
 
 import argparse
 import glob
-import math
 import os
 import sys
 
 import numpy as np
 import torch
+
+from .utils.pil_image import pil_bilinear_resize
 
 # matplotlib's viridis as (lut * 255).astype(uint8): 256 RGB triples
 VIRIDIS_U8 = np.frombuffer(bytes.fromhex(
@@ -57,9 +58,6 @@ VIRIDIS_U8 = np.frombuffer(bytes.fromhex(
     "f6e61ff8e621fae622fde724"
 ), np.uint8).reshape(256, 3)
 
-_PRECISION_BITS = 32 - 8 - 2  # PIL's fixed-point coefficients (Resample.c)
-
-
 def build_parser():
     p = argparse.ArgumentParser(description="Visualize output for depth or surface normals")
     p.add_argument("--task", dest="task", help="normal or depth", default="NONE")
@@ -74,70 +72,16 @@ def build_parser():
 
 def load_rgb_u8(path: str) -> np.ndarray:
     """An image file -> (H, W, 3) uint8 RGB, as PIL's convert("RGB") gives
-    it. PNGs need no PIL."""
+    it. Only PNGs: other formats raise."""
     with open(path, "rb") as fh:
         is_png = fh.read(8) == b"\x89PNG\r\n\x1a\n"
     if is_png:
         from .cues.encode import load_rgb_u8 as load_png_rgb
 
         return load_png_rgb(path)
-    try:
-        from PIL import Image
-    except ImportError:
-        ext = os.path.splitext(path)[1] or "unknown"
-        raise RuntimeError(f"{path}: reading {ext} images needs PIL, which "
-                           "is not installed; PNGs are read without it") from None
-    return np.asarray(Image.open(path).convert("RGB"))
-
-
-def _pil_coeffs(in_size: int, out_size: int):
-    """PIL's precompute_coeffs + normalize_coeffs_8bpc for the bilinear
-    filter on the whole axis -> (first source index, taps) per output
-    pixel as (out, ksize) int arrays, the taps' integer weights zero past
-    each pixel's own count."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    ksize = int(math.ceil(support)) * 2 + 1
-    idx = np.zeros((out_size, ksize), np.int64)
-    kk = np.zeros((out_size, ksize), np.int64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = np.array([max(0.0, 1.0 - abs((x + xmin - center + 0.5) / filterscale))
-                      for x in range(xmax)])
-        ww = w.sum()
-        if ww != 0.0:
-            w = w / ww
-        k = [int(-0.5 + v * (1 << _PRECISION_BITS)) if v < 0
-             else int(0.5 + v * (1 << _PRECISION_BITS)) for v in w]
-        idx[xx, :xmax] = xmin + np.arange(xmax)
-        idx[xx, xmax:] = xmin
-        kk[xx, :xmax] = k
-    return idx, kk
-
-
-def _pil_pass(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One 8-bit resampling pass of PIL along axis (0 rows, 1 columns)."""
-    idx, kk = _pil_coeffs(a.shape[axis], out_size)
-    taps = np.take(a.astype(np.int64), idx, axis=axis)  # axis -> (out, ksize)
-    shape = [1] * taps.ndim
-    shape[axis], shape[axis + 1] = kk.shape
-    ss = (1 << (_PRECISION_BITS - 1)) + (taps * kk.reshape(shape)).sum(axis + 1)
-    return np.clip(ss >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-
-
-def pil_bilinear_resize(img: np.ndarray, size: tuple) -> np.ndarray:
-    """PIL's ``Image.resize((w, h), Image.BILINEAR)`` of an (H, W, C) uint8
-    image: the horizontal pass, then the vertical one, each rounded to
-    uint8 (a pass is skipped where its size does not change)."""
-    w, h = size
-    if img.shape[1] != w:
-        img = _pil_pass(img, w, 1)
-    if img.shape[0] != h:
-        img = _pil_pass(img, h, 0)
-    return img
+    ext = os.path.splitext(path)[1] or "unknown"
+    raise RuntimeError(f"{path}: reading {ext} images needs PIL, which the port "
+                       "does not import; convert the image to PNG")
 
 
 def _resize_short_side_and_crop(img: np.ndarray, s: int) -> np.ndarray:

@@ -2,12 +2,18 @@
 package's ``models/unet.py``, the reference's v1 surface-normal model
 (omnidata_tools/torch/modules/unet.py:8-110), with its key schema
 (``convert._unet_mapping``). NCHW; x2 bilinear upsampling with
-align_corners=False, like nn.Upsample."""
+align_corners=False, like nn.Upsample.
+
+``remat=True`` recomputes each down/up block (pooling and upsampling
+included) on the backward pass (``torch.utils.checkpoint``), as the JAX
+model's ``nn.remat`` does: the block-internal activations are not kept.
+The values and parameter names are unchanged."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import SameConv, resize_bilinear
 
@@ -32,9 +38,11 @@ class UNet(nn.Module):
     'sigmoid' (the v1 normal demo's output convention)."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3,
-                 downsample: int = 6, final_activation: str | None = None):
+                 downsample: int = 6, final_activation: str | None = None,
+                 remat: bool = False):
         super().__init__()
         self.final_activation = final_activation
+        self.remat = remat
         self.down1 = _Block(in_channels, 16)
         self.down_blocks = nn.ModuleList(
             _Block(2 ** (4 + i), 2 ** (5 + i)) for i in range(downsample))
@@ -49,17 +57,21 @@ class UNet(nn.Module):
         self.last_bn = nn.GroupNorm(8, 16, eps=1e-5)
         self.last_conv2 = nn.Conv2d(16, out_channels, 1)
 
+    def _run(self, fn, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def forward(self, x):
-        x = self.down1(x)
+        x = self._run(self.down1, x)
         skips = [x]
         for block in self.down_blocks:
-            x = F.max_pool2d(block(x), 2, 2)
+            x = self._run(lambda y, b=block: F.max_pool2d(b(y), 2, 2), x)
             skips.append(x)
         for i in (1, 2, 3):
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"mid_conv{i}")(x)))
         for i in reversed(range(len(self.up_blocks))):
-            x = resize_bilinear(x, (x.shape[-2] * 2, x.shape[-1] * 2))
-            x = self.up_blocks[i](torch.cat([x, skips[i]], 1))
+            x = self._run(self._up, self.up_blocks[i], x, skips[i])
         x = F.relu(self.last_bn(self.last_conv1(x)))
         x = self.last_conv2(x)
         if self.final_activation == "relu":
@@ -67,3 +79,8 @@ class UNet(nn.Module):
         if self.final_activation == "sigmoid":
             return torch.sigmoid(x)
         return x
+
+    @staticmethod
+    def _up(block, x, skip):
+        x = resize_bilinear(x, (x.shape[-2] * 2, x.shape[-1] * 2))
+        return block(torch.cat([x, skip], 1))

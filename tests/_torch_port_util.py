@@ -149,3 +149,37 @@ def assert_same_tree(got, want, path="root"):
         np.testing.assert_array_equal(got, want, err_msg=path)
     else:
         assert type(got) is type(want) and got == want, (path, got, want)
+
+
+def jax_mini_scene(d: str) -> str:
+    """Annotate the room + cube scene of tests/test_train.py:25 with the JAX
+    CLI into d (8 views at 64²: rgb, normal, depth_zbuffer, mask_valid,
+    point_info) and return d."""
+    import os
+
+    import omnidata_tpu.annotator.cli as cli
+    from omnidata_tpu.mesh import cube, room
+
+    r = room(size=8.0, height=3.0)
+    c = cube(size=1.0, center=(1.5, 0.5, 0.5))
+    v = np.concatenate([np.asarray(r.vertices), np.asarray(c.vertices)])
+    f = np.concatenate([np.asarray(r.faces[: r.num_faces]),
+                        np.asarray(c.faces[: c.num_faces]) + r.vertices.shape[0]])
+    col = (np.random.RandomState(0).rand(len(v), 3) * 255).astype(np.uint8)
+    with open(os.path.join(d, "mesh.ply"), "w") as fh:
+        fh.write(
+            f"ply\nformat ascii 1.0\nelement vertex {len(v)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+            f"element face {len(f)}\nproperty list uchar int vertex_indices\nend_header\n")
+        for vv, cc in zip(v, col):
+            fh.write(f"{vv[0]} {vv[1]} {vv[2]} {cc[0]} {cc[1]} {cc[2]}\n")
+        for ff in f:
+            fh.write(f"3 {ff[0]} {ff[1]} {ff[2]}\n")
+    cli.main(["--model_path", d, "--task", "points", "with", "NUM_POINTS=2",
+              "RESOLUTION=64", "MIN_CAMERA_SPACING=2.0", "MAX_VIEWS_PER_POINT=4",
+              "MIN_NONFIXATED_AFTER_PRUNE=0"])
+    for task in ("rgb", "normal", "depth_zbuffer", "mask_valid"):
+        cli.main(["--model_path", d, "--task", task, "with", "RESOLUTION=64",
+                  "RASTER_TILE=32", "RASTER_CAP=256", "RASTER_CHUNK=64"])
+    return d

@@ -5,6 +5,9 @@ also at a stage cap small enough to force the raw-list fallback and with a
 block-mode row whose tail runs past the last chunk; kernels A, B and C
 also with their work items cut to 1 and 3 list positions, so that every
 multi-chunk row is split across CTAs and merged. A refused launch raises.
+Then plain-PyTorch paths of the port on the card against the CPU: the host
+cues' device prefixes, DPT's forward, and one training step each of DPT
+(depth, both sides of the schedule switch) and the UNet (normals).
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports no JAX, so on a machine with a card
@@ -358,3 +361,110 @@ def test_dpt_on_the_card_matches_the_cpu(card):
             got = cpu.to(card)(x.to(card)).cpu()
         assert got.shape == want.shape
         assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def _one_step(dev, net, tx, pred_fn, loss_fn, batch, cotangent=None, grads=None,
+              dtype=torch.float32):
+    """One training step of a copy of net on dev (forward, loss, backward,
+    the optimizer): the loss, dL/dpred, the gradients and the parameters
+    after, on the CPU. cotangent: backpropagate it from the prediction in
+    place of the loss's own; grads: step the optimizer on these instead;
+    dtype: the net's and the batch's floats."""
+    import copy
+
+    from omnidata_tpu_torch import train as ttrain
+
+    state = ttrain.create_train_state(copy.deepcopy(net).to(dev, dtype), tx)
+    b = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+         for k, v in batch.items()}
+    pred = pred_fn(state.net, b)
+    pred.retain_grad()
+    loss, _ = loss_fn(pred, b)
+    loss.backward() if cotangent is None else pred.backward(cotangent.to(dev, dtype))
+    named = dict(state.net.named_parameters())
+    got = {n: named[n].grad.detach().cpu().clone() for n in state.names
+           if named[n].grad is not None}
+    if grads is not None:
+        for n in state.names:
+            named[n].grad = grads[n].to(dev, copy=True) if n in grads else None
+    state.apply_gradients()
+    return (float(loss.detach()), pred.grad.detach().cpu().clone(), got,
+            {n: named[n].detach().cpu().clone() for n in state.names})
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm()) / max(float(b.double().norm()), 1e-300)
+
+
+def _assert_step_close(card, net, tx, pred_fn, loss_fn, batch):
+    """The CPU's step against the card's, part by part: the loss within
+    1e-3; from the CPU's dL/dpred, each gradient against the same
+    backpropagated in float64 no further than 3 times the CPU float32's
+    own error plus 1e-2 (float32 gradients of DPT's standardized convolutions
+    and GroupNorms reach 2.3% from float64 on the CPU too, chip_smoke.py
+    phase 16a); from the CPU's gradients, the update within 0.1 lr plus
+    the rounding of p + u (a sign flip is 2 lr). (The
+    whole step on the card differs more: the loss's median and
+    hard-example selections pick other elements when the prediction
+    differs in its last bits, and Adam's first step maps each gradient to
+    ±lr by its sign.)"""
+    cpu = torch.device("cpu")
+    args = (tx, pred_fn, loss_fn, batch)
+    l0, c0, g0, p0 = _one_step(cpu, net, *args)
+    l1 = _one_step(card, net, *args)[0]
+    assert abs(l1 - l0) <= 1e-3 * abs(l0)
+    g1 = _one_step(card, net, *args, cotangent=c0)[2]
+    gc = _one_step(cpu, net, *args, cotangent=c0)[2]
+    g64 = _one_step(cpu, net, *args, cotangent=c0, dtype=torch.float64)[2]
+    assert g0.keys() == g1.keys() == gc.keys() == g64.keys() and g0
+    for n in g0:
+        card_err, cpu_err = _rel(g1[n], g64[n]), _rel(gc[n], g64[n])
+        assert card_err <= 3 * cpu_err + 1e-2, (n, card_err, cpu_err)
+    p1 = _one_step(card, net, *args, grads=g0)[3]
+    for n in p0:
+        assert bool(((p1[n] - p0[n]).abs() <= 0.1 * tx.lr + 2**-22 * p0[n].abs()).all()), n
+
+
+@pytest.mark.parametrize("late", [False, True], ids=["ssi_only", "full_loss"])
+def test_dpt_depth_step_on_the_card_matches_the_cpu(card, late):
+    """One DPT-hybrid depth step at 128², seeded weights and batch, fixed
+    triplets, on both sides of the 15k switch, TF32 off."""
+    from omnidata_tpu_torch import train as ttrain
+    from omnidata_tpu_torch.losses import VNLParams, sample_triplets
+    from omnidata_tpu_torch.models import DPTHybrid
+    from omnidata_tpu_torch.models.registry import init_weights
+
+    H = 128
+    net = DPTHybrid(num_channels=1)
+    init_weights(net, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(2)
+    mask = np.ones((1, 1, H, H), bool)
+    mask[..., 20:40, 50:90] = False
+    batch = {"rgb": torch.from_numpy((rng.rand(1, 3, H, H) * 2 - 1).astype(np.float32)),
+             "depth": torch.from_numpy((rng.rand(1, 1, H, H) * 0.5 + 0.1).astype(np.float32)),
+             "mask_valid": torch.from_numpy(mask)}
+    params = VNLParams(1.0, 1.0, (H, H))
+    triplets = sample_triplets(torch.Generator().manual_seed(1), params)
+    step = ttrain.SSI_ONLY_STEPS + 1 if late else 0
+
+    def loss_fn(pred, b):
+        return ttrain.depth_loss_fn(pred, b, step, triplets.to(pred.device), params)
+
+    _assert_step_close(card, net, ttrain.depth_optimizer(lr=1e-5),
+                       lambda n, b: n(b["rgb"])[:, 0], loss_fn, batch)
+
+
+def test_unet_normal_step_on_the_card_matches_the_cpu(card):
+    """One UNet (downsample 6) normal step at 128², batch 2, TF32 off."""
+    from omnidata_tpu_torch import train as ttrain
+    from omnidata_tpu_torch.models import UNet
+    from omnidata_tpu_torch.models.registry import init_weights
+
+    net = UNet(out_channels=3, downsample=6, remat=True)
+    init_weights(net, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(3)
+    batch = {"rgb": torch.from_numpy(rng.rand(2, 3, 128, 128).astype(np.float32)),
+             "normal": torch.from_numpy(rng.rand(2, 3, 128, 128).astype(np.float32)),
+             "mask_valid": torch.from_numpy(rng.rand(2, 1, 128, 128) > 0.05)}
+    _assert_step_close(card, net, ttrain.normal_optimizer(lr=1e-4),
+                       lambda n, b: n(b["rgb"]), ttrain.normal_loss_fn, batch)

@@ -1,6 +1,6 @@
-"""The port imports torch and numpy, never JAX or the JAX package: an AST
-scan of every module of omnidata_tpu_torch and of the scripts that drive it
-on the card."""
+"""The port imports torch and numpy, never JAX or the JAX package, nor PIL
+or PyYAML, which the card's machine does not have: an AST scan of every
+module of omnidata_tpu_torch and of the scripts that drive it on the card."""
 import ast
 from pathlib import Path
 
@@ -10,7 +10,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "omnidata_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_annotator.py",
     ROOT / "tools" / "raster_measure.py"]
-_BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "omnidata_tpu")
+_BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "omnidata_tpu", "PIL", "yaml")
 
 
 def banned_imports(source: str) -> list[str]:
@@ -34,6 +34,7 @@ def test_scan_catches_banned_and_allows_the_port():
         "omnidata_tpu.mesh"]
     assert banned_imports("import omnidata_tpu") == ["omnidata_tpu"]
     assert banned_imports("def f():\n    from jax import lax") == ["jax"]
+    assert banned_imports("from PIL import Image\nimport yaml") == ["PIL", "yaml"]
     assert banned_imports(
         "import omnidata_tpu_torch\nfrom omnidata_tpu_torch.mesh import raster\n"
         "from .core import cameras\nimport torch") == []
