@@ -15,8 +15,10 @@ bench scene it picks kernel A, on the large scene kernel C (scene pack over
 path: DPT-hybrid-384 at full width through ``models.create_model`` and
 ``python -m omnidata_tpu_torch.demo``. And training: the DPT depth and
 UNet normal trainers (``python -m omnidata_tpu_torch.train_depth`` /
-``train_normal``) on the labels the CLI wrote. Phases, each of which fails
-the run on error:
+``train_normal``) on the labels the CLI wrote; then evaluation of what
+they trained (``eval_depth``, ``eval_normal``), the multi-task trainer
+(``train_multitask``) and HRNet at its published widths. Phases, each of
+which fails the run on error:
 
 1. set-up: the card's name and power limit; float32 matmuls and
    convolutions without TF32; build the CUDA kernels from csrc/ with nvcc,
@@ -147,6 +149,36 @@ the run on error:
        a sample and a batch (8 threads); the trainer loop's device idle
        share (loader, copy and step, torch's defaults). No TPU kernel's
        counterpart runs here either; the labels are kernel A's (phase 11).
+17. evaluation, multi-task training and HRNet on phase 11's labels and
+    phase 16's checkpoints:
+    a. ``python -m omnidata_tpu_torch.eval_depth`` (``--align none`` and
+       ``ssi``, ``--checkpoint`` the depth trainer's best checkpoint
+       directory) and ``eval_normal`` (``--model dpt``, seeded, and
+       ``--model unet`` on the normal trainer's best directory; on the
+       annotated views, and on an OASIS fixture made from phase 11's rgb
+       and normal PNGs with and without ``--tta``), 4 images each, as
+       subprocesses on the card at once (TF32 off through
+       ``NVIDIA_TF32_OVERRIDE=0``): finite metrics, each within 1e-3
+       relative of the same run on the CPU (medians within 0.05 degrees,
+       the shares of pixels within 1e-3 relative or 1e-5, 6 of the ~590k
+       pixels scored); eval_depth ``--align ssi`` also on seeded weights
+       (the trained depth net outputs zeros, which alignment keeps);
+       then eval_depth's loop on all 16 views in torch's defaults, its
+       forwards by CUDA events: img/s and the device's idle share;
+    b. ``python -m omnidata_tpu_torch.train_multitask`` for each of the
+       four ``--arch`` values (6 steps, GradNorm every 2) as subprocesses
+       at once: finite losses, GradNorm weights summing to 2 (an update
+       whose weights come out NaN is skipped and logged); one step's losses
+       on the card within 1e-3 of the CPU's (TF32 off); step times by CUDA
+       events (median, min, max of 10 after 3) at batch 4 and 256² in
+       torch's defaults, img/s, training FLOPs (``model_flops``, 3
+       forwards), share of 67 TFLOP/s, peak memory;
+    c. HRNet-W18 and W48 (``create_model("hrnet_w18" | "hrnet_w48")``):
+       card against CPU at 129² within 1e-3 of max |CPU| (float32, TF32
+       off); forwards at 513², batch 1 and 4, float32 and bfloat16, with
+       deterministic and autotuned cuDNN (median, min, max of 5 reps of
+       4): img/s, FLOPs, share of 67 (989 for bfloat16) TFLOP/s, peak
+       memory. No TPU kernel's counterpart runs in phase 17.
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
@@ -154,7 +186,8 @@ log's last lines to stderr.
 Prints the kernel table as one JSON line (per kernel its K = 32 time,
 plain version, bound and work items, its main-path launches; no PyTorch
 call computes these kernels' function, so ``library_ms`` is null; phases
-14-16's numbers under "device_prefixes", "dpt" and "train"), the
+14-17's numbers under "device_prefixes", "dpt", "train" and
+"eval_multitask_hrnet"), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
@@ -1428,6 +1461,390 @@ def train_checks(dev, bdir: str) -> dict:
     return checks
 
 
+# ---- 17. evaluation, multi-task training, HRNet -----------------------------
+
+EVAL_IMAGES = 4  # the images each eval run scores (--max_batches 1 --batch_size 4)
+EVAL_RES = 384  # the eval drivers' default --image_size
+EVAL_RTOL, EVAL_MEDIAN_ATOL = 1e-3, 0.05  # card vs CPU: metrics relative, medians in degrees
+# the shares of pixels within 11.25/22.5/30 degrees count pixels: one pixel
+# whose angle moves across a threshold by float32 rounding moves a share by
+# 1 / 590k on 4 images, more than 1e-3 of a share of 0.001; 1e-5 is 6 pixels
+EVAL_SHARE_ATOL = 1e-5
+EVAL_TIMEOUT_S = 300
+MT_ARCHS = ("multitask", "mtan", "padnet", "crossstitch")
+MT_RES, MT_BS, MT_STEPS, MT_BALANCE = 256, 4, 6, 2  # train_multitask's defaults, 6 steps
+MT_LOSS_TOL = 1e-3  # |card - CPU| / |CPU| of one step's losses, TF32 off
+HRNET_VARIANTS = ("w18", "w48")
+HRNET_RES, HRNET_CHECK_RES, HRNET_BATCHES, HRNET_REPS = 513, 129, (1, 4), 5
+HRNET_TOL = 1e-3  # max |card - CPU| / max |CPU|, float32 without TF32
+
+
+def oasis_fixture(bdir: str, out: Path, n: int) -> str:
+    """An OASIS-layout CSV over the first n of phase 11's views: each rgb
+    PNG as the image, its normal PNG decoded to [-1, 1] with z flipped into
+    OASIS's frame (z toward the viewer) as the ROI pickle, the ROI a box
+    inset by 1/8 of each side, pixels without a valid label zero (masked)."""
+    import pickle
+
+    import numpy as np
+
+    from omnidata_tpu_torch.cues.encode import load_png
+
+    out.mkdir(parents=True, exist_ok=True)
+    rows = ["Image,unused1,unused2,Normal"]
+    names = sorted(os.listdir(os.path.join(bdir, "rgb")))[:n]
+    for i, name in enumerate(names):
+        shutil.copy(os.path.join(bdir, "rgb", name), out / f"im{i}.png")
+        stem = name.replace("_domain_rgb.png", "")
+        normal = load_png(os.path.join(bdir, "normal", f"{stem}_domain_normal.png"))
+        valid = load_png(os.path.join(bdir, "mask_valid", f"{stem}_domain_mask_valid.png"))
+        n3 = normal[..., :3].astype(np.float32) / 255.0 * 2.0 - 1.0
+        n3[..., 2] *= -1.0
+        n3[valid == 0] = 0.0
+        H, W = n3.shape[:2]
+        y0, y1, x0, x1 = H // 8, H - H // 8 - 1, W // 8, W - W // 8 - 1
+        with open(out / f"n{i}.pkl", "wb") as fh:
+            pickle.dump({"min_y": y0, "max_y": y1, "min_x": x0, "max_x": x1,
+                         "normal": n3[y0:y1 + 1, x0:x1 + 1]}, fh)
+        rows.append(f"im{i}.png,,,n{i}.pkl")
+    (out / "oasis.csv").write_text("\n".join(rows) + "\n")
+    return str(out / "oasis.csv")
+
+
+def run_in_process(main, argv: list) -> dict:
+    """An entry point's main in this process, its JSON stdout parsed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return json.loads(buf.getvalue())
+
+
+def eval_runs(bdir: str, depth_ckpt: str, normal_ckpt: str, oasis_csv: str) -> dict:
+    """name -> (module, argv) of each eval run phase 17 checks."""
+    four = ["--max_batches", "1", "--batch_size", str(EVAL_IMAGES), "--image_size",
+            str(EVAL_RES)]
+    data = ["--data_path", bdir] + four
+    oasis = ["--oasis_csv", oasis_csv, "--oasis_root", str(Path(oasis_csv).parent)] + four
+    runs = {f"eval_depth align {a}": ("eval_depth", data + ["--checkpoint", depth_ckpt,
+                                                           "--align", a])
+            for a in ("none", "ssi")}
+    # seeded weights: the trained checkpoint's depth is all zeros (a few
+    # steps from seeded weights drive it there through the relu and clip),
+    # which the scale-shift alignment leaves as it is
+    runs["eval_depth seeded align ssi"] = ("eval_depth", data + ["--align", "ssi"])
+    for model, ck in (("dpt", []), ("unet", ["--checkpoint", normal_ckpt])):
+        runs[f"eval_normal {model}"] = ("eval_normal", data + ["--model", model] + ck)
+        for tta in ([], ["--tta"]):
+            runs[f"eval_normal {model} oasis{' tta' if tta else ''}"] = (
+                "eval_normal", oasis + ["--model", model] + ck + tta)
+    return runs
+
+
+def check_eval(name: str, got: dict, want: dict) -> float:
+    """Finite metrics, the card's within EVAL_RTOL of the CPU's (medians
+    within EVAL_MEDIAN_ATOL degrees, shares of pixels within EVAL_RTOL or
+    EVAL_SHARE_ATOL) -> the largest relative difference."""
+    import math
+
+    worst = 0.0
+    if set(got) != set(want) or not all(math.isfinite(v) for v in got.values()):
+        raise AssertionError(f"{name}: card {got}, CPU {want}")
+    for k, v in want.items():
+        d = abs(got[k] - v)
+        if "median" in k or k == "MDAE":
+            ok = d <= EVAL_MEDIAN_ATOL
+        elif k.startswith("percentage_within") or k in ("11.25", "22.5", "30"):
+            ok = d <= max(EVAL_RTOL * abs(v), EVAL_SHARE_ATOL)
+        else:
+            ok = d <= EVAL_RTOL * abs(v) + 1e-9
+        if not ok:
+            raise AssertionError(f"{name}: {k} card {got[k]!r} vs CPU {v!r}")
+        worst = max(worst, d / max(abs(v), 1e-12))
+    return worst
+
+
+def phase_eval(dev, card: str, bdir: str) -> dict:
+    """17a: the eval drivers as subprocesses on the card (TF32 off through
+    NVIDIA_TF32_OVERRIDE=0) against the same runs on the CPU in this
+    process; then eval_depth in this process on all of phase 11's views,
+    its forwards timed by CUDA events: img/s and the loop's idle share."""
+    import torch
+
+    from omnidata_tpu_torch import eval_depth, eval_normal
+    from omnidata_tpu_torch import models as M
+
+    tdir = CLI_DIR / "train"
+    best = {}
+    for name in ("depth", "normal"):
+        scores = json.loads((tdir / name / "scores.json").read_text())
+        best[name] = str(tdir / name / min(scores, key=scores.get))
+    csv = oasis_fixture(bdir, CLI_DIR / "oasis", EVAL_IMAGES)
+    runs = eval_runs(bdir, best["depth"], best["normal"], csv)
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    t0 = time.perf_counter()
+    procs = {n: subprocess.Popen([sys.executable, "-m", f"omnidata_tpu_torch.{m}", *a],
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for n, (m, a) in runs.items()}
+    try:
+        t1 = time.perf_counter()
+        mains = {"eval_depth": eval_depth.main, "eval_normal": eval_normal.main}
+        want = {n: run_in_process(mains[m], a + ["--device", "cpu"])
+                for n, (m, a) in runs.items()}
+        s_cpu = time.perf_counter() - t1
+        got = {}
+        for n, p in procs.items():
+            out, err = p.communicate(timeout=EVAL_TIMEOUT_S)
+            if p.returncode:
+                print(err[-4000:], file=sys.stderr)
+                raise AssertionError(f"{n} exited {p.returncode}")
+            got[n] = json.loads(out)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    s_card = time.perf_counter() - t0
+    res = {"checkpoints": best, "runs": {}}
+    for n in runs:
+        worst = check_eval(n, got[n], want[n])
+        res["runs"][n] = {"card": got[n], "cpu": want[n], "max_rel_diff": worst}
+        log(f"{n} ({EVAL_IMAGES} images): card {json.dumps(got[n])}; largest "
+            f"relative difference from the CPU {worst:.3g}")
+    log(f"eval runs: {len(runs)} subprocesses on the card at once, {s_card:.1f} s; "
+        f"the same runs on the CPU in this process {s_cpu:.1f} s")
+
+    # eval_depth's loop on the card, torch's defaults (as a user runs it)
+    fwd_ms, marks = [], {}
+    create = M.create_model
+
+    def timed_model(*args, **kw):
+        model = create(*args, **kw)
+
+        def run(x):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            y = model(x)
+            e1.record()
+            fwd_ms.append((e0, e1))
+            return y
+
+        marks["start"] = time.perf_counter()  # the model built: the loop starts
+        return run
+
+    cudnn_mode("defaults")
+    n_views = len(os.listdir(os.path.join(bdir, "rgb")))
+    M.create_model = timed_model
+    try:
+        res["timing"] = {}
+        for rep in range(2):  # the first run warms cuDNN's autotuner up
+            fwd_ms.clear()
+            marks.clear()
+            run_in_process(eval_depth.main, ["--data_path", bdir, "--checkpoint",
+                                             best["depth"], "--batch_size", "8",
+                                             "--image_size", str(EVAL_RES)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - marks["start"]
+        busy = sum(e0.elapsed_time(e1) for e0, e1 in fwd_ms) / 1e3
+    finally:
+        M.create_model = create
+        cudnn_mode("phase1")
+    res["timing"] = {"images": n_views, "s_loop": wall, "img_s": n_views / wall,
+                     "forward_ms": busy * 1e3 / len(fwd_ms),
+                     "idle_share": max(0.0, 1 - busy / wall)}
+    log(f"eval_depth loop on the card ({n_views} views at {EVAL_RES}², batch 8, "
+        f"torch defaults): {res['timing']['img_s']:.2f} img/s, {wall:.2f} s once the "
+        f"model was built (data loading, forwards, metrics); forwards {busy:.3f} s by CUDA events, device idle share "
+        f"{res['timing']['idle_share']:.3f}; card {card}")
+    return res
+
+
+def mt_batch(bdir: str) -> dict:
+    """The first MT_BS of phase 11's views at MT_RES as train_multitask's
+    batch (CPU tensors)."""
+    import torch
+
+    from omnidata_tpu_torch.train_multitask import to_batch
+
+    ds = bench_dataset(bdir, ("rgb", "depth_zbuffer", "normal", "mask_valid"), MT_RES)
+    return to_batch(next(ds.batches(MT_BS, shuffle=False)), torch.device("cpu"))
+
+
+def check_multitask_log(arch: str, out: str) -> list:
+    """train_multitask's lines: GradNorm at every MT_BALANCE steps with
+    finite losses and weights summing to 2, then 'done'; the GradNorm
+    updates it skipped (non-finite weights) are logged."""
+    import ast
+    import math
+
+    lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
+    want_steps = list(range(MT_BALANCE, MT_STEPS + 1, MT_BALANCE))
+    logged = []
+    for ln in lines:
+        losses = ast.literal_eval(ln.split("losses=", 1)[1].split(" weights=")[0])
+        weights = ast.literal_eval(ln.split("weights=", 1)[1].rsplit(" (", 1)[0])
+        logged.append({"step": int(ln.split(":")[0][5:]), "losses": losses,
+                       "weights": weights})
+    skipped = [ln for ln in out.splitlines() if ln.startswith("GradNorm at step ")]
+    for ln in skipped:
+        log(f"train_multitask --arch {arch}: {ln}")
+    if [m["step"] for m in logged] != want_steps or f"done: {MT_STEPS} steps" not in out \
+            or not all(math.isfinite(v) for m in logged for v in m["losses"].values()) \
+            or not all(abs(sum(m["weights"].values()) - 2.0) <= 1e-5 for m in logged):
+        raise AssertionError(f"train_multitask --arch {arch}: {out[-2000:]}")
+    return logged
+
+
+def phase_multitask(dev, card: str, bdir: str) -> dict:
+    """17b: train_multitask for each architecture as a subprocess (all at
+    once), one step's losses on the card against the CPU (TF32 off), and
+    step times by CUDA events in torch's defaults."""
+    import copy
+
+    import torch
+
+    from omnidata_tpu_torch import train_multitask as tm
+    from omnidata_tpu_torch.train.state import Optimizer, create_train_state
+
+    t0 = time.perf_counter()
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-m", "omnidata_tpu_torch.train_multitask", "--data_path", bdir,
+         "--arch", a, "--max_steps", str(MT_STEPS), "--balance_every", str(MT_BALANCE)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a in MT_ARCHS}
+    res = {}
+    try:
+        batch = mt_batch(bdir)
+        w = {"depth_zbuffer": 1.0, "normal": 1.0}
+        for arch in MT_ARCHS:
+            net = tm.build_model(arch)
+            cpu_l, card_l = ({k: float(v) for k, v in tm.train_step(
+                create_train_state(copy.deepcopy(net).to(d), Optimizer(lr=1e-4)),
+                {k: v.to(d) for k, v in batch.items()}, w).items()}
+                for d in (torch.device("cpu"), dev))
+            err = max(abs(card_l[k] - v) / abs(v) for k, v in cpu_l.items())
+            if not err <= MT_LOSS_TOL:
+                raise AssertionError(f"{arch}: step losses card {card_l} CPU {cpu_l}")
+            res[arch] = {"losses_card": card_l, "losses_cpu": cpu_l, "loss_rel_diff": err}
+        outs = {}
+        for a, p in procs.items():
+            outs[a], _ = p.communicate(timeout=TRAINER_TIMEOUT_S)
+            if p.returncode:
+                print(outs[a][-4000:], file=sys.stderr)
+                raise AssertionError(f"train_multitask --arch {a} exited {p.returncode}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    s_runs = time.perf_counter() - t0
+    for arch in MT_ARCHS:
+        res[arch]["log"] = check_multitask_log(arch, outs[arch])
+        log(f"train_multitask --arch {arch}: {MT_STEPS} steps, GradNorm "
+            f"{[(m['step'], {k: round(v, 4) for k, v in m['weights'].items()}) for m in res[arch]['log']]}; "
+            f"one step's losses card vs CPU within {res[arch]['loss_rel_diff']:.3g} "
+            f"(tol {MT_LOSS_TOL})")
+    log(f"train_multitask, the {len(MT_ARCHS)} architectures at once as subprocesses "
+        f"(with the checks above): {s_runs:.1f} s")
+
+    cudnn_mode("defaults")
+    try:
+        db = {k: v.to(dev) for k, v in batch.items()}
+        for arch in MT_ARCHS:
+            net = tm.build_model(arch).to(dev)
+            fwd = model_flops(net, torch.zeros(1, 3, MT_RES, MT_RES, device=dev))
+            st = create_train_state(net, Optimizer(lr=1e-4))
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = step_times(lambda: tm.train_step(st, db, w))
+            med = statistics.median(ms)
+            ips = MT_BS / (med / 1e3)
+            res[arch].update(ms_median=med, ms_min=min(ms), ms_max=max(ms), img_s=ips,
+                             train_gflop_per_image=3 * fwd / 1e9,
+                             share_of_fp32_peak=ips * 3 * fwd / PEAK_FLOPS["float32"],
+                             peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            log(f"train_multitask step {arch}, batch {MT_BS} at {MT_RES}², torch "
+                f"defaults: {med:.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}; "
+                f"{TRAIN_TIMED} after {TRAIN_WARMUP}) = {ips:.1f} img/s; "
+                f"{3 * fwd / 1e9:.1f} GFLOP a training image = "
+                f"{res[arch]['share_of_fp32_peak']:.3f} of 67 TFLOP/s; peak "
+                f"{res[arch]['peak_gib']:.2f} GiB; card {card}")
+            del st, net
+            torch.cuda.empty_cache()
+    finally:
+        cudnn_mode("phase1")
+    return res
+
+
+def phase_hrnet(dev, card: str) -> dict:
+    """17c: HRNet-W18 and W48 through create_model: card against CPU at
+    HRNET_CHECK_RES² (float32, TF32 off); forwards at HRNET_RES², batch 1
+    and 4, float32 (TF32 off) and bfloat16, with phase 1's deterministic
+    cuDNN and autotuned, by CUDA events."""
+    import torch
+
+    from omnidata_tpu_torch.models import create_model
+
+    res = {}
+    gen = torch.Generator().manual_seed(0)
+    xc = torch.rand(1, 3, HRNET_CHECK_RES, HRNET_CHECK_RES, generator=gen)
+    for v in HRNET_VARIANTS:
+        name = f"hrnet_{v}"
+        cpu = create_model(name, device="cpu")
+        with torch.no_grad():
+            want = cpu(xc)
+            got = cpu.to(dev)(xc.to(dev)).cpu()
+        del cpu
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        if not err <= HRNET_TOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: card vs CPU {err} at {HRNET_CHECK_RES}²")
+        res[name] = {"check_rel_err": err}
+        log(f"{name} f32 at {HRNET_CHECK_RES}²: card vs CPU max |diff| / max |CPU| = "
+            f"{err:.3g} (tol {HRNET_TOL})")
+        for dtype in ("float32", "bfloat16"):
+            model = create_model(name, device=dev, dtype=dtype)
+            fwd = model_flops(model, torch.zeros(1, 3, HRNET_RES, HRNET_RES, device=dev))
+            for mode in ("deterministic", "benchmark"):  # phase 1's cuDNN; autotuned
+                torch.backends.cudnn.deterministic = mode == "deterministic"
+                torch.backends.cudnn.benchmark = mode == "benchmark"
+                for bs in HRNET_BATCHES:
+                    x = torch.rand(bs, 3, HRNET_RES, HRNET_RES, generator=gen).to(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    with torch.no_grad():
+                        y = model(x)  # warm-up (and the autotuner's search)
+                        if y.shape != (bs, 21, HRNET_RES, HRNET_RES) or \
+                                not bool(torch.isfinite(y).all()):
+                            raise AssertionError(f"{name} {dtype}: output {tuple(y.shape)}")
+                        ms = [cuda_ms(lambda: model(x), 4) for _ in range(HRNET_REPS)]
+                    med = statistics.median(ms)
+                    ips = bs / (med / 1e3)
+                    e = {"ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
+                         "img_s": ips, "gflop_per_image": fwd / 1e9,
+                         "share_of_peak": ips * fwd / PEAK_FLOPS[dtype],
+                         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+                    res[name][f"{dtype}_bs{bs}_{mode}"] = e
+                    log(f"{name} {dtype} at {HRNET_RES}², batch {bs}, cuDNN {mode}: "
+                        f"{med:.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}; {HRNET_REPS} "
+                        f"reps of 4) = {ips:.1f} img/s; {fwd / 1e9:.1f} GFLOP an image = "
+                        f"{e['share_of_peak']:.3f} of {PEAK_FLOPS[dtype] / 1e12:.0f} "
+                        f"TFLOP/s; peak {e['peak_gib']:.2f} GiB; card {card}")
+            torch.backends.cudnn.benchmark = False
+            torch.backends.cudnn.deterministic = True
+            del model
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_eval_multitask(dev, card: str, bdir: str) -> dict:
+    """Phase 17 (see the module doc)."""
+    t0 = time.perf_counter()
+    res = {"eval": phase_eval(dev, card, bdir),
+           "multitask": phase_multitask(dev, card, bdir),
+           "hrnet": phase_hrnet(dev, card)}
+    res["s_phase"] = time.perf_counter() - t0
+    log(f"phase 17: {res['s_phase']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2024,6 +2441,9 @@ def main() -> int:
     # 16. training on phase 11's labels --------------------------------------
     train = phase_train(dev, card, bdir)
 
+    # 17. evaluation, multi-task training and HRNet ---------------------------
+    eval_mt = phase_eval_multitask(dev, card, bdir)
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -2090,7 +2510,8 @@ def main() -> int:
         "raycast_tests_per_s": ray_tests / s_ray, "raycast_face_agreement": face_eq,
         "cli_bench_all_s": s_cli_bench, "cli_large": cli_large,
         "pano_s": pano_s, "pano_tests_per_s": pano_rate,
-        "device_prefixes": prefixes, "dpt": dpt, "train": train, "card": card}
+        "device_prefixes": prefixes, "dpt": dpt, "train": train,
+        "eval_multitask_hrnet": eval_mt, "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(card)

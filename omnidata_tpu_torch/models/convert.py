@@ -11,13 +11,23 @@ the Flax parameter tree (None for tensors the forward pass never uses);
 kind is 'conv' | 'conv_nobias' | 'linear' | 'norm' | 'ln' | 'raw', or a
 '*_drop' kind for those unused tensors.
 
-``state_dict_from_flax`` walks a Flax parameter tree given as nested dicts
+``state_dict_from_flax`` walks a Flax variable tree given as nested dicts
 of numpy arrays (``jax.device_get`` of the JAX model's variables; no JAX
 needed here) into such a state dict:
 
 - conv kernels:   flax (kh, kw, I, O) -> torch (O, I, kh, kw)
 - dense kernels:  flax (I, O)         -> torch (O, I)
 - norm scale/bias -> weight/bias
+- BatchNorm ('bn'): also ``batch_stats`` mean/var -> running_mean/var
+
+The multi-task models and the attention blocks keep the Flax modules'
+names, so ``state_dict_from_flax_tree`` maps their trees without a
+mapping: a '/'-joined path becomes a '.'-joined key, ``kernel`` becomes
+``weight`` (4-D transposed as a conv's, 2-D as a dense layer's, 3-D — ECA's
+(k, 1, 1) 1-D conv — reversed to (1, 1, k)), ``scale`` becomes ``weight``,
+and any other leaf (``bias``, CrossStitch's ``stitch{i}``) keeps its name.
+HRNet's torch keys are the published seg_hrnet's, so it goes through
+``hrnet.hrnet_mapping``.
 """
 from __future__ import annotations
 
@@ -120,14 +130,15 @@ def strip_prefix(state_dict: dict) -> dict:
 
 
 def state_dict_from_flax(mapping, flax_params: dict) -> dict:
-    """Flax parameters (nested dicts of numpy arrays, with or without the
-    top 'params' level) -> a torch state dict in the mapping's key schema.
-    Tensors the forward pass never uses (the '*_drop' kinds) come out as
-    zeros of their published shapes."""
+    """Flax variables (nested dicts of numpy arrays, with or without the
+    top 'params' level; 'batch_stats' beside it for BatchNorm) -> a torch
+    state dict in the mapping's key schema. Tensors the forward pass never
+    uses (the '*_drop' kinds) come out as zeros of their published shapes."""
     params = flax_params.get("params", flax_params)
+    stats = flax_params.get("batch_stats", {})
 
-    def leaf(path, name):
-        node = params
+    def leaf(path, name, tree=None):
+        node = params if tree is None else tree
         for part in path.split("/"):
             node = node[part]
         return np.asarray(node if name is None else node[name], np.float32)
@@ -152,11 +163,40 @@ def state_dict_from_flax(mapping, flax_params: dict) -> dict:
             sd[f"{key}.weight"] = leaf(flax_path, "kernel").T
             if has(flax_path, "bias"):
                 sd[f"{key}.bias"] = leaf(flax_path, "bias")
-        elif kind in ("norm", "ln"):
+        elif kind in ("norm", "ln", "bn"):
             sd[f"{key}.weight"] = leaf(flax_path, "scale")
             sd[f"{key}.bias"] = leaf(flax_path, "bias")
+            if kind == "bn":
+                sd[f"{key}.running_mean"] = leaf(flax_path, "mean", stats)
+                sd[f"{key}.running_var"] = leaf(flax_path, "var", stats)
         elif kind == "raw":
             sd[key] = leaf(flax_path, None)
         else:
             raise ValueError(f"unknown kind {kind!r} for {key}")
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+_KERNEL_AXES = {4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
+
+
+def state_dict_from_flax_tree(flax_params: dict) -> dict:
+    """Flax variables whose module names are the torch module's (the
+    multi-task models, the attention blocks) -> its state dict; see the
+    module doc for the leaf rules."""
+    params = flax_params.get("params", flax_params)
+    sd = {}
+
+    def walk(node, path):
+        for name, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + [name])
+                continue
+            a = np.asarray(v, np.float32)
+            if name == "kernel":
+                a, name = a.transpose(_KERNEL_AXES[a.ndim]), "weight"
+            elif name == "scale":
+                name = "weight"
+            sd[".".join(path + [name])] = torch.from_numpy(np.array(a, np.float32))
+
+    walk(params, [])
+    return sd

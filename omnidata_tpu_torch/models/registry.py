@@ -1,32 +1,37 @@
 """Model registry: the hub names of the reference (omnidata_tools/torch/
 README.md:23-29: dpt_hybrid_384, depth_dpt_hybrid_384,
-surface_normal_dpt_hybrid_384, surface_normal_unet), the counterpart of
-the JAX package's ``models/registry.py``.
+surface_normal_dpt_hybrid_384, surface_normal_unet) and the segmentation
+HRNets (hrnet_w18, hrnet_w32, hrnet_w48; paper_code/models/seg_hrnet.py),
+the counterpart of the JAX package's ``models/registry.py``.
 
 Each entry returns a ``Predictor``: an ``nn.Module`` in eval mode that
 takes an NCHW float32 batch and returns the reference's output convention
 in float32 — depth (B, H, W) with the channel squeezed, normals
 (B, 3, H, W). Weights come from a published torch checkpoint
 (``torch.load`` -> ``convert.strip_prefix`` -> ``load_state_dict(strict=
-True)``) or, without one, from a seeded ``torch.Generator`` (Flax's
+True)``), from a checkpoint directory the port's trainers wrote, or,
+without one, from a seeded ``torch.Generator`` (Flax's
 initialisers: LeCun-normal kernels, zero biases, unit norm scales, pos
 embed N(0, 0.02)); they are made on the CPU, then moved, so a seed gives
 the same weights on every device.
 
 ``dtype="bfloat16"`` follows the JAX package's ``cast_params_bf16``: every
 parameter goes to bfloat16 except those of the normalisation layers, which
-stay float32 (their statistics are computed in float32 too); activations
-run in bfloat16 and the output comes back as float32.
+stay float32 (their statistics are computed in float32 too; HRNet's
+BatchNorm layers, which the JAX package casts, stay float32 here as well);
+activations run in bfloat16 and the output comes back as float32.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 from torch import nn
 
 from .convert import strip_prefix
 from .dpt import DPTHybrid
+from .hrnet import HRNet
 from .unet import UNet
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -47,10 +52,13 @@ class Predictor(nn.Module):
 def init_weights(net: nn.Module, generator: torch.Generator) -> None:
     """Flax's default initialisers from ``generator``, in module order:
     kernels N(0, 1/fan_in), biases 0, norm scales 1 and shifts 0, the ViT's
-    cls token 0 and position embedding N(0, 0.02)."""
+    cls token 0 and position embedding N(0, 0.02); CrossStitch's
+    ``stitch{i}`` keep their own initial values."""
     with torch.no_grad():
         for name, p in net.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("stitch"):
+                continue  # CrossStitch's mixing weights keep 0.9 I + 0.1 / T
             if leaf == "pos_embed":
                 p.normal_(0.0, 0.02, generator=generator)
             elif leaf == "cls_token" or leaf == "bias":
@@ -63,9 +71,9 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
 
 
 def cast_params_bf16(net: nn.Module) -> nn.Module:
-    """Every parameter to bfloat16 except the GroupNorm / LayerNorm ones."""
+    """Every parameter to bfloat16 except the normalisation layers' ones."""
     for mod in net.modules():
-        if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
+        if isinstance(mod, (nn.GroupNorm, nn.LayerNorm, nn.BatchNorm2d)):
             continue
         for name, p in mod.named_parameters(recurse=False):
             p.data = p.data.to(torch.bfloat16)
@@ -73,8 +81,15 @@ def cast_params_bf16(net: nn.Module) -> nn.Module:
 
 
 def load_checkpoint(net: nn.Module, path: str) -> None:
-    """A published torch checkpoint (Lightning 'state_dict' with 'model.'
-    prefixes, or a bare state dict) into net, every key accounted for."""
+    """A checkpoint into net, every key accounted for: a directory written
+    by the trainers' ``CheckpointManager`` (``step_<N>``, ``last``) gives
+    its train state's ``params``; a file is a published torch checkpoint
+    (Lightning 'state_dict' with 'model.' prefixes, or a bare state dict)."""
+    if os.path.isdir(path):
+        from ..train.checkpoints import load_tree
+
+        net.load_state_dict(load_tree(path)["params"], strict=True)
+        return
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     net.load_state_dict(strip_prefix(ckpt), strict=True)
 
@@ -119,8 +134,22 @@ def surface_normal_unet(checkpoint: str | None = None,
                   generator)
 
 
+def hrnet(variant: str = "w18", out_channels: int = 21, checkpoint: str | None = None,
+          dtype: str = "float32", device: torch.device | str = "cuda",
+          generator: torch.Generator | None = None) -> Predictor:
+    """Segmentation HRNet (paper_code/models/seg_hrnet.py get_configured_hrnet
+    role), output (B, out_channels, H, W); loads torch seg_hrnet
+    checkpoints as they are. Input height and width must be 1 more than a
+    multiple of 8 (the reference's assert)."""
+    return _build(HRNet(out_channels=out_channels, variant=variant), False,
+                  checkpoint, dtype, device, generator)
+
+
 MODELS = {
     "dpt_hybrid_384": dpt_hybrid_384,
+    "hrnet_w18": lambda **kw: hrnet("w18", **kw),
+    "hrnet_w32": lambda **kw: hrnet("w32", **kw),
+    "hrnet_w48": lambda **kw: hrnet("w48", **kw),
     "depth_dpt_hybrid_384": depth_dpt_hybrid_384,
     "surface_normal_dpt_hybrid_384": surface_normal_dpt_hybrid_384,
     "surface_normal_unet": surface_normal_unet,

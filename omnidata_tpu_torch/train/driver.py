@@ -156,13 +156,7 @@ def build_datasets(cfg: dict, tasks: tuple, image_size: int):
 def load_pretrained(net: torch.nn.Module, path: str) -> None:
     """--pretrained: the params of a checkpoint directory written by these
     trainers, or a published torch .ckpt/.pth
-    (``models.registry.load_checkpoint``: Lightning prefixes stripped,
-    every key accounted for)."""
-    if os.path.isdir(path):
-        from .checkpoints import load_tree
-
-        net.load_state_dict(load_tree(path)["params"], strict=True)
-        return
+    (``models.registry.load_checkpoint``)."""
     from ..models.registry import load_checkpoint
 
     load_checkpoint(net, path)

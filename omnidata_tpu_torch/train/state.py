@@ -67,9 +67,14 @@ class Optimizer:
         return state
 
     def global_norm(self, grads: list) -> torch.Tensor:
-        """sqrt of the sum of squares over every tensor (each tensor's norm
-        squared: three launches, not two per tensor)."""
-        return torch.sqrt(torch.sum(torch.stack(torch._foreach_norm(grads)) ** 2))
+        """sqrt of the sum of squares over every tensor. On the card each
+        tensor's norm squared (three launches, not two per tensor); on the
+        CPU, whose norm kernel sums a tensor's squares one after another in
+        float32 (4e-5 off over 2.4M entries), each tensor's ``torch.sum``
+        of squares, which sums in a cascade."""
+        if grads[0].is_cuda:
+            return torch.sqrt(torch.sum(torch.stack(torch._foreach_norm(grads)) ** 2))
+        return torch.sqrt(torch.sum(torch.stack([torch.sum(g * g) for g in grads])))
 
     def step(self, params: list, grads: list, state: dict) -> None:
         """One update of params and state in place from grads (which it

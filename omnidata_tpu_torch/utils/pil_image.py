@@ -1,11 +1,16 @@
 """PIL's image reading and resizing, reproduced in numpy so that the port
 needs no PIL: the arrays ``np.asarray(Image.open(png))`` gives, and
-``Image.resize`` with the BILINEAR filter (8-bit images) and the NEAREST
-filter (8-bit, 16-bit and 32-bit integer images), pixel for pixel.
+``Image.resize`` with the BILINEAR filter (8-bit and 32-bit float images)
+and the NEAREST filter (8-bit, 16-bit and 32-bit integer and float images),
+pixel for pixel.
 
 - BILINEAR on 8-bit images is PIL's fixed-point two-pass resampler
   (``Resample.c``): 22-bit integer coefficients, the support widened by the
   downscale factor, the horizontal pass first, each pass rounded to uint8.
+- BILINEAR on float images (mode ``"F"``) is PIL's float path: the same
+  support and taps, double coefficients divided by their sum, no fixed
+  point; each output pixel sums its taps in order in double precision and is
+  stored as float32, the horizontal pass first.
 - NEAREST: PIL scales by an affine transform with sample positions at pixel
   centres, ``floor(scale (x + 0.5))``. For 8-bit and 32-bit images
   (``ImagingScaleAffine``) the position is accumulated, ``x0 + scale / 2``
@@ -79,6 +84,71 @@ def _pil_coeffs(in_size: int, out_size: int):
     idx.setflags(write=False)
     kk.setflags(write=False)
     return idx, kk
+
+
+@functools.lru_cache(maxsize=64)
+def _pil_coeffs_double(in_size: int, out_size: int):
+    """PIL's precompute_coeffs for the bilinear filter -> (source index,
+    double weight, tap in range) of each tap of each output pixel as
+    read-only (out, ksize) arrays."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ss = 1.0 / filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, ksize), np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
+    used = np.zeros((out_size, ksize), bool)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss)) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        if ww != 0.0:
+            w = [v / ww for v in w]
+        idx[xx, :xmax] = xmin + np.arange(xmax)
+        idx[xx, xmax:] = xmin
+        kk[xx, :xmax] = w
+        used[xx, :xmax] = True
+    for a in (idx, kk, used):
+        a.setflags(write=False)
+    return idx, kk, used
+
+
+def _pil_pass_float(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One float32 resampling pass of PIL along axis: each output pixel's
+    taps summed in order in float64 (taps past its count skipped), then
+    rounded to float32."""
+    idx, kk, used = _pil_coeffs_double(a.shape[axis], out_size)
+    src = np.moveaxis(a, axis, 0)
+    wshape = (-1,) + (1,) * (src.ndim - 1)
+    ss = np.zeros((out_size,) + src.shape[1:], np.float64)
+    for k in range(idx.shape[1]):
+        term = src[idx[:, k]].astype(np.float64) * kk[:, k].reshape(wshape)
+        ss += np.where(used[:, k].reshape(wshape), term, 0.0)
+    return np.ascontiguousarray(np.moveaxis(ss.astype(np.float32), 0, axis))
+
+
+def pil_float_resize(img: np.ndarray, size: tuple, method: str = "bilinear") -> np.ndarray:
+    """PIL's ``Image.fromarray(img, mode="F").resize((w, h), filter)`` of an
+    (H, W) float32 image, filter BILINEAR ('bilinear') or NEAREST
+    ('nearest')."""
+    img = np.asarray(img, np.float32)
+    if img.ndim != 2:
+        raise ValueError(f"a mode 'F' image is (H, W), not {img.shape}")
+    w, h = size
+    if method == "nearest":
+        return pil_nearest_resize(img, size)
+    if method != "bilinear":
+        raise ValueError(f"method {method!r}: 'bilinear' or 'nearest'")
+    if img.shape[1] != w:
+        img = _pil_pass_float(img, w, 1)
+    if img.shape[0] != h:
+        img = _pil_pass_float(img, h, 0)
+    return np.array(img, np.float32)
 
 
 def _pil_pass(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:

@@ -7,7 +7,10 @@ also with their work items cut to 1 and 3 list positions, so that every
 multi-chunk row is split across CTAs and merged. A refused launch raises.
 Then plain-PyTorch paths of the port on the card against the CPU: the host
 cues' device prefixes, DPT's forward, and one training step each of DPT
-(depth, both sides of the schedule switch) and the UNet (normals).
+(depth, both sides of the schedule switch) and the UNet (normals); the
+evaluation metrics, normal TTA, one forward of each multi-task
+architecture and of HRNet-W18, and one multi-task step with its per-task
+gradient norms.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports no JAX, so on a machine with a card
@@ -468,3 +471,106 @@ def test_unet_normal_step_on_the_card_matches_the_cpu(card):
              "mask_valid": torch.from_numpy(rng.rand(2, 1, 128, 128) > 0.05)}
     _assert_step_close(card, net, ttrain.normal_optimizer(lr=1e-4),
                        lambda n, b: n(b["rgb"]), ttrain.normal_loss_fn, batch)
+
+
+def test_eval_metrics_on_the_card_match_the_cpu(card):
+    """normal_metrics and depth_metrics within 1e-5 relative, the masked
+    median (taken on the host) within 1e-4 degrees."""
+    from omnidata_tpu_torch.train.metrics import depth_metrics, normal_metrics
+
+    rng = np.random.RandomState(4)
+    mask = torch.from_numpy(rng.rand(2, 1, 40, 48) > 0.3)
+    for fn, C in ((normal_metrics, 3), (depth_metrics, 1)):
+        p = torch.from_numpy(rng.rand(2, C, 40, 48).astype(np.float32))
+        t = torch.from_numpy(rng.rand(2, C, 40, 48).astype(np.float32) * 0.9 + 0.05)
+        want, got = fn(p, t, mask), fn(p.to(card), t.to(card), mask.to(card))
+        for k in want:
+            tol = 1e-4 if "median" in k else 1e-5 * abs(want[k]) + 1e-9
+            assert abs(got[k] - want[k]) <= tol, (k, got[k], want[k])
+
+
+def test_tta_on_the_card_matches_the_cpu(card):
+    """Flip and scale TTA (median of 4) around a seeded 3x3 conv."""
+    from omnidata_tpu_torch.models.tta import SurfaceNormalsTTA
+
+    conv = torch.nn.Conv2d(3, 3, 3, padding=1)
+    torch.nn.init.normal_(conv.weight, 0, 0.3, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(5).rand(2, 3, 64, 48).astype(np.float32))
+    with torch.no_grad():
+        want = SurfaceNormalsTTA(lambda v: torch.tanh(conv(v)), scales=(0.5, 1.5))(x)
+        gconv = conv.to(card)
+        got = SurfaceNormalsTTA(lambda v: torch.tanh(gconv(v)), scales=(0.5, 1.5))(x.to(card))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+def _seeded_mt_batch(n, H, W):
+    rng = np.random.RandomState(6)
+    return {"rgb": torch.from_numpy(rng.rand(n, 3, H, W).astype(np.float32)),
+            "depth_zbuffer": torch.from_numpy(rng.rand(n, 1, H, W).astype(np.float32)),
+            "normal": torch.from_numpy(rng.rand(n, 3, H, W).astype(np.float32)),
+            "mask_valid": torch.from_numpy(rng.rand(n, 1, H, W) > 0.1)}
+
+
+@pytest.mark.parametrize("arch", ["multitask", "mtan", "padnet", "crossstitch", "hrnet_lite",
+                                  "hrnet_w18"])
+def test_multitask_and_hrnet_forward_on_the_card_match_the_cpu(card, arch):
+    """Seeded weights, float32 with TF32 off: max |card - CPU| <= 1e-3 x
+    max |CPU| for every output."""
+    from omnidata_tpu_torch import train_multitask as tm
+    from omnidata_tpu_torch.models import HRNet, HRNetLite
+    from omnidata_tpu_torch.models.registry import init_weights
+
+    if arch.startswith("hrnet"):
+        net = HRNet(5, "w18") if arch == "hrnet_w18" else HRNetLite(5)
+        init_weights(net, torch.Generator().manual_seed(0))
+        x = torch.from_numpy(np.random.RandomState(7).rand(1, 3, 129, 129).astype(np.float32))
+    else:
+        net = tm.build_model(arch)
+        x = _seeded_mt_batch(2, 96, 80)["rgb"]
+    with torch.no_grad():
+        want = net.eval()(x)
+        got = net.to(card)(x.to(card))
+    flat = (lambda d: {k: v for k, v in d.items() if k != "aux"} | {
+        f"aux_{k}": v for k, v in d.get("aux", {}).items()}) if isinstance(want, dict) \
+        else (lambda t: {"out": t})
+    want, got = flat(want), flat(got)
+    for k in want:
+        err = float((got[k].cpu() - want[k]).abs().max())
+        assert err <= 1e-3 * float(want[k].abs().max()), (k, err)
+
+
+@pytest.mark.parametrize("arch", ["multitask", "padnet"])
+def test_multitask_step_on_the_card_matches_the_cpu(card, arch):
+    """One train_multitask step at 128², batch 2: the per-task losses and
+    gradient norms within 1e-3 relative; the update from the CPU's
+    gradients within 0.1 lr plus the rounding of p + u."""
+    import copy
+
+    from omnidata_tpu_torch import train_multitask as tm
+    from omnidata_tpu_torch.train.state import Optimizer, create_train_state
+
+    net = tm.build_model(arch)
+    batch = _seeded_mt_batch(2, 128, 128)
+    w = {"depth_zbuffer": 0.8, "normal": 1.2}
+    res = []
+    for dev in (torch.device("cpu"), card):
+        st = create_train_state(copy.deepcopy(net).to(dev), Optimizer(lr=1e-4, grad_clip=10.0))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        norms = {k: float(v) for k, v in tm.per_task_grad_norms(st, b).items()}
+        ls = tm.losses_fn(st.net, b)
+        (w["depth_zbuffer"] * ls["depth_zbuffer"] + w["normal"] * ls["normal"]).backward()
+        named = dict(st.net.named_parameters())
+        grads = {n: None if named[n].grad is None else named[n].grad.cpu().clone()
+                 for n in st.names}
+        res.append((st, {k: float(v.detach()) for k, v in ls.items()}, norms, grads, named))
+    (st_c, l_c, n_c, g_c, named_c), (st_g, l_g, n_g, _, named_g) = res
+    for k in l_c:
+        assert abs(l_g[k] - l_c[k]) <= 1e-3 * abs(l_c[k]), (k, l_g[k], l_c[k])
+        assert abs(n_g[k] - n_c[k]) <= 1e-3 * abs(n_c[k]), (k, n_g[k], n_c[k])
+    for n in st_g.names:
+        named_g[n].grad = None if g_c[n] is None else g_c[n].to(card, copy=True)
+    st_c.apply_gradients()
+    st_g.apply_gradients()
+    for n in st_c.names:
+        p0, p1 = named_c[n].detach(), named_g[n].detach().cpu()
+        assert bool(((p1 - p0).abs() <= 0.1 * 1e-4 + 2**-22 * p0.abs()).all()), n

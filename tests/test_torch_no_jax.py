@@ -48,3 +48,29 @@ def test_port_files_exist():
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_module_imports_no_jax(path):
     assert banned_imports(path.read_text()) == []
+
+
+EVAL_MULTITASK_MODULES = (
+    "omnidata_tpu_torch.eval_depth", "omnidata_tpu_torch.eval_normal",
+    "omnidata_tpu_torch.train_multitask", "omnidata_tpu_torch.train.metrics",
+    "omnidata_tpu_torch.models.tta", "omnidata_tpu_torch.models.attention_blocks",
+    "omnidata_tpu_torch.models.multitask", "omnidata_tpu_torch.models.hrnet",
+    "omnidata_tpu_torch.data.external_eval")
+
+
+def test_eval_and_multitask_modules_import_with_jax_blocked():
+    """Imported in a fresh interpreter where importing jax, flax, optax,
+    omnidata_tpu, PIL or yaml fails."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'optax', 'omnidata_tpu', 'PIL', 'yaml', 'h5py'):\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {EVAL_MULTITASK_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
