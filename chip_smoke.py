@@ -12,8 +12,9 @@ And the annotator CLI (``omnidata_tpu_torch.annotator.cli``), the entry
 point users run, on the same two scenes written as ``mesh.ply``: on the
 bench scene it picks kernel A, on the large scene kernel C (scene pack over
 8 MB), its host cues on their device prefixes. And the models' serving
-path: DPT-hybrid-384 at full width through ``models.create_model`` and
-``python -m omnidata_tpu_torch.demo``. And training: the DPT depth and
+path: DPT-hybrid-384 and MiDaS v2.1 (large and small) at full width
+through ``models.create_model``, ``python -m omnidata_tpu_torch.demo`` and
+``python -m omnidata_tpu_torch.demo_refocus``. And training: the DPT depth and
 UNet normal trainers (``python -m omnidata_tpu_torch.train_depth`` /
 ``train_normal``) on the labels the CLI wrote; then evaluation of what
 they trained (``eval_depth``, ``eval_normal``), the multi-task trainer
@@ -179,6 +180,23 @@ which fails the run on error:
        deterministic and autotuned cuDNN (median, min, max of 5 reps of
        4): img/s, FLOPs, share of 67 (989 for bfloat16) TFLOP/s, peak
        memory. No TPU kernel's counterpart runs in phase 17.
+18. MiDaS v2.1 and the refocus augmentation:
+    a. ``create_model("midas_v21")`` (ResNeXt101-32x8d-WSL, 256-wide fusion,
+       seeded) on the card against the CPU at 128² within 1e-3 of max |CPU|
+       (float32, TF32 off); on ``midas_transform_v21`` of a seeded 640x480
+       image (3 x 288 x 384); forwards at 384², batch 1, 8, 16 with
+       deterministic and autotuned cuDNN (median, min, max of 5 reps by CUDA
+       events): img/s, GFLOP an image (``model_flops``), share of 67 TFLOP/s,
+       peak memory, a profile window at batch 16;
+    b. the same for ``midas_v21_small`` (EfficientNet-Lite3) at 256², and
+       ``MidasNetSmall`` card against CPU at 64²;
+    c. ``python -m omnidata_tpu_torch.demo_refocus`` as a subprocess on the
+       card over 4 of phase 11's rgb / depth_euclidean pairs (512²): its PNGs
+       within one 8-bit step of the CPU's ``refocus_image`` at the same draws;
+       ``refocus_augmentation`` at 512², batch 1 and 8, 10 and 8 quantiles,
+       beside its FP32 operations' bound. No TPU kernel's counterpart runs in
+       phase 18 (the JAX MiDaS nets, transforms and refocus reach no
+       ``pallas_call``).
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
@@ -186,8 +204,8 @@ log's last lines to stderr.
 Prints the kernel table as one JSON line (per kernel its K = 32 time,
 plain version, bound and work items, its main-path launches; no PyTorch
 call computes these kernels' function, so ``library_ms`` is null; phases
-14-17's numbers under "device_prefixes", "dpt", "train" and
-"eval_multitask_hrnet"), the
+14-18's numbers under "device_prefixes", "dpt", "train",
+"eval_multitask_hrnet", "midas" and "refocus"), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
@@ -829,7 +847,7 @@ def phase_dpt(dev, card: str) -> dict:
                 xb = torch.rand(bs, 3, DPT_RES, DPT_RES, generator=gen).to(dev)
                 with torch.no_grad():
                     net(xb)  # warm-up (and the autotuner's search)
-                    iters = max(2, 32 // bs)
+                    iters = max(2, 8 // bs)
                     per = sorted(cuda_ms(lambda: net(xb), iters)
                                  for _ in range(DPT_REPS))
                 ips = [bs / (ms / 1e3) for ms in per]
@@ -1845,6 +1863,221 @@ def phase_eval_multitask(dev, card: str, bdir: str) -> dict:
     return res
 
 
+# ---- 18. MiDaS v2.1 and the refocus augmentation ----------------------------
+
+MIDAS_CELLS = (("midas_v21", 384), ("midas_v21_small", 256))  # hub names, their sizes
+MIDAS_CHECK_RES = 128
+MIDAS_BATCHES = (1, 8, 16)
+MIDAS_REPS = 5
+MIDAS_TOL = 1e-3  # max |card - CPU| / max |CPU|, float32 without TF32
+REFOCUS_PAIRS = 4
+REFOCUS_RES = 512  # the demo's transforms' size
+REFOCUS_BATCHES = (1, 8)
+REFOCUS_QUANTILES = (10, 8)  # the demo's default, the function's
+REFOCUS_REPS = 5
+REFOCUS_TIMEOUT_S = 300
+
+
+def midas_card_vs_cpu(net, x, dev) -> float:
+    """max |card - CPU| / max |CPU| of net (on the CPU, moved to dev) on x;
+    the outputs must be finite and non-negative."""
+    import torch
+
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(dev)(x.to(dev)).cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or \
+            float(got.min()) < 0:
+        raise AssertionError(f"output {tuple(got.shape)}, min {float(got.min())}")
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def phase_midas(dev, card: str) -> dict:
+    """18a, 18b: midas_v21 at 384² and midas_v21_small at 256² through
+    create_model, seeded: card against CPU at MIDAS_CHECK_RES²; the large
+    net on midas_transform_v21 of a seeded 640x480 image, MidasNetSmall
+    card against CPU at 64²; forwards at batch 1, 8, 16 with deterministic
+    and autotuned cuDNN (float32, TF32 off), by CUDA events."""
+    import numpy as np
+    import torch
+
+    from omnidata_tpu_torch.models import MidasNetSmall, create_model, midas_transform_v21
+    from omnidata_tpu_torch.models.registry import init_weights
+
+    res = {}
+    gen = torch.Generator().manual_seed(0)
+    for name, size in MIDAS_CELLS:
+        base = torch.cuda.memory_allocated(dev)  # earlier phases' tensors
+        cpu = create_model(name, device="cpu")
+        xc = torch.rand(1, 3, MIDAS_CHECK_RES, MIDAS_CHECK_RES, generator=gen)
+        err = midas_card_vs_cpu(cpu, xc, dev)
+        model = cpu
+        log(f"{name} f32 at {MIDAS_CHECK_RES}²: card vs CPU max |diff| / max |CPU| = "
+            f"{err:.3g} (tol {MIDAS_TOL})")
+        if not err <= MIDAS_TOL:
+            raise AssertionError(f"{name}: the card's float32 output differs from the CPU")
+        e = {"check_rel_err": err}
+        if name == "midas_v21":
+            img = np.random.RandomState(0).rand(480, 640, 3).astype(np.float32)
+            xt = torch.from_numpy(midas_transform_v21()({"image": img})["image"])[None]
+            with torch.no_grad():
+                yt = model(xt.to(dev))
+            if tuple(xt.shape) != (1, 3, 288, 384) or tuple(yt.shape) != (1, 288, 384) \
+                    or not bool(torch.isfinite(yt).all()):
+                raise AssertionError(f"transformed 640x480: {tuple(xt.shape)} -> "
+                                     f"{tuple(yt.shape)}")
+            log(f"{name} on midas_transform_v21 of a 640x480 image: input "
+                f"{tuple(xt.shape)}, depth {tuple(yt.shape)}, finite")
+        else:
+            small = MidasNetSmall()
+            init_weights(small, torch.Generator().manual_seed(0))
+            e["midas_net_small_rel_err"] = midas_card_vs_cpu(
+                small.eval(), torch.rand(1, 3, 64, 64, generator=gen), dev)
+            log(f"MidasNetSmall f32 at 64²: card vs CPU {e['midas_net_small_rel_err']:.3g} "
+                f"(tol {MIDAS_TOL})")
+            if not e["midas_net_small_rel_err"] <= MIDAS_TOL:
+                raise AssertionError("MidasNetSmall: the card differs from the CPU")
+            del small
+        fwd = model_flops(model, torch.zeros(1, 3, size, size, device=dev))
+        e["gflop_per_image"] = fwd / 1e9
+        for mode in ("deterministic", "benchmark"):  # phase 1's cuDNN; autotuned
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            torch.backends.cudnn.benchmark = mode == "benchmark"
+            for bs in MIDAS_BATCHES:
+                x = torch.rand(bs, 3, size, size, generator=gen).to(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                iters = max(2, 8 // bs)
+                with torch.no_grad():
+                    y = model(x)  # warm-up (and the autotuner's search)
+                    if tuple(y.shape) != (bs, size, size) or not bool(torch.isfinite(y).all()):
+                        raise AssertionError(f"{name}: output {tuple(y.shape)}")
+                    ms = [cuda_ms(lambda: model(x), iters) for _ in range(MIDAS_REPS)]
+                med = statistics.median(ms)
+                ips = bs / (med / 1e3)
+                t = {"ms_median": med, "ms_min": min(ms), "ms_max": max(ms), "img_s": ips,
+                     "img_s_min": bs / (max(ms) / 1e3), "img_s_max": bs / (min(ms) / 1e3),
+                     "share_of_peak": ips * fwd / PEAK_FLOPS["float32"],
+                     "peak_gib": (torch.cuda.max_memory_allocated(dev) - base) / 2**30}
+                e[f"bs{bs}_{mode}"] = t
+                log(f"{name} f32 at {size}², batch {bs}, cuDNN {mode}: {med:.2f} ms "
+                    f"(min {min(ms):.2f}, max {max(ms):.2f}; {MIDAS_REPS} reps of {iters}) = "
+                    f"{ips:.1f} img/s; {fwd / 1e9:.2f} GFLOP an image = "
+                    f"{t['share_of_peak']:.3f} of 67 TFLOP/s; peak {t['peak_gib']:.2f} GiB "
+                    f"(weights and activations); "
+                    f"card {card}")
+        x = torch.rand(MIDAS_BATCHES[-1], 3, size, size, generator=gen).to(dev)
+        with torch.no_grad():
+            e["profile"] = profile_window(lambda: model(x), 3)
+        r = e["profile"]
+        log(f"{name} profile (batch {MIDAS_BATCHES[-1]}, autotuned, 3 forwards): wall "
+            f"{r['wall_ms']:.2f} ms, kernels {r['kernel_ms']:.2f} ms, idle share "
+            f"{r['idle_share']:.3f}; top kernels (ms a forward, launches): " + "; ".join(
+                f"{k['kernel']} {k['ms']:.2f} x{k['launches']}" for k in r["top"]))
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        res[name] = e
+        del model, cpu, x
+        torch.cuda.empty_cache()
+    return res
+
+
+def refocus_work(n_quantiles: int, res: int, max_cutoff: int = 61) -> tuple:
+    """(FP32 operations, bytes) of one image's refocus: the two blur passes
+    over 3 channels x (n_quantiles + 1) levels (the vertical one on the
+    padded width), a multiply and an add a tap; rgb and depth read once,
+    the image written once."""
+    pad = res + max_cutoff - 1
+    taps = 3 * (n_quantiles + 1) * max_cutoff * (res * pad + res * res)
+    return 2.0 * taps, (3 + 1 + 3) * 4.0 * res * res
+
+
+def phase_refocus(dev, card: str, bdir: str) -> dict:
+    """18c: ``python -m omnidata_tpu_torch.demo_refocus`` on the card over
+    REFOCUS_PAIRS of phase 11's rgb / depth_euclidean pairs: its PNGs
+    against the CPU's refocus_image at the same draws; refocus_augmentation
+    timed at 512², batch 1 and 8."""
+    import numpy as np
+    import torch
+
+    from omnidata_tpu_torch import demo_refocus as dr
+    from omnidata_tpu_torch.augment import (
+        compute_quantiles,
+        refocus_augmentation,
+        refocus_draws,
+        refocus_image,
+    )
+
+    rdir = CLI_DIR / "refocus"
+    inp, out = rdir / "in", rdir / "out"
+    inp.mkdir(parents=True)
+    rgbs = sorted(Path(bdir, "rgb").glob("*.png"))[:REFOCUS_PAIRS]
+    for f in rgbs:
+        shutil.copy(f, inp)
+        shutil.copy(Path(bdir, "depth_euclidean", f.name.replace("rgb", "depth_euclidean")), inp)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "omnidata_tpu_torch.demo_refocus", "--input_path", str(inp),
+         "--output_path", str(out), "--seed", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=REFOCUS_TIMEOUT_S)
+    s_demo = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-4000:], file=sys.stderr)
+        raise AssertionError(f"demo_refocus exited {proc.returncode}")
+    gen = torch.Generator().manual_seed(0)
+    pairs, steps, exact, off, off_no_tf32 = [], [], 0, [], []
+    for f in sorted(inp.glob("*rgb*.png")):
+        rgb, depth = dr.load_pair(str(f), str(inp / f.name.replace("rgb", "depth_euclidean")))
+        f_idx, aperture = refocus_draws(1, gen, 10, 0.001, 6.0)
+        args = [torch.from_numpy(rgb), torch.from_numpy(depth)]
+        qv = compute_quantiles(args[1], 10)
+        args += [torch.gather(qv, 1, f_idx), aperture, qv]
+        want = dr.to_png_u8(refocus_image(*args)[0])
+        got = load_output(str(out / f"{f.stem}_refocused.png"))
+        diff = np.abs(got.astype(np.int64) - want)
+        step = int(diff.max())
+        steps.append(step)
+        off.append(float((diff > 0).mean()))
+        # the same on the card in this process (TF32 off)
+        here = dr.to_png_u8(refocus_image(*(a.to(dev) for a in args))[0])
+        off_no_tf32.append(float((here != want).mean()))
+        exact += int(step == 0)
+        pairs.append((rgb, depth))
+    log(f"demo_refocus (python -m omnidata_tpu_torch.demo_refocus, {len(pairs)} pairs at "
+        f"{REFOCUS_RES}², card): {s_demo:.1f} s; PNGs against the CPU's refocus_image at "
+        f"the same draws: max step {max(steps)}, {exact} of {len(steps)} equal, "
+        f"{max(off):.2e} of a PNG's values off at most (the subprocess runs torch's "
+        f"defaults); on the card in this process, TF32 off, {max(off_no_tf32):.2e}")
+    if len(pairs) != REFOCUS_PAIRS or max(steps) > 1:
+        raise AssertionError(f"demo_refocus: {len(pairs)} pairs, steps {steps}")
+    rgb = torch.from_numpy(np.concatenate([p[0] for p in pairs]))
+    depth = torch.from_numpy(np.concatenate([p[1] for p in pairs]))
+    res = {"demo_s": s_demo, "png_max_step": max(steps), "png_equal": exact,
+           "png_share_off": max(off), "png_share_off_tf32_off": max(off_no_tf32)}
+    for nq in REFOCUS_QUANTILES:
+        ops, nbytes = refocus_work(nq, REFOCUS_RES)
+        for bs in REFOCUS_BATCHES:
+            reps = -(-bs // len(pairs))
+            r = torch.cat([rgb] * reps)[:bs].to(dev)
+            d = torch.cat([depth] * reps)[:bs].to(dev)
+            g = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                refocus_augmentation(r, d, g, n_quantiles=nq)  # warm-up
+                ms = [cuda_ms(lambda: refocus_augmentation(r, d, g, n_quantiles=nq), 4)
+                      for _ in range(REFOCUS_REPS)]
+            med = statistics.median(ms)
+            bound = bs * max(ops / PEAK_FLOPS["float32"], nbytes / 3.35e12) * 1e3
+            res[f"q{nq}_bs{bs}"] = {
+                "ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
+                "img_s": bs / (med / 1e3), "gflop_per_image": ops / 1e9,
+                "bound_ms": bound, "share_of_bound": bound / med}
+            log(f"refocus_augmentation {REFOCUS_RES}², {nq} quantiles, batch {bs}: "
+                f"{med:.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}; {REFOCUS_REPS} reps "
+                f"of 4) = {bs / (med / 1e3):.1f} img/s; {ops / 1e9:.2f} GFLOP an image, "
+                f"bound {bound:.4f} ms (operations) = {bound / med:.4f}; card {card}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2444,6 +2677,12 @@ def main() -> int:
     # 17. evaluation, multi-task training and HRNet ---------------------------
     eval_mt = phase_eval_multitask(dev, card, bdir)
 
+    # 18. MiDaS v2.1 and the refocus augmentation ----------------------------
+    t0 = time.perf_counter()
+    midas = phase_midas(dev, card)
+    refocus = phase_refocus(dev, card, bdir)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -2511,7 +2750,8 @@ def main() -> int:
         "cli_bench_all_s": s_cli_bench, "cli_large": cli_large,
         "pano_s": pano_s, "pano_tests_per_s": pano_rate,
         "device_prefixes": prefixes, "dpt": dpt, "train": train,
-        "eval_multitask_hrnet": eval_mt, "card": card}
+        "eval_multitask_hrnet": eval_mt, "midas": midas, "refocus": refocus,
+        "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(card)

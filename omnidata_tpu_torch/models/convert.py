@@ -2,11 +2,16 @@
 into them.
 
 The published omnidata checkpoints (omnidata_dpt_{depth,normal}_v2.ckpt,
-omnidata_unet_normal_v1.pth) hold timm-0.4.x / reference-module state
-dicts, which the port's modules reproduce key for key (``dpt.DPTHybrid``,
-``unet.UNet``). Each mapping below yields (flax_path, torch_key, kind)
-triples, the port's copy of the JAX package's ``models/convert.py``
-``_dpt_mapping`` and ``_unet_mapping``: flax_path is a '/'-joined path into
+omnidata_unet_normal_v1.pth) and MiDaS v2.1's (midas_v21-f6b98070.pt,
+midas_v21_small-70d6b9c8.pt) hold timm-0.4.x / torchvision / geffnet /
+reference-module state dicts, which the port's modules reproduce key for
+key (``dpt.DPTHybrid``, ``unet.UNet``, ``midas_full.MidasNet``,
+``midas_full.MidasNetSmallTF``). Each mapping below yields (flax_path,
+torch_key, kind) triples, the port's copy of the JAX package's
+``models/convert.py`` ``_dpt_mapping``, ``_unet_mapping``,
+``_midas_mapping`` and ``_midas_small_mapping`` (``_midas_net_small_mapping``
+is the port's own, for ``midas_net.MidasNetSmall``, which has no published
+checkpoint): flax_path is a '/'-joined path into
 the Flax parameter tree (None for tensors the forward pass never uses);
 kind is 'conv' | 'conv_nobias' | 'linear' | 'norm' | 'ln' | 'raw', or a
 '*_drop' kind for those unused tensors.
@@ -112,6 +117,146 @@ def _unet_mapping(downsample: int = 6) -> Iterator[tuple]:
     yield ("last_conv1", "last_conv1", "conv")
     yield ("last_bn", "last_bn", "norm")
     yield ("last_conv2", "last_conv2", "conv")
+
+
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}/{name}" if prefix else name
+
+
+def _bottleneck_mapping(fb: str, tb: str, downsample: bool) -> Iterator[tuple]:
+    """One ResNeXtBottleneck: Flax path prefix fb ('' at the root), torch
+    key prefix tb ('' at the root)."""
+    t = (lambda name: f"{tb}.{name}") if tb else (lambda name: name)
+    for i in (1, 2, 3):
+        yield _join(fb, f"conv{i}"), t(f"conv{i}"), "conv_nobias"
+        yield _join(fb, f"bn{i}"), t(f"bn{i}"), "bn"
+    if downsample:
+        yield _join(fb, "downsample_conv"), t("downsample.0"), "conv_nobias"
+        yield _join(fb, "downsample_bn"), t("downsample.1"), "bn"
+
+
+def _mbconv_mapping(fb: str, tb: str, expand: int) -> Iterator[tuple]:
+    """One MBConvLite: geffnet's DepthwiseSeparableConv names for expand 1
+    (conv_dw/bn1/conv_pw/bn2; its project conv is named conv_pw there), its
+    InvertedResidual names otherwise (conv_pw/bn1/conv_dw/bn2/conv_pwl/bn3)."""
+    t = (lambda name: f"{tb}.{name}") if tb else (lambda name: name)
+    if expand == 1:
+        yield _join(fb, "conv_dw"), t("conv_dw"), "conv_nobias"
+        yield _join(fb, "bn2"), t("bn1"), "bn"
+        yield _join(fb, "conv_pwl"), t("conv_pw"), "conv_nobias"
+        yield _join(fb, "bn3"), t("bn2"), "bn"
+        return
+    yield _join(fb, "conv_pw"), t("conv_pw"), "conv_nobias"
+    yield _join(fb, "bn1"), t("bn1"), "bn"
+    yield _join(fb, "conv_dw"), t("conv_dw"), "conv_nobias"
+    yield _join(fb, "bn2"), t("bn2"), "bn"
+    yield _join(fb, "conv_pwl"), t("conv_pwl"), "conv_nobias"
+    yield _join(fb, "bn3"), t("bn3"), "bn"
+
+
+def _midas_mapping(layers=(3, 4, 23, 3)) -> Iterator[tuple]:
+    """MiDaS v2.1 large (MidasNet: ResNeXt101-WSL + plain fusion decoder).
+    Stage 1 is Sequential(conv1, bn1, relu, maxpool, resnet.layer1), so its
+    keys are pretrained.layer1.{0,1,4.b}; stages 2-4 are
+    pretrained.layer{2,3,4}.b."""
+    yield "pretrained/conv1", "pretrained.layer1.0", "conv_nobias"
+    yield "pretrained/bn1", "pretrained.layer1.1", "bn"
+    for si, n_blocks in enumerate(layers):
+        tstage = "pretrained.layer1.4" if si == 0 else f"pretrained.layer{si + 1}"
+        for b in range(n_blocks):
+            yield from _bottleneck_mapping(f"pretrained/layer{si + 1}_block{b}",
+                                           f"{tstage}.{b}", b == 0)
+    for i in (1, 2, 3, 4):
+        yield f"layer{i}_rn", f"scratch.layer{i}_rn", "conv_nobias"
+        for u in (1, 2):
+            for c in (1, 2):
+                if i == 4 and u == 1:
+                    # refinenet4 gets no skip input: its resConfUnit1 is in
+                    # the published checkpoint but never run
+                    yield (None, f"scratch.refinenet4.resConfUnit1.conv{c}",
+                           ("conv_drop", (256, 256, 3, 3)))
+                else:
+                    yield (f"refinenet{i}/resConfUnit{u}/conv{c}",
+                           f"scratch.refinenet{i}.resConfUnit{u}.conv{c}", "conv")
+    yield "output_conv1", "scratch.output_conv.0", "conv"
+    yield "output_conv2", "scratch.output_conv.2", "conv"
+    yield "output_conv3", "scratch.output_conv.4", "conv"
+
+
+# tf_efficientnet_lite3 stage repeats (lite: first/last not depth-scaled)
+_LITE3_REPEATS = (1, 3, 3, 5, 5, 6, 1)
+
+# stage index -> torch Sequential prefix inside _make_efficientnet_backbone
+# (blocks.py:88-98: layer1 = Sequential(conv_stem, bn1, act1, blocks[0],
+# blocks[1]) so stages 0/1 sit at indices 3/4; later layers wrap the stage
+# Sequentials directly)
+_LITE3_STAGE_PREFIX = {
+    0: "pretrained.layer1.3",
+    1: "pretrained.layer1.4",
+    2: "pretrained.layer2.0",
+    3: "pretrained.layer3.0",
+    4: "pretrained.layer3.1",
+    5: "pretrained.layer4.0",
+    6: "pretrained.layer4.1",
+}
+
+
+def _midas_small_mapping() -> Iterator[tuple]:
+    """MiDaS v2.1 small (midas_net_custom.py MidasNet_small,
+    tf_efficientnet_lite3 in geffnet's layout): stage 0's blocks are
+    DepthwiseSeparableConvs, the rest InvertedResiduals (``_mbconv_mapping``);
+    the custom fusion blocks' RCU convs are ``resConfUnit{u}_conv{c}`` in
+    Flax, ``resConfUnit{u}.conv{c}`` in torch."""
+    yield "pretrained/conv_stem", "pretrained.layer1.0", "conv_nobias"
+    yield "pretrained/bn1", "pretrained.layer1.1", "bn"
+    for si, reps in enumerate(_LITE3_REPEATS):
+        for bi in range(reps):
+            yield from _mbconv_mapping(f"pretrained/blocks_{si}_{bi}",
+                                       f"{_LITE3_STAGE_PREFIX[si]}.{bi}",
+                                       1 if si == 0 else 6)
+    feats = {1: 64, 2: 128, 3: 256, 4: 512}
+    for i in (1, 2, 3, 4):
+        yield f"layer{i}_rn", f"scratch.layer{i}_rn", "conv_nobias"
+        for u in (1, 2):
+            for c in (1, 2):
+                if i == 4 and u == 1:
+                    yield (None, f"scratch.refinenet4.resConfUnit1.conv{c}",
+                           ("conv_drop", (feats[4], feats[4], 3, 3)))
+                else:
+                    yield (f"refinenet{i}/resConfUnit{u}_conv{c}",
+                           f"scratch.refinenet{i}.resConfUnit{u}.conv{c}", "conv")
+        yield f"refinenet{i}/out_conv", f"scratch.refinenet{i}.out_conv", "conv"
+    yield "output_conv1", "scratch.output_conv.0", "conv"
+    yield "output_conv2", "scratch.output_conv.2", "conv"
+    yield "output_conv3", "scratch.output_conv.4", "conv"
+
+
+def _midas_net_small_mapping(n_levels: int = 4, features: int = 64) -> Iterator[tuple]:
+    """The port's ``midas_net.MidasNetSmall`` from the JAX package's Flax
+    module of the same names (no published checkpoint exists); the last
+    fusion block's lateral unit, which Flax never creates, comes out as
+    zeros."""
+    yield "stem", "stem", "conv_nobias"
+    yield "stem_gn", "stem_gn", "norm"
+    for i in range(n_levels):
+        for blk in (f"ir{i}a", f"ir{i}b"):
+            for name in ("pw1", "dw", "pw2"):
+                yield f"{blk}/{name}", f"{blk}.{name}", "conv_nobias"
+            for name in ("gn1", "gn2", "gn3"):
+                yield f"{blk}/{name}", f"{blk}.{name}", "norm"
+        yield f"layer{i + 1}_rn", f"layer{i + 1}_rn", "conv_nobias"
+        fb, tb = f"refinenet{i + 1}", f"refinenet{i + 1}"
+        for j in (1, 2):
+            for c in (1, 2):
+                if i + 1 == n_levels and j == 1:  # no lateral input: never run
+                    yield (None, f"{tb}.resConfUnit1.conv{c}",
+                           ("conv_drop", (features, features, 3, 3)))
+                else:
+                    yield (f"{fb}/rcu{j}/conv{c}", f"{tb}.resConfUnit{j}.conv{c}",
+                           "conv")
+        yield f"{fb}/out_conv", f"{tb}.out_conv", "conv"
+    for i in (1, 2, 3):
+        yield f"head_conv{i}", f"head_conv{i}", "conv"
 
 
 def strip_prefix(state_dict: dict) -> dict:

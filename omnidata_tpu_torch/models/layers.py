@@ -118,15 +118,16 @@ class StdConv(nn.Conv2d):
 
 
 class SameConv(nn.Conv2d):
-    """Flax ``nn.Conv(padding="SAME")``: an odd square kernel, TF padding."""
+    """Flax ``nn.Conv(padding="SAME")``: an odd square kernel, TF padding;
+    ``groups`` is Flax's ``feature_group_count``."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1,
-                 bias: bool = True):
-        super().__init__(in_ch, out_ch, k, stride=stride, bias=bias)
+                 bias: bool = True, groups: int = 1):
+        super().__init__(in_ch, out_ch, k, stride=stride, bias=bias, groups=groups)
 
     def forward(self, x):
         return F.conv2d(same_pad(x, self.kernel_size[0], self.stride[0]),
-                        self.weight, self.bias, self.stride)
+                        self.weight, self.bias, self.stride, groups=self.groups)
 
 
 class GroupNorm32(nn.GroupNorm):

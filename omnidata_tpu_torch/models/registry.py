@@ -1,13 +1,15 @@
 """Model registry: the hub names of the reference (omnidata_tools/torch/
 README.md:23-29: dpt_hybrid_384, depth_dpt_hybrid_384,
-surface_normal_dpt_hybrid_384, surface_normal_unet) and the segmentation
+surface_normal_dpt_hybrid_384, surface_normal_unet), MiDaS v2.1
+(midas_v21, midas_v21_small; the MiDaS hub entries) and the segmentation
 HRNets (hrnet_w18, hrnet_w32, hrnet_w48; paper_code/models/seg_hrnet.py),
 the counterpart of the JAX package's ``models/registry.py``.
 
-Each entry returns a ``Predictor``: an ``nn.Module`` in eval mode that
-takes an NCHW float32 batch and returns the reference's output convention
-in float32 — depth (B, H, W) with the channel squeezed, normals
-(B, 3, H, W). Weights come from a published torch checkpoint
+Each entry returns a ``Predictor``: an ``nn.Module`` in eval mode (so
+BatchNorm runs on its running statistics) that takes an NCHW float32 batch
+and returns the reference's output convention in float32 — depth (B, H, W)
+with the channel squeezed, normals (B, 3, H, W). Weights come from a
+published torch checkpoint
 (``torch.load`` -> ``convert.strip_prefix`` -> ``load_state_dict(strict=
 True)``), from a checkpoint directory the port's trainers wrote, or,
 without one, from a seeded ``torch.Generator`` (Flax's
@@ -32,6 +34,7 @@ from torch import nn
 from .convert import strip_prefix
 from .dpt import DPTHybrid
 from .hrnet import HRNet
+from .midas_full import MidasNet, MidasNetSmallTF
 from .unet import UNet
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -145,11 +148,40 @@ def hrnet(variant: str = "w18", out_channels: int = 21, checkpoint: str | None =
                   checkpoint, dtype, device, generator)
 
 
+def _midas(net: nn.Module, checkpoint, image_size: int, dtype: str, device,
+           generator) -> Predictor:
+    """The MiDaS entries: float32 only, as the JAX package's (which take no
+    dtype); ``image_size`` is the JAX entries' init shape, kept for their
+    signature (the weights do not depend on it)."""
+    if dtype != "float32":
+        raise ValueError(f"dtype {dtype!r}: the MiDaS models run in float32 only")
+    del image_size
+    return _build(net, False, checkpoint, "float32", device, generator)
+
+
+def midas_v21(checkpoint: str | None = None, image_size: int = 384,
+              dtype: str = "float32", device: torch.device | str = "cuda",
+              generator: torch.Generator | None = None) -> Predictor:
+    """MiDaS v2.1 large (ResNeXt101-32x8d-WSL + plain fusion), output (B, H,
+    W); loads midas_v21-f6b98070.pt as it is."""
+    return _midas(MidasNet(), checkpoint, image_size, dtype, device, generator)
+
+
+def midas_v21_small(checkpoint: str | None = None, image_size: int = 256,
+                    dtype: str = "float32", device: torch.device | str = "cuda",
+                    generator: torch.Generator | None = None) -> Predictor:
+    """MiDaS v2.1 small (tf_efficientnet_lite3 + custom expanding fusion),
+    output (B, H, W); loads midas_v21_small-70d6b9c8.pt as it is."""
+    return _midas(MidasNetSmallTF(), checkpoint, image_size, dtype, device, generator)
+
+
 MODELS = {
     "dpt_hybrid_384": dpt_hybrid_384,
     "hrnet_w18": lambda **kw: hrnet("w18", **kw),
     "hrnet_w32": lambda **kw: hrnet("w32", **kw),
     "hrnet_w48": lambda **kw: hrnet("w48", **kw),
+    "midas_v21": midas_v21,
+    "midas_v21_small": midas_v21_small,
     "depth_dpt_hybrid_384": depth_dpt_hybrid_384,
     "surface_normal_dpt_hybrid_384": surface_normal_dpt_hybrid_384,
     "surface_normal_unet": surface_normal_unet,

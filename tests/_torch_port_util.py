@@ -151,10 +151,10 @@ def assert_same_tree(got, want, path="root"):
         assert type(got) is type(want) and got == want, (path, got, want)
 
 
-def jax_mini_scene(d: str) -> str:
+def jax_mini_scene(d: str, tasks=("rgb", "normal", "depth_zbuffer", "mask_valid")) -> str:
     """Annotate the room + cube scene of tests/test_train.py:25 with the JAX
-    CLI into d (8 views at 64²: rgb, normal, depth_zbuffer, mask_valid,
-    point_info) and return d."""
+    CLI into d (8 views at 64²: point_info and each of tasks) and return
+    d."""
     import os
 
     import omnidata_tpu.annotator.cli as cli
@@ -179,7 +179,7 @@ def jax_mini_scene(d: str) -> str:
     cli.main(["--model_path", d, "--task", "points", "with", "NUM_POINTS=2",
               "RESOLUTION=64", "MIN_CAMERA_SPACING=2.0", "MAX_VIEWS_PER_POINT=4",
               "MIN_NONFIXATED_AFTER_PRUNE=0"])
-    for task in ("rgb", "normal", "depth_zbuffer", "mask_valid"):
+    for task in tasks:
         cli.main(["--model_path", d, "--task", task, "with", "RESOLUTION=64",
                   "RASTER_TILE=32", "RASTER_CAP=256", "RASTER_CHUNK=64"])
     return d

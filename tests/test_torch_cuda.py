@@ -10,7 +10,8 @@ cues' device prefixes, DPT's forward, and one training step each of DPT
 (depth, both sides of the schedule switch) and the UNet (normals); the
 evaluation metrics, normal TTA, one forward of each multi-task
 architecture and of HRNet-W18, and one multi-task step with its per-task
-gradient norms.
+gradient norms; each MiDaS net's forward (also midas_v21 on a transformed
+640x480 image) and the refocus augmentation.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports no JAX, so on a machine with a card
@@ -574,3 +575,62 @@ def test_multitask_step_on_the_card_matches_the_cpu(card, arch):
     for n in st_c.names:
         p0, p1 = named_c[n].detach(), named_g[n].detach().cpu()
         assert bool(((p1 - p0).abs() <= 0.1 * 1e-4 + 2**-22 * p0.abs()).all()), n
+
+
+@pytest.mark.parametrize("name,hw", [("midas_v21", (128, 128)), ("midas_v21_small", (128, 160)),
+                                     ("midas_net_small", (64, 64))])
+def test_midas_forward_on_the_card_matches_the_cpu(card, name, hw):
+    """Seeded weights at the published widths, float32 with TF32 off: max
+    |card - CPU| <= 1e-3 x max |CPU|; (B, H, W) depth, non-negative."""
+    from omnidata_tpu_torch.models import MidasNetSmall, create_model
+    from omnidata_tpu_torch.models.registry import init_weights
+
+    if name == "midas_net_small":
+        net = MidasNetSmall()
+        init_weights(net, torch.Generator().manual_seed(0))
+        net.eval()
+    else:
+        net = create_model(name, device="cpu")
+    x = torch.from_numpy(np.random.RandomState(8).rand(2, 3, *hw).astype(np.float32))
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(card)(x.to(card)).cpu()
+    assert got.shape == want.shape and float(got.min()) >= 0
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_midas_v21_on_a_transformed_photo_on_the_card(card):
+    """midas_transform_v21 of a seeded 640x480 image (3 x 288 x 384), then
+    midas_v21 on the card against the CPU."""
+    from omnidata_tpu_torch.models import create_model, midas_transform_v21
+
+    img = np.random.RandomState(9).rand(480, 640, 3).astype(np.float32)
+    x = torch.from_numpy(midas_transform_v21()({"image": img})["image"])[None]
+    assert x.shape == (1, 3, 288, 384)
+    net = create_model("midas_v21", device="cpu")
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(card)(x.to(card)).cpu()
+    assert got.shape == (1, 288, 384) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_refocus_on_the_card_matches_the_cpu(card):
+    """refocus_image and refocus_augmentation (draws from a CPU generator of
+    the same seed) at 128², 10 quantiles, on the card within 1e-5 of the
+    CPU."""
+    from omnidata_tpu_torch.augment import compute_quantiles, refocus_augmentation, refocus_image
+
+    rng = np.random.RandomState(10)
+    rgb = torch.from_numpy(rng.rand(2, 3, 128, 128).astype(np.float32))
+    depth = torch.from_numpy((0.5 + 7 * rng.rand(2, 1, 128, 128)).astype(np.float32))
+    qv = compute_quantiles(depth, 10)
+    assert torch.allclose(compute_quantiles(depth.to(card), 10).cpu(), qv, rtol=1e-6, atol=0)
+    focus, aperture = qv[:, 4:5], torch.tensor([[0.3], [5.0]])
+    want = refocus_image(rgb, depth, focus, aperture, qv)
+    got = refocus_image(*(t.to(card) for t in (rgb, depth, focus, aperture, qv))).cpu()
+    assert float((got - want).abs().max()) <= 1e-5
+    want = refocus_augmentation(rgb, depth, torch.Generator().manual_seed(1), n_quantiles=10)
+    got = refocus_augmentation(rgb.to(card), depth.to(card), torch.Generator().manual_seed(1),
+                               n_quantiles=10).cpu()
+    assert float((got - want).abs().max()) <= 1e-5

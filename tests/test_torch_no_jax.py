@@ -58,9 +58,15 @@ EVAL_MULTITASK_MODULES = (
     "omnidata_tpu_torch.data.external_eval")
 
 
-def test_eval_and_multitask_modules_import_with_jax_blocked():
-    """Imported in a fresh interpreter where importing jax, flax, optax,
-    omnidata_tpu, PIL or yaml fails."""
+MIDAS_REFOCUS_MODULES = (
+    "omnidata_tpu_torch.models.midas_full", "omnidata_tpu_torch.models.midas_net",
+    "omnidata_tpu_torch.models.midas_transforms", "omnidata_tpu_torch.augment.refocus",
+    "omnidata_tpu_torch.demo_refocus")
+
+
+def _import_with_jax_blocked(modules) -> None:
+    """Import modules in a fresh interpreter where importing jax, flax,
+    optax, omnidata_tpu, PIL, yaml or h5py fails."""
     import subprocess
     import sys
 
@@ -68,9 +74,17 @@ def test_eval_and_multitask_modules_import_with_jax_blocked():
             "for m in ('jax', 'flax', 'optax', 'omnidata_tpu', 'PIL', 'yaml', 'h5py'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
-            f"for m in {EVAL_MULTITASK_MODULES!r}:\n"
+            f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_eval_and_multitask_modules_import_with_jax_blocked():
+    _import_with_jax_blocked(EVAL_MULTITASK_MODULES)
+
+
+def test_midas_and_refocus_modules_import_with_jax_blocked():
+    _import_with_jax_blocked(MIDAS_REFOCUS_MODULES)
