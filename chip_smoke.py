@@ -18,8 +18,10 @@ through ``models.create_model``, ``python -m omnidata_tpu_torch.demo`` and
 UNet normal trainers (``python -m omnidata_tpu_torch.train_depth`` /
 ``train_normal``) on the labels the CLI wrote; then evaluation of what
 they trained (``eval_depth``, ``eval_normal``), the multi-task trainer
-(``train_multitask``) and HRNet at its published widths. Phases, each of
-which fails the run on error:
+(``train_multitask``) and HRNet at its published widths. And the per-view
+annotator (``annotate_view``, kernel A once a view), the sharded annotator,
+the packed sample cache and the trajectory video. Phases, each of which
+fails the run on error:
 
 1. set-up: the card's name and power limit; float32 matmuls and
    convolutions without TF32; build the CUDA kernels from csrc/ with nvcc,
@@ -197,6 +199,27 @@ which fails the run on error:
        beside its FP32 operations' bound. No TPU kernel's counterpart runs in
        phase 18 (the JAX MiDaS nets, transforms and refocus reach no
        ``pallas_call``).
+19. the per-view path, sharded annotation, the packed cache and the video:
+    a. ``annotator.annotate_view`` on 4 bench views at 512², tile 32: kernel
+       A launched once a view (count reset just before, read just after:
+       4); labels within the integer rule of ``annotate_views`` on the same
+       views; ``render_view`` (plain torch on the card, at the CLI's cap
+       from ``tile_candidate_counts``) against kernel A's render
+       (``render_view_fused``): valid and faces equal, t within 1e-4, and
+       its labels within the integer rule; per-view viewpoints/s of both
+       routes by CUDA events (median of 5), beside phase 5's batched rate;
+    b. ``annotate_views_sharded`` over ``make_annotate_mesh()`` (every card
+       of the machine) on 8 bench views: every label equal to
+       ``annotate_views``' bit for bit;
+    c. ``PackedDataset`` on phase 11's labels (rgb, normal, depth_zbuffer,
+       mask_valid): every item equal to the direct dataset's for equal
+       seeds; the loader's samples/s from PNGs and packed, with 1 and 8
+       threads; ``train_depth`` with ``packed_cache`` for 3 steps as a
+       subprocess (finite losses, train and val packs built); ``make_video``
+       on phase 11's rgb frames (mp4 through ffmpeg when present, else the
+       port's GIF), its kind, size and seconds.
+    Hypersim and the downloader are not driven on the card: its machine has
+    no h5py (hypersim's keyframes and labels are HDF5) and no network.
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
@@ -204,8 +227,8 @@ log's last lines to stderr.
 Prints the kernel table as one JSON line (per kernel its K = 32 time,
 plain version, bound and work items, its main-path launches; no PyTorch
 call computes these kernels' function, so ``library_ms`` is null; phases
-14-18's numbers under "device_prefixes", "dpt", "train",
-"eval_multitask_hrnet", "midas" and "refocus"), the
+14-19's numbers under "device_prefixes", "dpt", "train",
+"eval_multitask_hrnet", "midas", "refocus" and "phase19"), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
@@ -1310,6 +1333,7 @@ def profile_window(run, reps: int, top: int = 6) -> dict:
     kern = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:top]
     return {"wall_ms": wall_ms / reps, "kernel_ms": busy_ms / reps,
             "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "launches": sum(e.count for e in events) // reps,
             "top": [{"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3 / reps,
                      "launches": e.count // reps} for e in kern]}
 
@@ -2078,6 +2102,214 @@ def phase_refocus(dev, card: str, bdir: str) -> dict:
     return res
 
 
+PER_VIEW_VIEWS = 4  # 19a: bench views through annotate_view
+SHARDED_VIEWS = 8  # 19b
+PACKED_TASKS = ("rgb", "normal", "depth_zbuffer", "mask_valid")
+LOADER_BATCHES = 4  # 19c: batches of 8 timed per loader (tools/loader_rate.py)
+PACKED_TRAIN_STEPS = 3
+
+
+def int_label_rule(got, want) -> tuple:
+    """tests/test_mesh.py:366-375's rule for integer labels: max |diff| <= 1
+    on < 2% of pixels, or <= 32 on < 0.1% -> (ok, max diff, share)."""
+    import numpy as np
+
+    diff = np.abs(np.asarray(got, np.int64) - np.asarray(want, np.int64))
+    share = float((diff > 0).mean())
+    dmax = int(diff.max()) if diff.size else 0
+    return (dmax <= 1 and share < 0.02) or (dmax <= 32 and share < 1e-3), dmax, share
+
+
+def phase_per_view(card: str, mesh, curv, cams, batched_vps: float) -> dict:
+    """19a: ``annotate_view`` on the bench scene, one view at a time."""
+    import torch
+
+    from omnidata_tpu_torch.annotator import annotate_view, annotate_views
+    from omnidata_tpu_torch.annotator.cli import view_cap
+    from omnidata_tpu_torch.annotator.settings import load_settings
+    from omnidata_tpu_torch.core.cameras import Camera
+    from omnidata_tpu_torch.mesh import raster as raster_mod
+    from omnidata_tpu_torch.mesh import raster_kernels as rk
+
+    views = [Camera(cams.location[k], cams.R[k], cams.fov[k], RES)
+             for k in range(PER_VIEW_VIEWS)]
+    kw = dict(tile=TILE, chunk=CHUNK)
+    rk.raster_tiles_chunklist.launches = 0
+    outs = [annotate_view(c, mesh, curv, **kw) for c in views]
+    torch.cuda.synchronize()
+    launches = rk.raster_tiles_chunklist.launches
+    log(f"19a annotate_view on {PER_VIEW_VIEWS} bench views: kernel A launches "
+        f"{launches}; card {card}")
+    if launches != PER_VIEW_VIEWS:
+        raise AssertionError(f"annotate_view launched kernel A {launches} times "
+                             f"for {PER_VIEW_VIEWS} views")
+    batched = annotate_views(cams, mesh, curv, **kw)
+    worst = {}
+    for k, out in enumerate(outs):
+        if set(out) != set(batched):
+            raise AssertionError(f"annotate_view labels {sorted(out)}")
+        for name, v in out.items():
+            ok, dmax, share = int_label_rule(v.cpu().numpy(), batched[name][k].cpu().numpy())
+            if not ok:
+                raise AssertionError(f"view {k} {name}: max diff {dmax} on {share:.5f}")
+            worst[name] = max(worst.get(name, (0, 0.0)), (dmax, share))
+    log(f"19a annotate_view vs annotate_views: every label within the integer "
+        f"rule; worst (max diff, share) {worst}; card {card}")
+
+    settings = load_settings([f"RASTER_TILE={TILE}", f"RASTER_CHUNK={CHUNK}"])
+    caps = [view_cap(c, mesh, settings) for c in views]
+    t_err, n_valid = 0.0, 0
+    for c, cap in zip(views, caps):
+        got = raster_mod.render_view(c, mesh, TILE, cap, CHUNK)
+        want = raster_mod.render_view_fused(c, mesh, TILE, CHUNK)
+        if not (torch.equal(got.valid, want.valid) and torch.equal(got.face, want.face)):
+            raise AssertionError("render_view and kernel A's render differ in "
+                                 "valid pixels or faces")
+        m = want.valid
+        t_err = max(t_err, float((got.t[m] - want.t[m]).abs().max()))
+        n_valid += int(m.sum())
+    if t_err > 1e-4:
+        raise AssertionError(f"render_view t differs from kernel A's by {t_err}")
+    plain_outs = [annotate_view(c, mesh, curv, cap=cap, use_pallas=False, **kw)
+                  for c, cap in zip(views, caps)]
+    for k, (a, b) in enumerate(zip(plain_outs, outs)):
+        for name in b:
+            ok, dmax, share = int_label_rule(a[name].cpu().numpy(), b[name].cpu().numpy())
+            if not ok:
+                raise AssertionError(f"plain route view {k} {name}: {dmax} on {share}")
+    log(f"19a render_view (plain torch on the card, caps {caps} from "
+        f"tile_candidate_counts) vs kernel A's render: valid and faces equal, "
+        f"t within {t_err:.3g} on {n_valid} valid pixels; its labels within the "
+        f"integer rule of the kernel route's; card {card}")
+
+    def run(route):
+        return lambda: [annotate_view(c, mesh, curv, cap=cap, **route, **kw)
+                        for c, cap in zip(views, caps)]
+
+    reps = {name: sorted(cuda_ms(run(route), 1) for _ in range(TIMED_REPS))
+            for name, route in (("kernel", {}), ("render_view", dict(use_pallas=False)))}
+    ms_probe = cuda_ms(lambda: [view_cap(c, mesh, settings) for c in views], 1)
+    vps = {name: PER_VIEW_VIEWS / (statistics.median(r) / 1e3) for name, r in reps.items()}
+    log(f"19a per-view viewpoints/s on the bench scene ({PER_VIEW_VIEWS} views, "
+        f"median of {TIMED_REPS}): kernel A route {vps['kernel']:.2f} (reps "
+        f"{[round(PER_VIEW_VIEWS / r * 1e3, 2) for r in reps['kernel']]}), "
+        f"render_view route {vps['render_view']:.2f} (reps "
+        f"{[round(PER_VIEW_VIEWS / r * 1e3, 2) for r in reps['render_view']]}); "
+        f"the cap probe {ms_probe / PER_VIEW_VIEWS:.3f} ms a view; batched "
+        f"annotate_views K={K_MAIN} {batched_vps:.2f} (phase 5); card {card}")
+    prof = {name: profile_window(run(route), 1, top=4)
+            for name, route in (("kernel", {}), ("render_view", dict(use_pallas=False)))}
+    for name, p in prof.items():
+        log(f"19a profile, {name} route, {PER_VIEW_VIEWS} views: "
+            f"{p['wall_ms'] / PER_VIEW_VIEWS:.2f} ms a view, kernels "
+            f"{p['kernel_ms'] / PER_VIEW_VIEWS:.2f} ms, {p['launches'] // PER_VIEW_VIEWS} "
+            f"launches a view, idle {p['idle_share']:.3f}; top "
+            f"{[(t['kernel'], round(t['ms'], 3)) for t in p['top']]}; card {card}")
+    return {"launches": launches, "label_worst": worst, "caps": caps, "profile": prof,
+            "render_view_t_err": t_err, "vps_kernel": vps["kernel"],
+            "vps_render_view": vps["render_view"], "ms_reps": reps,
+            "ms_probe_per_view": ms_probe / PER_VIEW_VIEWS,
+            "vps_batched_phase5": batched_vps}
+
+
+def phase_sharded(card: str, mesh, curv, cams) -> dict:
+    """19b: ``annotate_views_sharded`` over ``make_annotate_mesh()``."""
+    import torch
+
+    from omnidata_tpu_torch.annotator import (
+        annotate_views,
+        annotate_views_sharded,
+        make_annotate_mesh,
+    )
+
+    devices = make_annotate_mesh()
+    t0 = time.perf_counter()
+    got = annotate_views_sharded(cams, mesh, curv, device_mesh=devices, tile=TILE,
+                                 chunk=CHUNK)
+    torch.cuda.synchronize()
+    s_sharded = time.perf_counter() - t0
+    want = annotate_views(cams, mesh, curv, tile=TILE, chunk=CHUNK)
+    unequal = [k for k in want if not torch.equal(got[k], want[k])]
+    log(f"19b annotate_views_sharded over {len(devices)} device(s), "
+        f"{SHARDED_VIEWS} bench views: {len(want) - len(unequal)}/{len(want)} "
+        f"labels equal to annotate_views bit for bit; {s_sharded:.3f} s "
+        f"(mesh copies included); card {card}")
+    if set(got) != set(want) or unequal:
+        raise AssertionError(f"sharded labels differ: {unequal}")
+    return {"devices": len(devices), "views": SHARDED_VIEWS, "s": s_sharded}
+
+
+def phase_data(card: str, bdir: str) -> dict:
+    """19c: the packed cache on phase 11's labels, a trainer on it, and the
+    trajectory video of its rgb frames."""
+    import ast
+    import glob
+    import math
+
+    import numpy as np
+
+    from loader_rate import rate
+
+    from omnidata_tpu_torch.data import loader
+    from omnidata_tpu_torch.data.dataset import OmnidataDataset, Options
+    from omnidata_tpu_torch.data.packed_cache import PackedDataset
+    from omnidata_tpu_torch.utils.video import make_video
+
+    ds = OmnidataDataset(Options(data_path=bdir, tasks=PACKED_TASKS, random_flip=True))
+    t0 = time.perf_counter()
+    pds = PackedDataset.build(ds, str(CLI_DIR / "pack"), num_workers=8)
+    s_pack = time.perf_counter() - t0
+    for i in range(len(ds)):
+        ds.rng, pds.rng = np.random.RandomState(i), np.random.RandomState(i)
+        a, b = ds[i], pds[i]
+        if a.keys() != b.keys() or not all(
+                np.array_equal(a[k], b[k]) for k in a if isinstance(a[k], np.ndarray)):
+            raise AssertionError(f"packed item {i} differs from the direct one")
+    rates = {f"{name}_{w}": rate(loader, d, 8, w, LOADER_BATCHES) for w in (1, 8)
+             for name, d in (("png", ds), ("packed", pds))}
+    log(f"19c PackedDataset on phase 11's {len(ds)} views ({', '.join(PACKED_TASKS)} "
+        f"at {RES}²): built in {s_pack:.2f} s, every item equal to the direct "
+        f"one for equal seeds; loader samples/s (batch 8) PNG {rates['png_1']:.1f} "
+        f"/ packed {rates['packed_1']:.1f} with 1 thread, PNG {rates['png_8']:.1f} "
+        f"/ packed {rates['packed_8']:.1f} with 8, on the card's host; card {card}")
+
+    tdir = CLI_DIR / "train_packed"
+    tdir.mkdir(parents=True, exist_ok=True)
+    cfg = write_config(tdir / "depth.yml", {
+        "image_size": DEPTH_RES, "batch_size": 2, "max_steps": PACKED_TRAIN_STEPS,
+        "log_step": 1, "val_step": 1000, "ckpt_step": 1000, "val_fraction": 0.25,
+        "num_workers": 8, "checkpoint_dir": str(tdir / "depth"),
+        "packed_cache": str(tdir / "pack"), "data_paths": {"bench": bdir}})
+    t0 = time.perf_counter()
+    (out,) = trainer_runs([("omnidata_tpu_torch.train_depth", ["--config_file", cfg])])
+    s_train = time.perf_counter() - t0
+    losses = [ast.literal_eval(line.split(": ", 1)[1].rsplit(" (", 1)[0])["loss"]
+              for line in out.splitlines() if line.startswith("step ") and ": {" in line]
+    packs = glob.glob(str(tdir / "pack" / "*" / "manifest.json"))
+    if len(losses) != PACKED_TRAIN_STEPS or not all(map(math.isfinite, losses)) \
+            or len(packs) != 2:
+        raise AssertionError(f"train_depth on a packed cache: losses {losses}, "
+                             f"packs {packs}")
+    log(f"19c train_depth with packed_cache: {PACKED_TRAIN_STEPS} steps, losses "
+        f"{[round(x, 5) for x in losses]}, train and val packs built; {s_train:.1f} s "
+        f"as a subprocess; card {card}")
+
+    frames = glob.glob(f"{bdir}/rgb/point_*_view_*_domain_rgb.png")
+    (CLI_DIR / "video").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    video = make_video(f"{bdir}/rgb", "rgb", str(CLI_DIR / "video" / "rgb.mp4"))
+    s_video = time.perf_counter() - t0
+    kind = "mp4 (ffmpeg)" if video.endswith(".mp4") else "GIF (no ffmpeg on PATH)"
+    size = os.path.getsize(video)
+    if size == 0:
+        raise AssertionError(f"make_video wrote an empty {video}")
+    log(f"19c make_video on phase 11's {len(frames)} rgb frames: {kind}, "
+        f"{size} bytes, {s_video:.2f} s on the card's host; card {card}")
+    return {"items": len(ds), "s_pack": s_pack, "loader_samples_per_s": rates,
+            "train_losses": losses, "s_train": s_train, "video": kind,
+            "video_frames": len(frames), "s_video": s_video}
+
+
 def main() -> int:
     import torch
 
@@ -2683,6 +2915,14 @@ def main() -> int:
     refocus = phase_refocus(dev, card, bdir)
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
+    # 19. per-view path, sharded annotation, packed cache and video ---------
+    t0 = time.perf_counter()
+    per_view = phase_per_view(card, mesh, curv, batch(0, PER_VIEW_VIEWS), vps)
+    sharded = phase_sharded(card, mesh, curv, batch(0, SHARDED_VIEWS))
+    data = phase_data(card, bdir)
+    s19 = time.perf_counter() - t0
+    log(f"phase 19: {s19:.1f} s; card {card}")
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -2715,7 +2955,8 @@ def main() -> int:
               (ms_plain2, ms_kernel2), shape=f"bench K={K_MAIN}, P={TILE * TILE}; "
               f"small: K={K_CHECK}", items_main_path=items_a,
               items_seg1=seg1["kernel A (bench)"], ms_large_k32=lms_a,
-              launches_cli_bench=cli_a_bench),
+              launches_cli_bench=cli_a_bench,
+              launches_annotate_view=per_view["launches"]),
         entry("raster_compact (B)", "B", "raster_compact.cu", "601", launches_b,
               "render_views_fused(compact=True), bench scene", err_b,
               (ms_plain_b, ms_kernel_b),
@@ -2751,6 +2992,8 @@ def main() -> int:
         "pano_s": pano_s, "pano_tests_per_s": pano_rate,
         "device_prefixes": prefixes, "dpt": dpt, "train": train,
         "eval_multitask_hrnet": eval_mt, "midas": midas, "refocus": refocus,
+        "phase19": {"per_view": per_view, "sharded": sharded, "data": data,
+                    "s": s19},
         "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -115,10 +116,14 @@ def build_libraries(kernels=(), hosts=()) -> None:
         for name in hosts if not host_library_path(name).exists()])
 
 
+_BUILD_LOCK = threading.Lock()  # threads of one process build one at a time
+
+
 @functools.cache
 def load_kernel_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    build_libraries(kernels=[name])
+    with _BUILD_LOCK:
+        build_libraries(kernels=[name])
     return ctypes.CDLL(str(library_path(name)))
 
 
@@ -126,5 +131,6 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
 def load_host_library(name: str) -> ctypes.CDLL:
     """Build ``native/<name>.cpp`` if needed and load it (once per
     process)."""
-    build_libraries(hosts=[name])
+    with _BUILD_LOCK:
+        build_libraries(hosts=[name])
     return ctypes.CDLL(str(host_library_path(name)))

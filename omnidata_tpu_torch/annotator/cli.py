@@ -12,9 +12,16 @@ The mesh is <model_path>/mesh.ply or mesh.obj. Outputs land in
 <model_path>/<task>/point_{p}_view_{v}_domain_{task}.png plus
 point_info/*.json and camera_poses.json.
 
-The device labels go through ``annotate_views``, K = VIEWS_PER_DISPATCH
-views per raster launch, which picks the raster kernel by the size of the
-scene pack (``mesh.raster.render_views_fused``). The host cues (keypoints3d,
+The device labels take one of two routes, as in the JAX CLI:
+- batched (``--device cuda``, or FORCE_BATCHED_PATH=1 on the CPU):
+  ``annotate_views``, K = VIEWS_PER_DISPATCH views per raster launch, which
+  picks the raster kernel by the size of the scene pack
+  (``mesh.raster.render_views_fused``);
+- per view (``--device cpu`` without the flag): ``annotate_view`` on the
+  plain ``render_view``, its per-tile face capacity doubled from
+  RASTER_CAP until it covers the view's largest tile candidate count
+  (``mesh.raster.tile_candidate_counts``), so no candidate is dropped.
+The host cues (keypoints3d,
 segment_unsup2d, segment_unsup25d) run in a spawned process pool kept off
 the card. On ``--device cuda`` (or with FORCE_BATCHED_PATH=1 on the CPU,
 the JAX CLI's batched path off a TPU) their convolution-shaped prefixes run
@@ -307,6 +314,16 @@ def view_batch(views: list, resolution: int, device: torch.device | str):
                   torch.stack([c.fov for c in cams]).to(device), resolution)
 
 
+def view_camera(view: dict, resolution: int, device: torch.device | str):
+    """One point_info view's camera (location (3,), R (3,3), fov ()) on
+    ``device``."""
+    from ..core.cameras import Camera, camera_from_view_dict
+
+    c = camera_from_view_dict(view, resolution=resolution)
+    return Camera(c.location.to(device), c.R.to(device), c.fov.to(device),
+                  resolution)
+
+
 def annotate_kwargs(settings, mods: tuple) -> dict:
     """The keyword arguments a device pass gives ``annotate_views`` for the
     modalities ``mods``; the raster kernel is left to its size rule."""
@@ -355,8 +372,7 @@ def device_prefixes(host_tasks, mods, settings, device: torch.device | str) -> d
     whose cue it feeds and whose inputs it renders, on a card (the JAX CLI's
     batched path on a TPU) or on the CPU with FORCE_BATCHED_PATH set (that
     path off a TPU); none otherwise -> {"narf", "seg2d", "seg25d": bool}."""
-    route = (torch.device(device).type == "cuda"
-             or bool(getattr(settings, "FORCE_BATCHED_PATH", 0)))
+    route = batched_route(settings, device)
     return {
         "narf": route and "keypoints3d" in host_tasks and "depth_zbuffer" in mods,
         "seg2d": (route and "segment_unsup2d" in host_tasks and "rgb" in mods
@@ -412,12 +428,33 @@ def view_cue_maps(maps: dict, vi: int, view: dict, resolution: int) -> dict | No
     return vmaps or None
 
 
+def batched_route(settings, device: torch.device | str) -> bool:
+    """The JAX CLI's route rule: batched on a card (a TPU there) or with
+    FORCE_BATCHED_PATH set, per view otherwise."""
+    return (torch.device(device).type == "cuda"
+            or bool(getattr(settings, "FORCE_BATCHED_PATH", 0)))
+
+
+def view_cap(cam, mesh, settings) -> int:
+    """RASTER_CAP doubled until it covers the view's largest per-tile
+    candidate count: ``render_view`` drops candidates past its cap."""
+    from ..mesh.raster import tile_candidate_counts
+
+    cap = int(settings.RASTER_CAP)
+    need = int(tile_candidate_counts(cam, mesh, tile=settings.RASTER_TILE).max())
+    while cap < need:
+        cap *= 2
+    return cap
+
+
 def run_device_tasks(model_path: str, tasks: list[str], settings,
                      host_tasks: tuple = (), mesh_task: str | None = None,
                      device: torch.device | str = "cpu") -> None:
-    """Render the device labels of every view, K views per launch.
+    """Render the device labels of every view: on the batched route
+    (``batched_route``) K views per launch, else one view at a time through
+    ``annotate_view`` at ``view_cap``.
 
-    A one-thread fetcher waits for batch b and copies it to the host while
+    Batched, a one-thread fetcher waits for batch b and copies it to the host while
     the main thread enqueues batch b+1 and hands batch b-1 to the PNG
     writers (8 threads) and, for host_tasks (keypoints3d / segment_*), to
     the host-cue pool, which computes them from the in-flight arrays. On the
@@ -431,7 +468,7 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
     from ..cues.encode import save_png
     from ..sampling import file_name_for
     from ..utils.profiler import Profiler
-    from .pipeline import annotate_views
+    from .pipeline import annotate_view, annotate_views
 
     mesh, curv = prepare_device_mesh(model_path, tasks, settings, mesh_task, device)
     for t in list(tasks) + list(host_tasks):
@@ -444,6 +481,7 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
     K = int(getattr(settings, "VIEWS_PER_DISPATCH", 32))
     host_kv = _host_cue_settings_kv(settings) if host_tasks else None
     prefixes = device_prefixes(host_tasks, mods, settings, device)
+    batched = batched_route(settings, device)
     pending: list = []
 
     def write_outputs(view, arrs, io_pool, host_pool, dev_maps=None):
@@ -493,19 +531,30 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
                 i += 1
                 pflr.step(f"finished img {i}/{n_imgs}")
 
-        prev = None
-        for s in range(0, n_imgs, K):
-            chunk_views = flat_views[s: s + K]
-            cams = view_batch(chunk_views, settings.RESOLUTION, mesh.vertices.device)
-            out = annotate_views(cams, mesh, curv, **kw)
-            fut = fetcher.submit(fetch, out,
-                                 device_cue_maps(out, cams.fov, settings, prefixes))
-            del out
+        if batched:
+            prev = None
+            for s in range(0, n_imgs, K):
+                chunk_views = flat_views[s: s + K]
+                cams = view_batch(chunk_views, settings.RESOLUTION,
+                                  mesh.vertices.device)
+                out = annotate_views(cams, mesh, curv, **kw)
+                fut = fetcher.submit(
+                    fetch, out, device_cue_maps(out, cams.fov, settings, prefixes))
+                del out
+                if prev is not None:
+                    process(prev[0], prev[1].result())
+                prev = (chunk_views, fut)
             if prev is not None:
                 process(prev[0], prev[1].result())
-            prev = (chunk_views, fut)
-        if prev is not None:
-            process(prev[0], prev[1].result())
+        else:
+            for view in flat_views:
+                cam = view_camera(view, settings.RESOLUTION, mesh.vertices.device)
+                out = annotate_view(cam, mesh, curv,
+                                    cap=view_cap(cam, mesh, settings), **kw)
+                write_outputs(view, {t: host(out[t]) for t in mods if t in out},
+                              io_pool, host_pool)
+                i += 1
+                pflr.step(f"finished img {i}/{n_imgs}")
         for f in pending:
             f.result()  # surface any write or cue error
     print(f"[annotate] {n_imgs} views, {len(mods)} device tasks")

@@ -30,9 +30,15 @@ def _gaussian_kernel_1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
 
 
 def _conv(img: torch.Tensor, kernel: np.ndarray, pad: tuple[int, int]):
-    """(N,H,W) cross-correlation with a 2D kernel, zero padding (ph, pw)."""
-    k = torch.as_tensor(kernel, dtype=img.dtype, device=img.device)
-    return F.conv2d(img[:, None], k[None, None], padding=pad)[:, 0]
+    """(N,H,W) cross-correlation with a 2D kernel, zero padding (ph, pw).
+    On the CPU each image is convolved alone: oneDNN picks its algorithm by
+    batch size, and a view's labels must not depend on the batch it is
+    annotated in (``annotator.distributed`` splits batches)."""
+    w = torch.as_tensor(kernel, dtype=img.dtype, device=img.device)[None, None]
+    if img.device.type == "cpu" and img.shape[0] > 1:
+        return torch.cat([F.conv2d(img[i:i + 1, None], w, padding=pad)[:, 0]
+                          for i in range(img.shape[0])])
+    return F.conv2d(img[:, None], w, padding=pad)[:, 0]
 
 
 def gaussian_blur_constant(img: torch.Tensor, sigma: float) -> torch.Tensor:

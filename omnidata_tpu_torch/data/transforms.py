@@ -14,7 +14,7 @@ else) resizes.
 - clamp_to rescaling: x -> clip(x, 0, max)/max (e.g. depth 8000/65535,
   edge_texture 0.25)
 - default_loader: .png, .npy, .json (point_info; pops nonfixated, adds
-  building); .hdf5 (hypersim semantics) is not ported yet and raises
+  building), .hdf5 (hypersim semantics, raw ids; needs h5py)
 """
 from __future__ import annotations
 
@@ -165,12 +165,23 @@ def get_transform(task: str, image_size: int | None = None):
     return transform
 
 
+def h5py_module(what: str):
+    """h5py, imported on first use: the card's machine has none, and there
+    the readers that need it raise an ImportError that names it."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"{what} reads HDF5 with h5py, which is not "
+                          "installed here") from e
+    return h5py
+
+
 def default_loader(path: str):
-    """png/npy/json loader (transforms.py:124-147)."""
+    """png/hdf5/npy/json loader (transforms.py:124-147)."""
     if path.endswith(".hdf5"):
-        raise NotImplementedError(
-            f"{path}: HDF5 labels (hypersim) are not ported yet; see ROADMAP.md "
-            "queue 1, the data item")
+        with h5py_module(f"{path}: the HDF5 label loader").File(path, "r") as f:
+            return np.asarray(f["dataset"][:])  # raw ids (hypersim NYU40
+            # semantics are int16 with -1 = undefined; do not quantize)
     if path.endswith(".npy"):
         return np.load(path)
     if path.endswith(".json"):

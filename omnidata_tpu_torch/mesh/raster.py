@@ -13,7 +13,14 @@ raster kernel, winner decode.
    interpolates vertex attributes; tiles are put back into images.
 
 Tie semantics, admission encoding and outputs are those of
-``omnidata_tpu.mesh.raster.render_views_fused``.
+``omnidata_tpu.mesh.raster.render_views_fused``; ``render_view_fused`` is
+its one-view form.
+
+``render_view`` is the other renderer, the JAX package's XLA path in plain
+PyTorch on any device: per-tile face lists of at most ``cap`` faces
+(``bin_triangles``; candidates past ``cap`` are dropped, lowest face ids
+kept) swept chunk by chunk with the same packed winner key.
+``tile_candidate_counts`` tells a caller how large ``cap`` must be.
 """
 from __future__ import annotations
 
@@ -24,16 +31,20 @@ import torch
 from ..core.cameras import Camera, camera_rays, extrinsic_RT, intrinsic_matrix
 from .mesh import TriangleMesh
 from .raster_kernels import (
+    _BIG,
+    BIG_PACKED,
     CHUNK_LIST_CAP,
+    LANE_MASK,
     STAGE_CAP,
     STREAMED_STAGE_CAP,
+    _mt_packed_keys,
+    _mt_precompute,
     decode_winners,
     raster_tiles_chunklist,
     raster_tiles_compact,
     raster_tiles_streamed,
 )
 
-_BIG = 1e30
 _NEAR = 1e-4
 _BIGF = 1e9  # bbox value of dead faces: any overlap test fails
 
@@ -413,19 +424,195 @@ def render_views_fused(
 
     K = cameras.location.shape[0]
     n1d = cameras.resolution // tile
+    frag = _fragments(valid, t, u, v, f, inp.dirs, cameras.R, n1d, tile)
+    if vertex_attrs is None:
+        return frag
+    return frag, _untile(attr_t, K, n1d, tile)
+
+
+def _fragments(valid, t, u, v, f, dirs, R, n1d: int, tile: int) -> Fragments:
+    """Decoded (K*T, P) winner planes -> (K,H,W) Fragments; z is t times the
+    cosine between each ray (dirs (K,H,W,3)) and its view's forward axis."""
+    K = R.shape[0]
     t_img = _untile(t, K, n1d, tile)
     valid_img = _untile(valid, K, n1d, tile)
-    forward = -cameras.R[:, :, 2]  # R @ (0, 0, -1)
-    fw = forward[:, None, None, :]
-    d = inp.dirs
-    cosang = d[..., 0] * fw[..., 0] + d[..., 1] * fw[..., 1] + d[..., 2] * fw[..., 2]
-    frag = Fragments(
+    fw = -R[:, None, None, :, 2]  # R @ (0, 0, -1)
+    cosang = (dirs[..., 0] * fw[..., 0] + dirs[..., 1] * fw[..., 1]
+              + dirs[..., 2] * fw[..., 2])
+    return Fragments(
         t=torch.where(valid_img, t_img, _BIG),
         z=torch.where(valid_img, t_img * cosang, _BIG),
         face=_untile(f, K, n1d, tile),
         bary=_untile(torch.stack([u, v], -1), K, n1d, tile),
         valid=valid_img,
     )
+
+
+def _one_view(camera: Camera) -> Camera:
+    """A camera with location (3,), R (3,3), fov () as a batch of one."""
+    return Camera(camera.location.reshape(1, 3), camera.R.reshape(1, 3, 3),
+                  torch.as_tensor(camera.fov).reshape(1), camera.resolution)
+
+
+def _first(frag: Fragments) -> Fragments:
+    return Fragments(*(x[0] for x in frag))
+
+
+def render_view_fused(camera: Camera, mesh: TriangleMesh, tile: int = 64,
+                      chunk: int = 128, vertex_attrs: torch.Tensor | None = None,
+                      **kwargs):
+    """One view through ``render_views_fused`` (K = 1: one raster kernel
+    launch on a card); the counterpart of
+    ``omnidata_tpu.mesh.raster.render_view_pallas``, whose ``cap`` the
+    kernels do not need. camera: location (3,), R (3,3), fov (). kwargs go
+    to ``render_views_fused`` (ccap, streamed, compact, ...).
+    -> (H,W) Fragments, and (Fragments, attr_img (H,W,C)) with
+    vertex_attrs."""
+    out = render_views_fused(_one_view(camera), mesh, tile, chunk,
+                             vertex_attrs, **kwargs)
     if vertex_attrs is None:
-        return frag
-    return frag, _untile(attr_t, K, n1d, tile)
+        return _first(out)
+    return _first(out[0]), out[1][0]
+
+
+def _tile_origins(n1d: int, tile: int, device) -> torch.Tensor:
+    return torch.arange(n1d, dtype=torch.float32, device=device) * tile
+
+
+def bin_triangles(camera: Camera, mesh: TriangleMesh, tile: int, cap: int):
+    """Per-tile face lists (T, cap) int32 and per-tile candidate counts
+    (T,) int32 for one view (``omnidata_tpu.mesh.raster.bin_triangles``).
+
+    Two-level admission: per tile the ascending ids of the 128-face chunks
+    whose union bbox overlaps it (at most 256 chunks), then the faces of
+    those chunks whose own bbox overlaps it, ascending. Past ``cap`` faces
+    the lowest ids are kept; unused slots hold the last (degenerate) face
+    F - 1. counts are the faces the listed chunks hold that overlap the
+    tile."""
+    res = camera.resolution
+    n1d = res // tile
+    T = n1d * n1d
+    F = mesh.faces.shape[0]
+    chunk = 128
+    lo, hi = padded_bboxes(_one_view(camera), mesh, chunk)
+    lo, hi = lo[0], hi[0]
+    n_chunks = lo.shape[0] // chunk
+    dev = lo.device
+    txs = _tile_origins(n1d, tile, dev)
+
+    # level 1: per-tile lists of chunks whose union bbox overlaps the tile
+    clo = lo.reshape(n_chunks, chunk, 2).amin(1)
+    chi = hi.reshape(n_chunks, chunk, 2).amax(1)
+    cov_x = (chi[:, 0:1] >= txs) & (clo[:, 0:1] <= txs + tile)
+    cov_y = (chi[:, 1:2] >= txs) & (clo[:, 1:2] <= txs + tile)
+    cov = (cov_y[:, :, None] & cov_x[:, None, :]).reshape(n_chunks, T).T
+    cvals, cidx = _ascending_first(cov, min(256, n_chunks))
+    clist = torch.where(cvals > n_chunks, cidx, n_chunks - 1)  # (T, ccap)
+
+    # level 2: face-level overlap over the listed chunks' faces only
+    lanes = torch.arange(chunk, dtype=torch.int32, device=dev)
+    fids = (clist[:, :, None] * chunk + lanes).reshape(T, -1)  # (T, A)
+    A = fids.shape[1]
+    flo, fhi = lo[fids.long()], hi[fids.long()]  # (T, A, 2)
+    ty = txs.repeat_interleave(n1d)[:, None]
+    tx = txs.repeat(n1d)[:, None]
+    ov = ((fhi[..., 0] >= tx) & (flo[..., 0] <= tx + tile)
+          & (fhi[..., 1] >= ty) & (flo[..., 1] <= ty + tile))
+    counts = ov.sum(1).to(torch.int32)
+    k = min(cap, A)
+    vals, idx = _ascending_first(ov, k)
+    tile_tris = torch.where(vals > A, torch.gather(fids, 1, idx.long()), F - 1)
+    # padded face ids (>= num_faces) are degenerate: the F-1 pad slot
+    tile_tris = torch.where(tile_tris >= mesh.num_faces, F - 1, tile_tris)
+    if k < cap:  # tiny meshes: fill the capacity with degenerate slots
+        tile_tris = torch.nn.functional.pad(tile_tris, (0, cap - k), value=F - 1)
+    return tile_tris.to(torch.int32), counts
+
+
+def tile_candidate_counts(camera: Camera, mesh: TriangleMesh,
+                          tile: int = 64) -> torch.Tensor:
+    """True per-tile bbox-overlap face counts (T,) int32 of one view: the
+    overflow probe for ``render_view``, which keeps only the lowest ``cap``
+    face ids of a tile. An upper bound of ``bin_triangles``' counts. The
+    separable y/x overlap is contracted in float64, exact for any face
+    count and untouched by TF32."""
+    n1d = camera.resolution // tile
+    lo, hi, _ = face_screen_bboxes(_one_view(camera), mesh)
+    lo, hi = lo[0], hi[0]
+    txs = _tile_origins(n1d, tile, lo.device)
+    ovx = (hi[:, 0:1] >= txs) & (lo[:, 0:1] <= txs + tile)  # (F, n1d)
+    ovy = (hi[:, 1:2] >= txs) & (lo[:, 1:2] <= txs + tile)
+    cnt = ovy.to(torch.float64).T @ ovx.to(torch.float64)  # (ty, tx)
+    return cnt.reshape(-1).to(torch.int32)
+
+
+def _tri_soa(mesh: TriangleMesh) -> list:
+    """9 (F,) planes: v0.xyz, e1.xyz, e2.xyz."""
+    tris = mesh.vertices[mesh.faces.long()]  # (F,3,3)
+    v0 = tris[:, 0]
+    e1 = tris[:, 1] - tris[:, 0]
+    e2 = tris[:, 2] - tris[:, 0]
+    return [*v0.unbind(1), *e1.unbind(1), *e2.unbind(1)]
+
+
+def render_view(camera: Camera, mesh: TriangleMesh, tile: int = 64,
+                cap: int = 2048, chunk: int = 128,
+                parallel_tiles: bool = True) -> Fragments:
+    """Render one view (location (3,), R (3,3), fov ()) to (H,W) Fragments
+    with plain PyTorch operations on the mesh's device
+    (``omnidata_tpu.mesh.raster.render_view``, the JAX package's XLA path).
+
+    Each tile sweeps its ``bin_triangles`` list in ``cap // chunk`` chunks;
+    per pixel the winner is the least packed key: the float32 bits of t
+    with the low 13 bits replaced by the face's slot in the tile's list,
+    so the lowest slot wins a masked tie. Candidates past ``cap`` per tile
+    are dropped (probe ``tile_candidate_counts`` to size cap); t, u, v are
+    recomputed exactly for the winner. parallel_tiles is accepted for the
+    JAX signature and ignored."""
+    del parallel_tiles
+    if not chunk <= cap <= LANE_MASK + 1:
+        raise ValueError(f"cap {cap}: at least one chunk ({chunk}), and the "
+                         "candidate slot must fit the key's 13 low bits "
+                         f"(cap <= {LANE_MASK + 1})")
+    res = camera.resolution
+    n1d = res // tile
+    T = n1d * n1d
+    P = tile * tile
+    tile_tris, _ = bin_triangles(camera, mesh, tile, cap)
+
+    origin, dirs = camera_rays(camera)  # (3,), (H,W,3)
+    dirs = dirs[None]
+    dx, dy, dz = _tiles(dirs, 1, n1d, tile).unbind(-1)  # 3 x (T, P)
+    soa = _tri_soa(mesh)
+    g = [a[tile_tris.long()] for a in soa]  # one gather per view: (T, cap)
+    dev = origin.device
+    best = torch.full((T, P), BIG_PACKED, dtype=torch.int32, device=dev)
+    best_j = torch.zeros((T, P), dtype=torch.int32, device=dev)
+    d = (dx[:, :, None], dy[:, :, None], dz[:, :, None])
+    for c0 in range(0, cap - chunk + 1, chunk):
+        rows = [a[:, None, c0:c0 + chunk] for a in g]  # (T, 1, chunk)
+        pre = _mt_precompute(rows, origin[0], origin[1], origin[2])
+        slot = torch.arange(c0, c0 + chunk, dtype=torch.int32, device=dev)
+        pj = _mt_packed_keys(pre, *d, slot).amin(-1)  # (T, P)
+        best_j = torch.where(pj < best, pj & LANE_MASK, best_j)
+        best = torch.minimum(best, pj)
+
+    # the winner's face and its exact t / u / v
+    valid = best < BIG_PACKED
+    f = torch.where(valid, torch.gather(tile_tris, 1, best_j.long()), -1)
+    fi = f.clamp(min=0).long()
+    acc = torch.stack([a[fi] for a in soa] + [f.to(torch.float32)], 1)
+    valid, t, u, v, f, _ = decode_winners(best, acc, origin[None], (dx, dy, dz), T)
+    return _first(_fragments(valid, t, u, v, f, dirs, camera.R[None], n1d, tile))
+
+
+def render_views(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
+                 cap: int = 2048, chunk: int = 128,
+                 parallel_tiles: bool = True) -> Fragments:
+    """``render_view`` of each camera of a batch (leading dim on
+    location/R/fov) -> (K,H,W) Fragments."""
+    frags = [render_view(Camera(cameras.location[k], cameras.R[k],
+                                cameras.fov[k], cameras.resolution),
+                         mesh, tile, cap, chunk, parallel_tiles)
+             for k in range(cameras.location.shape[0])]
+    return Fragments(*(torch.stack(x) for x in zip(*frags)))

@@ -68,10 +68,8 @@ def load_config(path: str, known: set) -> dict:
         if cfg.get(key) not in (None, 1):
             raise NotImplementedError(
                 f"{key}: {cfg[key]}: these trainers run on one device; data and "
-                "tensor parallelism are not ported yet (ROADMAP.md queue 1)")
-    if cfg.get("packed_cache"):
-        raise NotImplementedError("packed_cache: the packed sample cache is not "
-                                  "ported yet (ROADMAP.md queue 1, the data item)")
+                "tensor parallelism are the next item to port (ROADMAP.md "
+                "queue 1: train/parallel and train/multihost)")
     return cfg
 
 
@@ -150,6 +148,17 @@ def build_datasets(cfg: dict, tasks: tuple, image_size: int):
                 continue
             trains.append(tr)
             vals.append(as_val(va))
+
+    pack_dir = cfg.get("packed_cache")
+    if pack_dir:
+        # decode-once sample cache (data/packed_cache.py): a sample becomes
+        # memmap row reads plus the joint crop/flip. Packs are keyed on each
+        # dataset's resolved index, so train and val never alias.
+        from ..data.packed_cache import PackedDataset
+
+        workers = int(cfg.get("num_workers", 8))
+        trains = [PackedDataset.build(d, pack_dir, workers) for d in trains]
+        vals = [PackedDataset.build(d, pack_dir, workers) for d in vals]
     return trains, vals
 
 

@@ -1,0 +1,2 @@
+from .profiler import Profiler, DeviceTrace
+from .video import make_video

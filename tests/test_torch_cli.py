@@ -4,7 +4,7 @@ vertex colours written as mesh.ply, at RESOLUTION=64:
 
 - `--task points`: the same point_info file names, camera_poses.json and
   JSON within 1e-5 (integers, booleans and strings equal);
-- the 12 device tasks on one shared copy of point_info (the JAX side on its
+- the 12 device tasks on one shared copy of point_info (both sides on the
   batched path, FORCE_BATCHED_PATH=1, once per module): every PNG and
   fragments .npy within the integer-label rule of tests/test_mesh.py;
 - `--task pano` at PANO_RESOLUTION=(64,32): tests/test_sampling.py's
@@ -127,8 +127,8 @@ def device_run(points_run, tmp_path_factory):
         shutil.copytree(os.path.join(points_run[1], "point_info"),
                         os.path.join(d, "point_info"))
         dirs.append(d)
-    tcli.run_device_tasks(dirs[0], DEVICE_TASKS, t_load_settings(["RESOLUTION=64"]),
-                          device="cpu")
+    tcli.run_device_tasks(dirs[0], DEVICE_TASKS, t_load_settings(
+        ["RESOLUTION=64", "FORCE_BATCHED_PATH=1"]), device="cpu")
     jcli.run_device_tasks(dirs[1], DEVICE_TASKS, j_load_settings(
         ["RESOLUTION=64", "FORCE_BATCHED_PATH=1"]))
     return tuple(dirs)
@@ -278,7 +278,7 @@ def test_object_mode_matches_jax(tmp_path):
     _t_main(dirs[0], "points", *pts)
     _j_main(dirs[1], "points", *pts)
     assert_same_tree(_point_info(dirs[0]), _point_info(dirs[1]))
-    _t_main(dirs[0], "depth_zbuffer", "RESOLUTION=64")
+    _t_main(dirs[0], "depth_zbuffer", "RESOLUTION=64", "FORCE_BATCHED_PATH=1")
     _j_main(dirs[1], "depth_zbuffer", "RESOLUTION=64", "FORCE_BATCHED_PATH=1")
     assert _assert_outputs_match(*dirs, ["depth_zbuffer"]) >= 2
     arr = _load(glob.glob(os.path.join(dirs[0], "depth_zbuffer", "*.png"))[0])

@@ -11,7 +11,8 @@ cues' device prefixes, DPT's forward, and one training step each of DPT
 evaluation metrics, normal TTA, one forward of each multi-task
 architecture and of HRNet-W18, and one multi-task step with its per-task
 gradient norms; each MiDaS net's forward (also midas_v21 on a transformed
-640x480 image) and the refocus augmentation.
+640x480 image) and the refocus augmentation; the per-view renderer, the
+per-view annotator on kernel A and the sharded annotator.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports no JAX, so on a machine with a card
@@ -297,6 +298,85 @@ def test_render_views_fused_kernel_equals_plain_raster(cuda_scene, monkeypatch,
                                       **kw)
     for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
         assert torch.equal(g, w)
+
+
+def _one(cams, k):
+    return Camera(cams.location[k], cams.R[k], cams.fov[k], cams.resolution)
+
+
+def _on_cpu(mesh):
+    return mesh._replace(**{k: v.cpu() for k, v in mesh._asdict().items()
+                            if isinstance(v, torch.Tensor)})
+
+
+def test_render_view_on_the_card_equals_the_cpu(cuda_scene):
+    """The plain per-view renderer (no kernel) on CUDA tensors against the
+    CPU: valid and faces equal, t and z within 1e-4, at a cap that covers
+    every tile and at one that drops candidates."""
+    mesh, cams = cuda_scene
+    cpu_mesh = _on_cpu(mesh)
+    for k in range(2):
+        cam = _one(cams, k)
+        cpu_cam = Camera(cam.location.cpu(), cam.R.cpu(), cam.fov.cpu(), RES)
+        need = int(traster.tile_candidate_counts(cam, mesh, tile=32).max())
+        assert need == int(traster.tile_candidate_counts(cpu_cam, cpu_mesh, 32).max())
+        for cap in (128, 1 << max(7, (need - 1).bit_length())):
+            got = traster.render_view(cam, mesh, tile=32, cap=cap, chunk=CHUNK)
+            want = traster.render_view(cpu_cam, cpu_mesh, tile=32, cap=cap, chunk=CHUNK)
+            assert got.t.device.type == "cuda"
+            assert torch.equal(got.valid.cpu(), want.valid)
+            assert torch.equal(got.face.cpu(), want.face)
+            m = want.valid
+            assert (got.t.cpu()[m] - want.t[m]).abs().max() <= 1e-4
+            assert (got.z.cpu()[m] - want.z[m]).abs().max() <= 1e-4
+
+
+def test_annotate_view_on_the_kernel_equals_annotate_views(cuda_scene):
+    """annotate_view on CUDA tensors launches kernel A once per view (K = 1)
+    and its labels meet the integer-label rule against annotate_views on
+    the same views; its render_view route does too."""
+    from omnidata_tpu_torch.annotator import annotate_view, annotate_views
+
+    from _torch_port_util import int_label_ok
+
+    mesh, cams = cuda_scene
+    batched = annotate_views(cams, mesh, tile=32, chunk=CHUNK)
+    for k in range(2):
+        for kw in ({}, dict(fused_attrs=True), dict(use_pallas=False, cap=4096)):
+            before = tk.raster_tiles_chunklist.launches
+            out = annotate_view(_one(cams, k), mesh, tile=32, chunk=CHUNK, **kw)
+            torch.cuda.synchronize()
+            assert tk.raster_tiles_chunklist.launches == before + (
+                0 if kw.get("use_pallas") is False else 1)
+            assert set(out) == set(batched)
+            for name, v in out.items():
+                assert v.device.type == "cuda" and v.shape == batched[name].shape[1:]
+                ok, dmax, frac = int_label_ok(v.cpu().numpy(),
+                                              batched[name][k].cpu().numpy())
+                assert ok, (name, kw, dmax, frac)
+
+
+def test_sharded_annotation_on_the_card_equals_single(cuda_scene):
+    """annotate_views_sharded over make_annotate_mesh(): with every card of
+    the machine (one on the measured machine, where the batch is not split)
+    each label equals annotate_views' bit for bit."""
+    from omnidata_tpu_torch.annotator import (
+        annotate_views,
+        annotate_views_sharded,
+        make_annotate_mesh,
+    )
+
+    mesh, cams = cuda_scene
+    devices = make_annotate_mesh()
+    assert devices[0] == torch.device("cuda", 0)
+    n = len(devices) if 2 % len(devices) == 0 else 1
+    out = annotate_views_sharded(cams, mesh, device_mesh=devices[:n], tile=32,
+                                 chunk=CHUNK)
+    want = annotate_views(cams, mesh, tile=32, chunk=CHUNK)
+    assert set(out) == set(want)
+    for name in want:
+        assert out[name].device == devices[0]
+        assert torch.equal(out[name], want[name]), name
 
 
 @pytest.fixture(scope="module")

@@ -249,12 +249,27 @@ def test_pil_resizes_equal_pil(src):
                 np.asarray(Image.fromarray(arr).resize((w, h), Image.BILINEAR)))
 
 
-def test_default_loader_npy_and_hdf5(tmp_path):
+def test_default_loader_npy_and_hdf5(tmp_path, monkeypatch):
+    """.npy and .hdf5 (hypersim's int16 NYU40 ids, -1 undefined) load as
+    JAX's loader loads them; without h5py the .hdf5 branch raises an
+    ImportError that names it."""
+    import sys
+
+    import h5py
+
     a = np.arange(12, dtype=np.int32).reshape(3, 4)
     np.save(tmp_path / "f.npy", a)
     np.testing.assert_array_equal(ttr.default_loader(str(tmp_path / "f.npy")), a)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.default_loader(str(tmp_path / "x_domain_semantic.hdf5"))
+    sem = np.arange(-1, 11, dtype=np.int16).reshape(3, 4)
+    path = str(tmp_path / "x_domain_semantic.hdf5")
+    with h5py.File(path, "w") as f:
+        f["dataset"] = sem
+    got, want = ttr.default_loader(path), jtr.default_loader(path)
+    assert got.dtype == want.dtype == np.int16
+    np.testing.assert_array_equal(got, want)
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
+        ttr.default_loader(path)
 
 
 # ---------------- dataset and loaders ----------------

@@ -9,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "omnidata_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_annotator.py",
-    ROOT / "tools" / "raster_measure.py"]
+    ROOT / "tools" / "raster_measure.py", ROOT / "tools" / "loader_rate.py"]
 _BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "omnidata_tpu", "PIL", "yaml")
 
 

@@ -403,10 +403,11 @@ def test_load_pretrained_from_a_published_layout_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("extra,error", [
     ({"data_parallel": 2}, NotImplementedError), ({"model_parallel": 2}, NotImplementedError),
-    ({"packed_cache": "/tmp/pack"}, NotImplementedError), ({}, RuntimeError)])
+    ({"data_parallel": 2, "model_parallel": 2, "packed_cache": "/tmp/pack"},
+     NotImplementedError), ({}, RuntimeError)])
 def test_trainers_refuse_what_is_not_ported(scene, tmp_path, monkeypatch, extra, error):
-    """Parallelism and the packed cache raise; so does --device cuda
-    without a card (the default device)."""
+    """Parallelism raises, beside the packed cache too (which is ported);
+    so does --device cuda without a card (the default device)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = _normal_cfg(tmp_path, scene, **extra)
     for main in (t_train_normal.main, t_train_depth.main):
