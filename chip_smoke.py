@@ -20,8 +20,10 @@ UNet normal trainers (``python -m omnidata_tpu_torch.train_depth`` /
 they trained (``eval_depth``, ``eval_normal``), the multi-task trainer
 (``train_multitask``) and HRNet at its published widths. And the per-view
 annotator (``annotate_view``, kernel A once a view), the sharded annotator,
-the packed sample cache and the trajectory video. Phases, each of which
-fails the run on error:
+the packed sample cache and the trajectory video. And multi-device
+training: the sharded step under NCCL at world size 1 and under gloo
+ranks sharing the card, ``train_depth`` under torchrun. Phases, each of
+which fails the run on error:
 
 1. set-up: the card's name and power limit; float32 matmuls and
    convolutions without TF32; build the CUDA kernels from csrc/ with nvcc,
@@ -220,6 +222,38 @@ fails the run on error:
        port's GIF), its kind, size and seconds.
     Hypersim and the downloader are not driven on the card: its machine has
     no h5py (hypersim's keyframes and labels are HDF5) and no network.
+20. multi-device training (``train/parallel``, ``train/multihost``), each
+    part a process of its own (``chip_smoke.py --phase20 ...``):
+    a. ``init_process_group("nccl")`` at world size 1, DPT-hybrid-384 at its
+       published widths, seeded, 384², batch 2 of phase 11's views, TF32
+       off, deterministic algorithms: one depth step before and one after
+       the 15k switch through the sharded path (``make_mesh``,
+       ``shard_module``, the mesh in the train state) equal to the
+       one-device step bit for bit (loss terms and every parameter); then
+       ``graft_entry.dryrun_multichip(1)`` (a sharded step of the tiny DPT
+       and ``annotate_views_sharded`` on ``make_annotate_mesh(1)``);
+    b. ``python -m torch.distributed.run --nproc_per_node 1 -m
+       omnidata_tpu_torch.train_depth`` with ``data_parallel: 1`` on phase
+       11's labels, 2 steps, then ``--resume --max_steps 4``: finite
+       losses, validation, the resumed run going on from step 2 to 4, and
+       'last' read by the one-device loader;
+    c. gloo ranks sharing the card, 2x1 and 2x2 (data, model), the full
+       DPT at 128², batch 1 a data rank, against the world-size-1 step on
+       the global batch with its forward run image by image as the ranks
+       run theirs (see ``par_worker_gloo``): steps from fresh moments at
+       step 0 and past the switch, and the step after the latter from the
+       state the world-size-1 step left (warm moments); each step's loss
+       terms within PAR_RTOL, its gradients (the data group's sum) and
+       clip norms (all tensors; the model-split ones) within
+       PAR_GRAD_RTOL (PAR_GRAD_RTOL_VNL_CUT past the switch at 2x2, where
+       VNL's 25% cut moves), and the warm step's parameters within 2 lr and its
+       moves within PAR_MOVE_RTOL in L2; seconds a step (gloo through
+       host memory: not a multi-GPU number). 20b and 20c's two grids run
+       at once, after 20a and 20d;
+    d. the depth step past the switch at batch 8, 384², torch's defaults,
+       by CUDA events (median, min, max of 2 x 10 after 3, in turns A B B
+       A): the sharded path at world size 1 against the one-device step,
+       beside the card's name and power limit.
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
@@ -227,8 +261,8 @@ log's last lines to stderr.
 Prints the kernel table as one JSON line (per kernel its K = 32 time,
 plain version, bound and work items, its main-path launches; no PyTorch
 call computes these kernels' function, so ``library_ms`` is null; phases
-14-19's numbers under "device_prefixes", "dpt", "train",
-"eval_multitask_hrnet", "midas", "refocus" and "phase19"), the
+14-20's numbers under "device_prefixes", "dpt", "train",
+"eval_multitask_hrnet", "midas", "refocus", "phase19" and "phase20"), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
@@ -1172,7 +1206,7 @@ def same_tree(a, b) -> bool:
         return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
     if isinstance(a, list):
         return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
-    return torch.equal(a, b)
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
 def trainers_end_to_end(bdir: str) -> dict:
@@ -1572,9 +1606,13 @@ def eval_runs(bdir: str, depth_ckpt: str, normal_ckpt: str, oasis_csv: str) -> d
     runs = {f"eval_depth align {a}": ("eval_depth", data + ["--checkpoint", depth_ckpt,
                                                            "--align", a])
             for a in ("none", "ssi")}
-    # seeded weights: the trained checkpoint's depth is all zeros (a few
-    # steps from seeded weights drive it there through the relu and clip),
-    # which the scale-shift alignment leaves as it is
+    # seeded weights: the trained checkpoint's depth is all zeros, which the
+    # scale-shift alignment leaves as it is. The seeded net's final ReLU
+    # already zeroes part of its output, and 12 steps at lr 1e-5 zero the
+    # rest here. Whether JAX's trainer does the same at this width is not
+    # known: tests/test_torch_train_collapse.py compares the two only on
+    # the tiny DPT at 64² on the CPU, where neither collapses and each of
+    # the port's steps leaves JAX's share of zeros
     runs["eval_depth seeded align ssi"] = ("eval_depth", data + ["--align", "ssi"])
     for model, ck in (("dpt", []), ("unet", ["--checkpoint", normal_ckpt])):
         runs[f"eval_normal {model}"] = ("eval_normal", data + ["--model", model] + ck)
@@ -2310,6 +2348,474 @@ def phase_data(card: str, bdir: str) -> dict:
             "video_frames": len(frames), "s_video": s_video}
 
 
+# ---- 20. multi-device training ---------------------------------------------
+
+PAR_RES = 384  # DPT-hybrid-384's size
+PAR_BATCH = 2  # 20a, 20c: the global batch (one image a data rank in 20c)
+PAR_TIMED_BATCH = 8  # 20d, phase 16's
+PAR_RTOL = 1e-5  # 20c: loss terms against world size 1 (the CPU tests' bounds)
+# 20c: gradients (all, in L2) and clip norms against world size 1. Set
+# from one run on an H100: 2x1 at most 2.5e-6; 2x2 4.0e-6 SSI only,
+# 1.23e-5 from warm moments (VNL 0 at that step), 1.02e-3 (norms 2.1e-4,
+# 4.0e-4) past the switch from fresh moments, where the model split's
+# rounding moves a triplet across VNL's 25% cut, whose place is not
+# continuous in the parameters (loss terms within 1.1e-7). Averaged
+# gradients are off by 1/2, a split tensors' norm without the model
+# group's sum by about 1 - 1/sqrt(2).
+PAR_GRAD_RTOL = 1e-4
+PAR_GRAD_RTOL_VNL_CUT = 1e-2  # the step past the switch with a model split
+PAR_MOVE_RTOL = 0.01  # 20c: L2 of the warm step's moves
+PAR_GLOO_GRIDS = ((2, 1), (2, 2))
+# 20c's images: at 384² one step's moves are not reproducible across any
+# change of rounding (see par_worker_gloo); at 128² they are within 1%
+PAR_GLOO_RES = 128
+PAR_TORCHRUN_STEPS = 4  # 20b: half of them, then --resume to all
+PAR_TIMEOUT_S = 600
+PAR_DIR = ROOT / "build" / "chip_smoke_parallel"
+
+
+def par_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def par_exact_mode(on: bool) -> None:
+    """TF32 off, deterministic cuDNN and deterministic algorithms (the
+    CUDA atomics' orders fixed: two runs of a step give the same bits), or
+    torch's defaults."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = not on
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on)
+
+
+def par_batch(bdir: str, rows: slice, dev, res: int = PAR_RES) -> dict:
+    """Phase 11's first views at res² as the depth trainer's batch (rgb in
+    [0, 1]: the step augments and normalises), the given rows."""
+    b = train_batch(bdir, DEPTH_TASKS, res, PAR_BATCH, depth_rgb=False)
+    return {k: v[rows].to(dev) for k, v in b.items()}
+
+
+def par_net(dev, **model_kw):
+    """DPT-hybrid-384 (depth head) on seeded weights, at the published
+    widths unless model_kw says otherwise."""
+    import torch
+
+    from omnidata_tpu_torch.models import DPTHybrid
+    from omnidata_tpu_torch.models.registry import init_weights
+
+    net = DPTHybrid(num_channels=1, **model_kw)
+    init_weights(net, torch.Generator().manual_seed(0))
+    return net.to(dev)
+
+
+class ParSeen:
+    """par_step's optimizer wrapper: records the gradients the step gives
+    the optimizer (the data group's sum when sharded) and the clip's
+    global norm, of all the tensors and of the model-split ones."""
+
+    def __init__(self, tx, names):
+        self.tx, self.names, self.seen = tx, names, {}
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def step(self, params, grads, state, split=None, model_group=None):
+        from omnidata_tpu_torch.train.parallel import split_dim
+
+        norm = self.tx.global_norm
+        self.seen["grads"] = [g.detach().clone() for g in grads]
+        self.seen["norm"] = float(norm(grads, split, model_group))
+        sub = [g for n, g in zip(self.names, grads) if split_dim(n) is not None]
+        self.seen["norm_split"] = float(norm(sub, [True] * len(sub), model_group)
+                                        if model_group is not None else norm(sub))
+        self.tx.step(params, grads, state, split, model_group)
+
+
+def par_step(net, mesh, batch: dict, step_no: int, dev, per_image: bool = False,
+             warm: dict | None = None, record: bool = False) -> dict:
+    """One depth step (augmentation on) of net, in place (sharded over mesh
+    when one is given; its forward image by image when per_image), from
+    fresh moments or from warm (count, and unsharded mu and nu lists in
+    the train state's order) -> global metrics, the unsharded parameters
+    after it on the CPU, its seconds and the optimizer state it leaves
+    ("opt"); with record, the unsharded gradients it stepped on (CPU) and
+    ParSeen's norms."""
+    import torch
+
+    from omnidata_tpu_torch import train as T
+    from omnidata_tpu_torch.losses import VNLParams
+    from omnidata_tpu_torch.train.parallel import (gather_state_dict, gather_tensor,
+                                                   shard_module, shard_tensor)
+
+    if mesh is not None:
+        shard_module(net, mesh)
+    state = T.create_train_state(net, T.depth_optimizer(), mesh)
+    seen = ParSeen(state.tx, state.names)
+    state.tx = seen
+    state.step = step_no
+    if warm is not None:
+        n_model, index = (mesh.n_model, mesh.model_index) if mesh is not None else (1, 0)
+        state.opt_state["count"] = torch.tensor(warm["count"], dtype=torch.int32)
+        for k in ("mu", "nu"):
+            state.opt_state[k] = [shard_tensor(n, t, n_model, index).clone()
+                                  for n, t in zip(state.names, warm[k])]
+
+    def apply_fn(m, x):
+        if per_image:
+            return torch.cat([m(x[i:i + 1]) for i in range(x.shape[0])])[:, 0]
+        return m(x)[:, 0]
+
+    res = batch["rgb"].shape[-1]
+    step = T.make_depth_train_step(apply_fn, VNLParams(1.0, 1.0, (res, res)),
+                                   augment=True, image_size=res)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    metrics = step(state, batch, gen)
+    sync()
+    s = time.perf_counter() - t0
+    full = gather_state_dict(net, mesh) if mesh is not None else net.state_dict()
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "params": {k: full[k].detach().cpu() for k in state.names}, "s": s,
+           "opt": {"count": int(state.opt_state["count"]),
+                   **{k: state.opt_state[k] for k in ("mu", "nu")}}}
+    if record:
+        out["grads"] = {n: (gather_tensor(n, g, mesh) if mesh is not None else g).cpu()
+                        for n, g in zip(state.names, seen.seen["grads"])}
+        out.update(norm=seen.seen["norm"], norm_split=seen.seen["norm_split"])
+    return out
+
+
+def par_grads_close(got: dict, want: dict) -> dict:
+    """Gradients and clip norms of a sharded step against world size 1:
+    the relative L2 distance of all the gradients as one vector, the
+    worst tensor's, and the norms' relative distances."""
+    d2 = n2 = 0.0
+    worst = (None, 0.0)
+    for k, w in want["grads"].items():
+        d, n = float((got["grads"][k] - w).norm()), float(w.norm())
+        d2, n2 = d2 + d * d, n2 + n * n
+        if n and d / n > worst[1]:
+            worst = (k, d / n)
+    return {"grad_rel": (d2 / n2) ** 0.5, "worst_tensor": worst,
+            **{f"{k}_rel": abs(got[k] - want[k]) / want[k] for k in ("norm", "norm_split")}}
+
+
+def par_close(got: dict, want: dict, start: dict, lr: float = 1e-5) -> dict:
+    """The CPU tests' measures of a step against another: the loss terms'
+    relative distances, the worst parameter's distance less the rounding
+    of p + u in lr, and the moves' relative distance in L2."""
+    import torch
+
+    rel = {k: abs(got["metrics"][k] - v) / abs(v) if v else
+           (0.0 if got["metrics"][k] == v else float("inf"))
+           for k, v in want["metrics"].items()}
+    names = list(want["params"])
+    excess = max(float(((got["params"][k] - want["params"][k]).abs()
+                        - 2**-22 * want["params"][k].abs()).max()) for k in names) / lr
+    d_got = torch.cat([(got["params"][k] - start[k]).flatten() for k in names])
+    d_want = torch.cat([(want["params"][k] - start[k]).flatten() for k in names])
+    move = float((d_got - d_want).norm() / d_want.norm())
+    return {"loss_rel": rel, "param_err_over_lr": excess, "move_rel": move}
+
+
+def par_worker_nccl1(bdir: str, out: str) -> None:
+    """20a and 20d, in a process of its own: NCCL at world size 1."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from omnidata_tpu_torch import graft_entry
+    from omnidata_tpu_torch.train import SSI_ONLY_STEPS
+    from omnidata_tpu_torch.train.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{par_free_port()}",
+                            rank=0, world_size=1)
+    res = {"backend": dist.get_backend()}
+    try:
+        par_exact_mode(True)
+        net = par_net(dev)
+        batch = par_batch(bdir, slice(0, PAR_BATCH), dev)
+        for step_no in (0, SSI_ONLY_STEPS + 1):
+            one = par_step(copy.deepcopy(net), None, batch, step_no, dev)
+            sharded = par_step(copy.deepcopy(net), make_mesh(), batch, step_no, dev)
+            same = (one["metrics"] == sharded["metrics"] and all(
+                torch.equal(one["params"][k], sharded["params"][k]) for k in one["params"]))
+            res[f"step_{step_no}"] = {"metrics": one["metrics"], "bitwise": same}
+            if not same:
+                raise AssertionError(f"world size 1, step {step_no}: sharded "
+                                     f"{sharded['metrics']} vs one device {one['metrics']}")
+        par_exact_mode(False)
+        graft_entry.dryrun_multichip(1)  # the sharded step and annotation on make_annotate_mesh(1)
+        # 20d: torch's defaults, batch 8, the step past the switch
+        timed = {}
+        big = {k: torch.cat([v] * (PAR_TIMED_BATCH // PAR_BATCH)) for k, v in batch.items()}
+        for what in ("one device", "sharded, world 1", "sharded, world 1 ", "one device "):
+            from omnidata_tpu_torch import train as T
+            from omnidata_tpu_torch.losses import VNLParams
+            from omnidata_tpu_torch.train.parallel import shard_module
+
+            m = make_mesh() if what.startswith("sharded") else None
+            n = copy.deepcopy(net)
+            state = T.create_train_state(shard_module(n, m) if m else n, T.depth_optimizer(), m)
+            state.step = SSI_ONLY_STEPS + 1
+            step = T.make_depth_train_step(lambda mm, x: mm(x)[:, 0],
+                                           VNLParams(1.0, 1.0, (PAR_RES, PAR_RES)),
+                                           augment=True, image_size=PAR_RES)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            timed.setdefault(what.strip(), []).extend(step_times(lambda: step(state, big, gen)))
+            del state, n
+        res["timed_ms"] = {k: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                               "n": len(v)} for k, v in timed.items()}
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+
+
+def par_worker_gloo(bdir: str, out: str, n_model: int) -> None:
+    """20c, one rank of a gloo group on the one card (torchrun's
+    variables), at PAR_GLOO_RES², batch 1 a data rank, against the
+    world-size-1 step on the global batch with its forward run image by
+    image, as the batch-1 ranks run theirs (cuDNN rounds a convolution by
+    its batch size: a batched forward's step past the switch sat 7.5e-2
+    from it in L2 of the moves on an H100). Three steps, sharded and
+    at world size 1 from the same state: from fresh moments at step 0 (SSI
+    only) and past the switch (SSI, regularizer, VNL), then the step after
+    the latter from the state the world-size-1 step left (warm moments;
+    deterministic algorithms make every rank's copy of that step equal).
+    Each is held on its loss terms (PAR_RTOL), the gradients the
+    optimizer is given (the data group's sum, in L2 over all of them) and
+    the clip norms (all tensors; the model-split ones). One Adam step from
+    zero moments moves each parameter by about ±lr by its gradient's sign,
+    which rounding flips where a gradient is near zero, so only the warm
+    step's moves are held (2 lr; PAR_MOVE_RTOL in L2)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from omnidata_tpu_torch.train import SSI_ONLY_STEPS, multihost
+    from omnidata_tpu_torch.train.parallel import make_mesh
+
+    if not multihost.initialize("cpu"):  # gloo, whose ranks share the card
+        raise RuntimeError("no process group from the environment")
+    dev = torch.device("cuda", multihost.local_rank() % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    par_exact_mode(True)
+    rank, world = multihost.rank(), multihost.world_size()
+    lead = rank == 0
+    net = par_net(dev)
+    late = SSI_ONLY_STEPS + 1
+    start = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    whole = par_batch(bdir, slice(0, PAR_BATCH), dev, PAR_GLOO_RES)
+    mesh = make_mesh(world // n_model, n_model)
+    per = PAR_BATCH // mesh.n_data
+    mine = {k: v[mesh.data_index * per:(mesh.data_index + 1) * per] for k, v in whole.items()}
+    after = copy.deepcopy(net)  # becomes the warm state's parameters
+    want = {"full_loss": par_step(after, None, whole, late, dev, per_image=True, record=lead)}
+    warm = want["full_loss"]["opt"]
+    got = {"full_loss": par_step(copy.deepcopy(net), mesh, mine, late, dev, record=True),
+           "ssi_only": par_step(copy.deepcopy(net), mesh, mine, 0, dev, record=True),
+           "warm": par_step(copy.deepcopy(after), mesh, mine, late + 1, dev, warm=warm,
+                            record=True)}
+    if lead:
+        want["ssi_only"] = par_step(copy.deepcopy(net), None, whole, 0, dev, per_image=True,
+                                    record=True)
+        want["warm"] = par_step(copy.deepcopy(after), None, whole, late + 1, dev,
+                                per_image=True, warm=warm, record=True)
+        starts = {"ssi_only": start, "full_loss": start, "warm": want["full_loss"]["params"]}
+        res = {"grid": [mesh.n_data, mesh.n_model], "res": PAR_GLOO_RES,
+               "s_step": got["full_loss"]["s"], "s_step_world_1": want["full_loss"]["s"],
+               "steps": {k: {"metrics": got[k]["metrics"],
+                             **par_close(got[k], want[k], starts[k]),
+                             **par_grads_close(got[k], want[k])} for k in got}}
+        grad_rtol = {"ssi_only": PAR_GRAD_RTOL, "warm": PAR_GRAD_RTOL,
+                     "full_loss": PAR_GRAD_RTOL if n_model == 1 else PAR_GRAD_RTOL_VNL_CUT}
+        res["grad_rtol"] = grad_rtol
+        bad = [k for k, c in res["steps"].items()
+               if max(c["loss_rel"].values()) > PAR_RTOL
+               or max(c["grad_rel"], c["norm_rel"], c["norm_split_rel"]) > grad_rtol[k]
+               or (k == "warm" and (c["param_err_over_lr"] > 2
+                                    or c["move_rel"] > PAR_MOVE_RTOL))]
+        Path(out).write_text(json.dumps(res))
+        if bad:
+            raise AssertionError(f"sharded steps {bad} against world size 1: {res}")
+    multihost.barrier("compared")
+    dist.destroy_process_group()
+
+
+def par_run(args: list, env=None) -> str:
+    """`python chip_smoke.py --phase20 ...` (or any argv) as a subprocess ->
+    its output; a non-zero exit fails with the output's tail."""
+    p = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True, timeout=PAR_TIMEOUT_S)
+    if p.returncode:
+        print(p.stdout[-4000:], file=sys.stderr)
+        raise AssertionError(f"{args[:4]} exited {p.returncode}")
+    return p.stdout
+
+
+def par_torchrun(bdir: str) -> dict:
+    """20b: ``train_depth`` under torchrun at world size 1 on phase 11's
+    labels, half the steps, then ``--resume`` to all of them."""
+    import ast
+    import math
+
+    import torch
+
+    from omnidata_tpu_torch.models import DPTHybrid
+    from omnidata_tpu_torch.train.driver import load_pretrained
+
+    tdir = PAR_DIR / "torchrun"
+    tdir.mkdir()
+    half = PAR_TORCHRUN_STEPS // 2
+    cfg = write_config(tdir / "depth.yml", {
+        "image_size": PAR_RES, "batch_size": PAR_BATCH, "max_steps": half,
+        "val_step": half, "ckpt_step": 100, "log_step": 1,
+        "val_fraction": 0.25, "num_workers": 4, "save_top_k": 2, "data_parallel": 1,
+        "checkpoint_dir": str(tdir / "ck"), "data_paths": {"bench": bdir}})
+    run = ["-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_port",
+           str(par_free_port()), "-m", "omnidata_tpu_torch.train_depth", "--config_file", cfg]
+    t0 = time.perf_counter()
+    out1 = par_run(run)
+    trained = check_trained("torchrun train_depth", out1, tdir / "ck", "val_depth_loss",
+                            half, (half,), PAR_RES)
+    out2 = par_run(run + ["--resume", "--max_steps", str(PAR_TORCHRUN_STEPS)])
+    resumed = [ast.literal_eval(line.split(": ", 1)[1].rsplit(" (", 1)[0])["loss"]
+               for line in out2.splitlines() if line.startswith("step ") and ": {" in line]
+    again = torch.load(tdir / "ck" / "last" / "state.pt", map_location="cpu", weights_only=True)
+    if (f"resumed from {tdir / 'ck'}/last at step {half}" not in out2
+            or len(resumed) != PAR_TORCHRUN_STEPS - half
+            or not all(math.isfinite(x) for x in resumed)
+            or int(again["step"]) != PAR_TORCHRUN_STEPS
+            or int(again["opt_state"]["count"]) != PAR_TORCHRUN_STEPS
+            or sorted(json.loads((tdir / "ck" / "scores.json").read_text()))
+            != sorted(f"step_{k}" for k in (half, PAR_TORCHRUN_STEPS))):
+        raise AssertionError(f"torchrun train_depth --resume: {out2[-2000:]}")
+    net = DPTHybrid(num_channels=1)
+    load_pretrained(net, str(tdir / "ck" / "last"))
+    if not all(torch.equal(net.state_dict()[k], v) for k, v in again["params"].items()):
+        raise AssertionError("the one-device loader read another 'last'")
+    return {"losses": trained["losses"] + resumed, "val": trained["val"],
+            "s": time.perf_counter() - t0}
+
+
+def par_gloo(bdir: str, n_data: int, n_model: int, env: dict) -> dict:
+    """20c on one grid: its ranks as processes of ``chip_smoke.py --phase20
+    gloo``, with torchrun's variables -> rank 0's results."""
+    world = n_data * n_model
+    out = PAR_DIR / f"c_{n_data}x{n_model}.json"
+    port = par_free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--phase20", "gloo", bdir, str(out), str(n_model)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(env, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="2"))
+        for r in range(world)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=PAR_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode:
+            print(text[-4000:], file=sys.stderr)
+            raise AssertionError(f"20c {n_data}x{n_model} rank {r} exited {p.returncode}")
+    return json.loads(out.read_text())
+
+
+def phase_parallel(card: str, bdir: str) -> dict:
+    """Phase 20: multi-device training on the one card (see the module doc).
+    20a and 20d run alone; 20b and 20c's two grids then run at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    if PAR_DIR.exists():
+        shutil.rmtree(PAR_DIR)
+    PAR_DIR.mkdir(parents=True)
+    # 20a + 20d: NCCL at world size 1, deterministic (cuBLAS's workspace fixed)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    text = par_run([__file__, "--phase20", "nccl1", bdir, str(PAR_DIR / "a.json")], env)
+    a = json.loads((PAR_DIR / "a.json").read_text())
+    s_a = time.perf_counter() - t0
+    lines = [ln for ln in text.splitlines() if ln.startswith("dryrun_multichip")]
+    if len(lines) != 2:
+        raise AssertionError(f"dryrun_multichip(1) printed {lines}")
+    losses = {k: v["metrics"]["loss"] for k, v in a.items() if k.startswith("step_")}
+    log(f"20a NCCL world size 1, DPT-hybrid-384 at {PAR_RES}², batch {PAR_BATCH}, TF32 off, "
+        f"deterministic: the sharded step equals the one-device step bit for bit before "
+        f"and after the switch (losses {losses}); {lines[0]}; {lines[1]}; {s_a:.1f} s")
+    t = a["timed_ms"]
+    log(f"20d depth step past the switch, batch {PAR_TIMED_BATCH}, {PAR_RES}², torch's "
+        f"defaults, ms by CUDA events (median/min/max of 2 x {TRAIN_TIMED} after "
+        f"{TRAIN_WARMUP} each, in turns A B B A): one device "
+        f"{t['one device']['median']:.1f}/{t['one device']['min']:.1f}/"
+        f"{t['one device']['max']:.1f}; sharded world 1 "
+        f"{t['sharded, world 1']['median']:.1f}/{t['sharded, world 1']['min']:.1f}/"
+        f"{t['sharded, world 1']['max']:.1f}; card {card}")
+    # 20b and 20c at once: their processes share the card and the host
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1 + len(PAR_GLOO_GRIDS)) as pool:
+        fb = pool.submit(par_torchrun, bdir)
+        fc = {f"{d}x{m}": pool.submit(par_gloo, bdir, d, m, env) for d, m in PAR_GLOO_GRIDS}
+        b = fb.result()
+        gloo = {k: f.result() for k, f in fc.items()}
+    s_bc = time.perf_counter() - t0
+    half = PAR_TORCHRUN_STEPS // 2
+    log(f"20b torchrun --nproc_per_node 1 train_depth ({half} steps, then --resume to "
+        f"{PAR_TORCHRUN_STEPS}): losses {[round(x, 5) for x in b['losses']]}, the resumed run "
+        f"going on from step {half}, 'last' at step {PAR_TORCHRUN_STEPS} read by the "
+        f"one-device loader; {b['s']:.1f} s beside 20c")
+    for grid, c in gloo.items():
+        held = "; ".join(
+            f"{k} (loss {v['metrics']['loss']:.5f}): loss terms "
+            f"{max(v['loss_rel'].values()):.3e}, gradients {v['grad_rel']:.3e} of L2 (worst "
+            f"tensor {v['worst_tensor'][0]} {v['worst_tensor'][1]:.3e}), clip norm "
+            f"{v['norm_rel']:.3e}, model-split tensors' norm {v['norm_split_rel']:.3e}, "
+            f"parameters {v['param_err_over_lr']:.4f} lr, moves {v['move_rel']:.3e}"
+            for k, v in c["steps"].items())
+        log(f"20c gloo {grid} on one card, {PAR_GLOO_RES}² (gloo through host memory, one "
+            f"card, beside 20b and the other grid; not a multi-GPU number): "
+            f"{c['s_step']:.2f} s a step (world size 1 {c['s_step_world_1']:.2f} s); against "
+            f"the world-size-1 step on batch {PAR_BATCH}, forward image by image (bounds: "
+            f"loss terms {PAR_RTOL:.0e}, gradients and norms {c['grad_rtol']}; warm: 2 lr, "
+            f"moves {PAR_MOVE_RTOL:.0e}): {held}")
+    s_phase = time.perf_counter() - t_phase
+    log(f"phase 20: {s_phase:.1f} s (20b and 20c at once: {s_bc:.1f} s)")
+    return {"nccl_world_1": {k: v for k, v in a.items() if k != "timed_ms"},
+            "torchrun": b, "gloo_one_card": gloo, "timed_ms": t, "s_phase": s_phase,
+            "card": card}
+
+
+def phase20_worker(argv: list) -> int:
+    """`chip_smoke.py --phase20 nccl1 BDIR OUT` or `--phase20 gloo BDIR OUT
+    N_MODEL`: phase 20's processes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if argv[0] == "nccl1":
+        par_worker_nccl1(argv[1], argv[2])
+    else:
+        par_worker_gloo(argv[1], argv[2], int(argv[3]))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2923,6 +3429,9 @@ def main() -> int:
     s19 = time.perf_counter() - t0
     log(f"phase 19: {s19:.1f} s; card {card}")
 
+    # 20. multi-device training ----------------------------------------------
+    parallel = phase_parallel(card, bdir)
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -2993,7 +3502,7 @@ def main() -> int:
         "device_prefixes": prefixes, "dpt": dpt, "train": train,
         "eval_multitask_hrnet": eval_mt, "midas": midas, "refocus": refocus,
         "phase19": {"per_view": per_view, "sharded": sharded, "data": data,
-                    "s": s19},
+                    "s": s19}, "phase20": parallel,
         "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
@@ -3005,4 +3514,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase20_worker(sys.argv[2:]) if sys.argv[1:2] == ["--phase20"] else main())

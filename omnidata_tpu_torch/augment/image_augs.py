@@ -7,6 +7,12 @@ each branch computed and selected with ``torch.where`` on the device (no
 host round trip), its draws from an explicit ``torch.Generator``.
 resize_crop: joint resize (rgb bilinear, labels nearest as
 ``jax.image.resize``) or centre/random crop of a task dict to a fixed size.
+
+In a sharded step (``train/parallel``) a rank holds rows [i·B, (i+1)·B) of
+a global batch of n·B, ``shard=(i, n)``: the per-image draws are made for
+the global batch from the generator every rank seeds alike, and each rank
+keeps its rows, so the step draws what the one-process step draws.
+resize_crop draws one crop for the whole batch and needs no shard.
 """
 from __future__ import annotations
 
@@ -61,11 +67,13 @@ def gaussian_blur(img: torch.Tensor, sigma, kernel_size: int = 5) -> torch.Tenso
 
 def augment_rgb(rgb: torch.Tensor, generator: torch.Generator,
                 p_sharpness: float = 0.4, p_motion: float = 0.2,
-                p_gauss: float = 0.2) -> torch.Tensor:
+                p_gauss: float = 0.2, shard: tuple = (0, 1)) -> torch.Tensor:
     """The reference's cascade (augmentation.py:19-67), p-gated per batch;
-    ``generator`` lives on rgb's device."""
+    ``generator`` lives on rgb's device; shard (i, n): rgb is rows i of n
+    equal parts of the global batch."""
     kw = dict(generator=generator, device=rgb.device)
-    sf = torch.rand(rgb.shape[0], **kw)
+    B, (i, n) = rgb.shape[0], shard
+    sf = torch.rand(n * B, **kw)[i * B:(i + 1) * B]
     gates = torch.rand(3, **kw)
     direction = torch.randint(0, 4, (), **kw)
     sigma = 0.1 + 1.9 * torch.rand((), **kw)
@@ -115,12 +123,13 @@ def resize_crop(batch: dict, generator: torch.Generator | None, out_size: int,
 
 
 def augment_batch(batch: dict, generator: torch.Generator, image_size: int,
-                  normalize: bool) -> dict:
+                  normalize: bool, shard: tuple = (0, 1)) -> dict:
     """The trainers' in-step augmentation (train_depth.py:245-253,
     train_normal.py:237-241): resize/crop to image_size, the mask back to
-    bool, the rgb cascade; normalize maps rgb to [-1, 1] after it (depth)."""
+    bool, the rgb cascade; normalize maps rgb to [-1, 1] after it (depth).
+    shard (i, n): the batch is rows i of n equal parts of the global one."""
     batch = resize_crop(dict(batch), generator, image_size)
     batch["mask_valid"] = batch["mask_valid"] > 0.5
-    rgb = augment_rgb(batch["rgb"], generator)
+    rgb = augment_rgb(batch["rgb"], generator, shard=shard)
     batch["rgb"] = rgb * 2.0 - 1.0 if normalize else rgb
     return batch

@@ -110,18 +110,32 @@ class MixedLoader:
         self.num_workers = num_workers
         self.prefetch = max(1, prefetch_batches)
 
-    def batches(self, steps: int, seed: int | None = 0):
+    def batches(self, steps: int, seed: int | None = 0, shard: tuple = (0, 1),
+                skip: int = 0):
+        """`steps` batches from the plan of `seed`, after its first `skip`
+        (drawn, not decoded: a resumed run goes on with its plan). shard
+        (i, n): yield rows [i·B/n, (i+1)·B/n) of each batch of the same
+        global plan, so a data rank of a sharded step decodes only its rows
+        and the global batch does not depend on the world size. (The JAX
+        driver seeds each process's own plan with step·process_count +
+        process_index instead: a JAX process feeds many devices, a torch
+        rank one.)"""
         rng = np.random.RandomState(seed)
+        i, n = shard
+        if self.batch_size % n:
+            raise ValueError(f"batch {self.batch_size} does not split over {n} data ranks")
+        lo, hi = i * self.batch_size // n, (i + 1) * self.batch_size // n
         # resolve the whole (component, item, aug-seed) plan up front:
         # deterministic for a fixed seed regardless of decode-thread timing
         plan = []
-        for _ in range(steps):
+        for _ in range(skip + steps):
             row = []
             for _ in range(self.batch_size):
                 d = rng.randint(len(self.datasets))
                 row.append((d, rng.randint(len(self.datasets[d])),
                             rng.randint(1 << 31)))
-            plan.append(row)
+            plan.append(row[lo:hi])
+        plan = plan[skip:]
 
         def submit_row(pool, row):
             return [pool.submit(_fetch, self.datasets[d], int(i), int(s))

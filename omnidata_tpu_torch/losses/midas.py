@@ -11,11 +11,16 @@ counterpart of the JAX package's ``losses/midas.py``.
 Masked medians sort with invalid pixels pushed to the float maximum; the
 sort is stable, as ``jnp.sort`` is, so that among equal values the gradient
 reaches the same element as JAX's.
+
+``group``: the data group of a sharded step, None in one process (see
+``losses.masked``). The alignments are per image and stay local; only the
+reductions over the batch take all-reduced denominators.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils.collectives import all_sum
 from .masked import masked_l1_loss
 
 
@@ -52,10 +57,10 @@ def masked_shift_and_scale(depth_pred: torch.Tensor, depth_gt: torch.Tensor,
 
 
 def ssi_mae(depth_pred: torch.Tensor, depth_gt: torch.Tensor,
-            mask_valid: torch.Tensor) -> torch.Tensor:
+            mask_valid: torch.Tensor, group=None) -> torch.Tensor:
     """Scale-shift-invariant masked L1 (midas_loss.py:104-112)."""
     pred_a, gt_a = masked_shift_and_scale(depth_pred, depth_gt, mask_valid)
-    return masked_l1_loss(pred_a, gt_a, mask_valid)
+    return masked_l1_loss(pred_a, gt_a, mask_valid, group)
 
 
 def compute_scale_and_shift(prediction: torch.Tensor, target: torch.Tensor,
@@ -87,20 +92,22 @@ def _gradient_loss_image(prediction, target, mask):
     return torch.sum(grad_x, (1, 2)) + torch.sum(grad_y, (1, 2)), M
 
 
-def _reduce(image_loss, M, reduction: str):
+def _reduce(image_loss, M, reduction: str, group=None):
     one = M.new_tensor(1.0)
     if reduction == "batch-based":
-        divisor = torch.sum(M)
+        divisor = all_sum(torch.sum(M), group)
         return torch.where(divisor > 0, torch.sum(image_loss) / torch.maximum(divisor, one),
                            divisor.new_tensor(0.0))
     # image-based: per-image mean over valid pixels, then mean over images
     per_image = torch.where(M > 0, image_loss / torch.maximum(M, one), image_loss)
-    return torch.mean(per_image)
+    if group is None:
+        return torch.mean(per_image)
+    return torch.sum(per_image) / all_sum(M.new_tensor(M.shape[0]), group)
 
 
 def gradient_matching_term(prediction: torch.Tensor, target: torch.Tensor,
                            mask: torch.Tensor, scales: int = 4,
-                           reduction: str = "batch-based") -> torch.Tensor:
+                           reduction: str = "batch-based", group=None) -> torch.Tensor:
     """Multi-scale gradient matching (midas_loss.py:114-134): 2**k strided
     subsampling, k in [0, scales)."""
     total = 0.0
@@ -108,13 +115,13 @@ def gradient_matching_term(prediction: torch.Tensor, target: torch.Tensor,
         step = 2**scale
         il, M = _gradient_loss_image(prediction[:, ::step, ::step],
                                      target[:, ::step, ::step], mask[:, ::step, ::step])
-        total = total + _reduce(il, M, reduction)
+        total = total + _reduce(il, M, reduction, group)
     return total
 
 
 def inverse_depth_regularizer(depth_pred: torch.Tensor, depth_gt: torch.Tensor,
                               mask_valid: torch.Tensor, scales: int = 4,
-                              reduction: str = "image-based") -> torch.Tensor:
+                              reduction: str = "image-based", group=None) -> torch.Tensor:
     """midas_loss's regularizer: gradient matching on inverse depth, the
     inverse prediction least-squares aligned to the inverse gt."""
     pred_inv = 1.0 / (depth_pred[:, 0] + 1e-6)
@@ -122,14 +129,16 @@ def inverse_depth_regularizer(depth_pred: torch.Tensor, depth_gt: torch.Tensor,
     m = mask_valid[:, 0]
     scale, shift = compute_scale_and_shift(pred_inv, gt_inv, m)
     pred_ssi = scale[:, None, None] * pred_inv + shift[:, None, None]
-    return gradient_matching_term(pred_ssi, gt_inv, m, scales=scales, reduction=reduction)
+    return gradient_matching_term(pred_ssi, gt_inv, m, scales=scales, reduction=reduction,
+                                  group=group)
 
 
 def midas_loss(depth_pred: torch.Tensor, depth_gt: torch.Tensor,
                mask_valid: torch.Tensor, alpha: float = 0.1, scales: int = 4,
-               reduction: str = "image-based"):
+               reduction: str = "image-based", group=None):
     """Full MiDaS loss (midas_loss.py:137-157). Inputs NCHW with C=1 (mask
     boolean). Returns (total, ssi, reg)."""
-    ssi = ssi_mae(depth_pred, depth_gt, mask_valid)
-    reg = inverse_depth_regularizer(depth_pred, depth_gt, mask_valid, scales, reduction)
+    ssi = ssi_mae(depth_pred, depth_gt, mask_valid, group)
+    reg = inverse_depth_regularizer(depth_pred, depth_gt, mask_valid, scales, reduction,
+                                    group)
     return ssi + alpha * reg, ssi, reg

@@ -11,12 +11,22 @@ and the 25% hard-example selection is a masked rank threshold over the
 losses sorted stably (as ``jnp.sort``), so that the gradient reaches the
 same triplets as JAX's. Sampling takes an explicit ``torch.Generator``;
 ``vnl_from_indices`` takes the triplets themselves.
+
+``group``: the data group of a sharded step, None in one process (see
+``losses.masked``). The 25% cut is over the whole batch, so each rank
+gathers every rank's group losses and validity (rank order is batch
+order), takes the stable sort's keep-set of the global batch and sums its
+own kept entries over the global count; no sum of per-rank cuts would
+give the same set.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from ..utils.collectives import all_gather_cat, all_sum
 
 
 class VNLParams(NamedTuple):
@@ -103,7 +113,7 @@ def _unit_normals(groups: torch.Tensor) -> torch.Tensor:
 
 def vnl_from_indices(gt_depth: torch.Tensor, pred_depth: torch.Tensor,
                      p123: torch.Tensor, params: VNLParams,
-                     select: bool = True) -> torch.Tensor:
+                     select: bool = True, group=None) -> torch.Tensor:
     """VNL given explicit triplet indices (3,N). Fixed-shape equivalent of
     VNL_Loss.forward (virtual_normal_loss.py:154-200)."""
     g_gt = _form_groups(transfer_xyz(gt_depth, params), p123)
@@ -119,6 +129,8 @@ def vnl_from_indices(gt_depth: torch.Tensor, pred_depth: torch.Tensor,
 
     lf = loss_per_group.reshape(-1)
     vf = valid.reshape(-1)
+    if group is not None:
+        return _vnl_share(lf, vf, select, group)
     n_valid = vf.sum()
     if not select:
         return (lf * vf).sum() / torch.clamp(n_valid, min=1)
@@ -131,6 +143,25 @@ def vnl_from_indices(gt_depth: torch.Tensor, pred_depth: torch.Tensor,
     keep = (idx >= start) & (idx < n_valid)
     cnt = keep.sum()
     return torch.where(keep, ls, ls.new_tensor(0.0)).sum() / torch.clamp(cnt, min=1)
+
+
+def _vnl_share(lf: torch.Tensor, vf: torch.Tensor, select: bool, group) -> torch.Tensor:
+    """This rank's share of the global batch's VNL: the losses lf and
+    validity vf of its rows, flattened."""
+    if not select:
+        return (lf * vf).sum() / torch.clamp(all_sum(vf.sum(), group), min=1)
+    all_lf, all_vf = all_gather_cat(lf, group), all_gather_cat(vf, group)
+    big = torch.finfo(all_lf.dtype).max
+    _, order = torch.sort(torch.where(all_vf, all_lf, all_lf.new_tensor(big)), stable=True)
+    n_valid = all_vf.sum()
+    start = (n_valid.to(torch.float32) * 0.25).to(torch.int64)
+    idx = torch.arange(all_lf.shape[0], device=lf.device)
+    keep_sorted = (idx >= start) & (idx < n_valid)
+    keep = torch.empty_like(keep_sorted)
+    keep[order] = keep_sorted
+    r = dist.get_rank(group)
+    mine = keep[r * lf.shape[0]:(r + 1) * lf.shape[0]]
+    return torch.where(mine, lf, lf.new_tensor(0.0)).sum() / torch.clamp(keep_sorted.sum(), min=1)
 
 
 def virtual_normal_loss(gt_depth: torch.Tensor, pred_depth: torch.Tensor,

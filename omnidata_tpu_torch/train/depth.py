@@ -9,6 +9,11 @@ max-pool dilated (make_valid_mask, train_depth.py:215-242).
 Before the switch the regularizer and the VNL are computed as metrics
 without a graph: JAX computes them and selects ``ssi`` with ``where``, so
 their gradient is zero there and the loss and gradients are the same.
+
+Sharded (``state.mesh``, ``train/parallel``): each data rank holds its rows
+of the global batch, augments them with the global batch's draws, and
+computes its share of every loss term over the data group; the metrics it
+returns are the shares summed over the group, the global batch's values.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from ..augment import augment_batch
 from ..data.masks import make_valid_mask
 from ..losses import VNLParams, clip, inverse_depth_regularizer, sample_triplets, ssi_mae
 from ..losses import vnl_from_indices
+from ..utils.collectives import all_sum
 from .state import TrainState
 
 SSI_ONLY_STEPS = 15_000
@@ -27,19 +33,20 @@ REG_WEIGHT = 0.1
 
 def depth_loss_fn(pred: torch.Tensor, batch: dict, step: int,
                   triplets: torch.Tensor, vnl_params: VNLParams,
-                  schedule: bool = True):
+                  schedule: bool = True, group=None):
     """pred (B,H,W) from the net; batch: rgb (B,3,H,W) in [-1,1] · depth
     (B,1,H,W) in [0,1] · mask_valid (B,1,H,W) bool. -> (loss, metrics);
-    schedule=False gives the post-switch loss at any step (validation)."""
+    schedule=False gives the post-switch loss at any step (validation).
+    group: the data group, whose ranks each return their share."""
     pred = clip(pred, 0.0, 1.0)[:, None]
     mask = make_valid_mask(batch["mask_valid"], 4)
-    ssi = ssi_mae(pred, batch["depth"], mask)
+    ssi = ssi_mae(pred, batch["depth"], mask, group)
     late = not schedule or step >= SSI_ONLY_STEPS
     with torch.set_grad_enabled(late and torch.is_grad_enabled()):
-        reg = inverse_depth_regularizer(pred, batch["depth"], mask)
+        reg = inverse_depth_regularizer(pred, batch["depth"], mask, group=group)
         # reference train_depth.py:272 passes PREDICTIONS in the gt_depth
         # slot (vnl_loss(depth_preds, depth_gt)): triplet filtering keys on pred
-        vnl = vnl_from_indices(pred, batch["depth"], triplets, vnl_params)
+        vnl = vnl_from_indices(pred, batch["depth"], triplets, vnl_params, group=group)
     loss = ssi + REG_WEIGHT * reg + VNL_WEIGHT * vnl if late else ssi
     return loss, {"loss": loss, "ssi": ssi, "reg": reg, "vnl": vnl}
 
@@ -56,17 +63,36 @@ def make_depth_train_step(apply_fn, vnl_params: VNLParams, augment: bool = False
     unless given."""
 
     def train_step(state: TrainState, batch: dict, generator=None, triplets=None):
+        shard, group = data_shard(state.mesh)
         if augment:
-            batch = augment_batch(batch, generator, image_size, normalize=True)
+            batch = augment_batch(batch, generator, image_size, normalize=True, shard=shard)
         if triplets is None:
             triplets = sample_triplets(generator, vnl_params, batch["rgb"].device)
         pred = apply_fn(state.net, batch["rgb"])
-        loss, metrics = depth_loss_fn(pred, batch, state.step, triplets, vnl_params)
+        loss, metrics = depth_loss_fn(pred, batch, state.step, triplets, vnl_params,
+                                      group=group)
         loss.backward()
         state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+        return global_metrics(metrics, group)
 
     return train_step
+
+
+def data_shard(mesh) -> tuple:
+    """((data index, n_data), data group) of a mesh; ((0, 1), None) alone."""
+    if mesh is None:
+        return (0, 1), None
+    return (mesh.data_index, mesh.n_data), mesh.data_group
+
+
+def global_metrics(metrics: dict, group) -> dict:
+    """The detached metrics, each rank's shares summed over the data group
+    (one all-reduce)."""
+    keys = list(metrics)
+    if group is None:
+        return {k: metrics[k].detach() for k in keys}
+    total = all_sum(torch.stack([metrics[k].detach() for k in keys]), group)
+    return dict(zip(keys, total.unbind()))
 
 
 def make_depth_eval_step(apply_fn, vnl_params: VNLParams):

@@ -20,17 +20,27 @@ formulas:
 The bias corrections are float32 scalars computed on the host from the
 count, so a step makes no device-to-host round trip. The moments are lists
 of tensors in the order of ``TrainState.names``.
+
+Sharded (``TrainState.mesh``, ``train/parallel``): the gradients are
+summed over the data group in one flat bucket per dtype before the step,
+and the clip's global norm sums the squares of the model-split tensors
+over the model group and counts the replicated ones once, so every rank
+clips as the one-process step does.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.convert import _dpt_mapping
 from ..models.dpt import DPTHybrid
+from ..utils.collectives import all_sum
+from .parallel import split_dim
 
 
 def trainable_parameters(net: nn.Module) -> dict:
@@ -66,20 +76,30 @@ class Optimizer:
             state["nu_max"] = zeros()
         return state
 
-    def global_norm(self, grads: list) -> torch.Tensor:
+    def global_norm(self, grads: list, split: list | None = None,
+                    model_group=None) -> torch.Tensor:
         """sqrt of the sum of squares over every tensor. On the card each
         tensor's norm squared (three launches, not two per tensor); on the
         CPU, whose norm kernel sums a tensor's squares one after another in
         float32 (4e-5 off over 2.4M entries), each tensor's ``torch.sum``
-        of squares, which sums in a cascade."""
+        of squares, which sums in a cascade. With a model group, the
+        squares of the tensors flagged in `split` (this rank's shards) are
+        summed over the group."""
         if grads[0].is_cuda:
-            return torch.sqrt(torch.sum(torch.stack(torch._foreach_norm(grads)) ** 2))
-        return torch.sqrt(torch.sum(torch.stack([torch.sum(g * g) for g in grads])))
+            sq = torch.stack(torch._foreach_norm(grads)) ** 2
+        else:
+            sq = torch.stack([torch.sum(g * g) for g in grads])
+        if model_group is None:
+            return torch.sqrt(torch.sum(sq))
+        flags = torch.tensor(split, device=sq.device)
+        sharded = all_sum(torch.sum(torch.where(flags, sq, 0.0)), model_group)
+        return torch.sqrt(sharded + torch.sum(torch.where(flags, 0.0, sq)))
 
-    def step(self, params: list, grads: list, state: dict) -> None:
+    def step(self, params: list, grads: list, state: dict, split: list | None = None,
+             model_group=None) -> None:
         """One update of params and state in place from grads (which it
-        may overwrite)."""
-        g_norm = self.global_norm(grads)
+        may overwrite); split and model_group as ``global_norm``'s."""
+        g_norm = self.global_norm(grads, split, model_group)
         trigger = g_norm < self.grad_clip
         one = g_norm.new_tensor(1.0)
         torch._foreach_div_(grads, torch.where(trigger, one, g_norm))
@@ -121,16 +141,30 @@ def normal_optimizer(lr: float = 1e-4, weight_decay: float = 2e-6,
     return Optimizer(lr=lr, grad_clip=grad_clip, weight_decay=weight_decay, amsgrad=True)
 
 
+def sum_over(grads: list, group) -> None:
+    """Sum the tensors over group in place, one flat bucket per dtype."""
+    by_dtype = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in same])
+        dist.all_reduce(flat, group=group)
+        for g, f in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(f.view_as(g))
+
+
 @dataclasses.dataclass
 class TrainState:
-    """step, the module whose trainable tensors are the params, and the
-    optimizer state over them (in ``names`` order)."""
+    """step, the module whose trainable tensors are the params, the
+    optimizer state over them (in ``names`` order), and the grid the net is
+    sharded over (None: one process)."""
 
     step: int
     net: nn.Module
     opt_state: dict
     tx: Optimizer
     names: list
+    mesh: Any = None
 
     @property
     def params(self) -> list:
@@ -139,20 +173,30 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """The optimizer step on the params' .grad (None -> zeros, as JAX
-        differentiates tensors the forward pass ignores), then step + 1."""
+        differentiates tensors the forward pass ignores), then step + 1.
+        Sharded, the gradients of the ranks' loss shares are first summed
+        over the data group: the gradient of the global loss."""
         params = self.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        mesh = self.mesh
+        split, model_group = None, None
+        if mesh is not None and mesh.model_group is not None:
+            split, model_group = [split_dim(n) is not None for n in self.names], mesh.model_group
         with torch.no_grad():
-            self.tx.step(params, grads, self.opt_state)
+            if mesh is not None and mesh.data_group is not None:
+                sum_over(grads, mesh.data_group)
+            self.tx.step(params, grads, self.opt_state, split, model_group)
         for p in params:
             p.grad = None
         self.step += 1
 
 
-def create_train_state(net: nn.Module, tx: Optimizer) -> TrainState:
+def create_train_state(net: nn.Module, tx: Optimizer, mesh=None) -> TrainState:
+    """mesh: the grid net was sharded over (``parallel.shard_module``), or
+    None in one process."""
     names = list(trainable_parameters(net))
     for n, p in net.named_parameters():
         p.requires_grad_(n in names)
-    state = TrainState(0, net, {}, tx, names)
+    state = TrainState(0, net, {}, tx, names, mesh)
     state.opt_state = tx.init(state.params)
     return state

@@ -5,12 +5,16 @@ train_depth.py + config/depth.yml), the port's counterpart of the root
     python -m omnidata_tpu_torch.train_depth --config_file config/depth.yml \\
         [--max_steps N] [--checkpoint_dir D] [--resume] [--pretrained CKPT] \\
         [--device cuda|cpu]
+    torchrun --nproc_per_node N -m omnidata_tpu_torch.train_depth ...
 
 Loss: MiDaS SSI-MAE (+ 0.1 gradient matching + 10 VNL after 15k steps);
 Adam lr 1e-5, grad-clip 10 (optax's formulas); rgb normalized to [-1,1];
 fixed image_size resize; batches mix components 1/k with a threaded
-prefetch pool; top-k checkpoints on the validation loss. One device,
-``--device cuda`` by default (raises without a card).
+prefetch pool; top-k checkpoints on the validation loss. One process on
+one device, ``--device cuda`` by default (raises without a card); under
+torchrun one process per device, the global batch split over
+``data_parallel`` ranks and the ViT's matmuls over ``model_parallel``
+(``train/parallel``), checkpoints in the single-device format.
 """
 from __future__ import annotations
 
@@ -21,13 +25,14 @@ from .losses import VNLParams
 from .models import DPTHybrid
 from .models.registry import init_weights
 from .train import create_train_state, depth_optimizer, make_depth_eval_step, make_depth_train_step
+from .train.parallel import broadcast_module, shard_module
 from .train.driver import (
     COMMON_KEYS,
     build_datasets,
     load_config,
     load_pretrained,
+    parallel_setup,
     parse_args,
-    resolve_device,
     run_training,
     to_device,
 )
@@ -36,7 +41,7 @@ from .train.driver import (
 def main(argv=None):
     args = parse_args(argv, "config/depth.yml")
     cfg = load_config(args.config_file, COMMON_KEYS)
-    device = resolve_device(args.device)
+    mesh, device = parallel_setup(cfg, args.device)
     image_size = int(cfg.get("image_size", 384))
     datasets, val_datasets = build_datasets(
         cfg, tasks=("rgb", "depth_zbuffer", "mask_valid"), image_size=image_size)
@@ -49,8 +54,12 @@ def main(argv=None):
         cfg.get("pretrained_weights_path") if cfg.get("pretrained") else None)
     if pretrained:
         load_pretrained(net, pretrained)
-        print(f"warm-started from {pretrained}")
-    state = create_train_state(net.to(device), depth_optimizer(lr=float(cfg.get("lr", 1e-5))))
+        if mesh.rank == 0:
+            print(f"warm-started from {pretrained}")
+    net = net.to(device)
+    broadcast_module(net)
+    state = create_train_state(shard_module(net, mesh),
+                               depth_optimizer(lr=float(cfg.get("lr", 1e-5))), mesh)
 
     def apply_fn(net, rgb):
         return net(rgb)[:, 0]

@@ -4,13 +4,16 @@
     python -m omnidata_tpu_torch.train_normal --config_file config/normal.yml \\
         [--max_steps N] [--checkpoint_dir D] [--resume] [--pretrained CKPT] \\
         [--device cuda|cpu]
+    torchrun --nproc_per_node N -m omnidata_tpu_torch.train_normal ...
 
 Model: UNet (v1, ``model: unet``, the default; ``unet_downsample``, and
 ``remat`` on by default as in the JAX driver) or DPT-hybrid (``model:
 dpt``); loss = cosine-angular + 10 * L1 over the dilated valid mask; Adam
 amsgrad lr 1e-4 wd 2e-6, grad-clip 10 (optax's formulas); batches mix
-components 1/k with a threaded prefetch pool. One device, ``--device cuda``
-by default (raises without a card).
+components 1/k with a threaded prefetch pool. One process on one device,
+``--device cuda`` by default (raises without a card); under torchrun one
+process per device, sharded as ``train_depth`` is (the UNet is replicated
+over ``model_parallel``, whose ranks repeat its work, as JAX's do).
 """
 from __future__ import annotations
 
@@ -25,13 +28,14 @@ from .train import (
     make_normal_train_step,
     normal_optimizer,
 )
+from .train.parallel import broadcast_module, shard_module
 from .train.driver import (
     COMMON_KEYS,
     build_datasets,
     load_config,
     load_pretrained,
+    parallel_setup,
     parse_args,
-    resolve_device,
     run_training,
     to_device,
 )
@@ -42,7 +46,7 @@ KNOWN_KEYS = COMMON_KEYS | {"model", "remat", "unet_downsample"}
 def main(argv=None):
     args = parse_args(argv, "config/normal.yml")
     cfg = load_config(args.config_file, KNOWN_KEYS)
-    device = resolve_device(args.device)
+    mesh, device = parallel_setup(cfg, args.device)
     image_size = int(cfg.get("image_size", 512))
     datasets, val_datasets = build_datasets(
         cfg, tasks=("rgb", "normal", "mask_valid"), image_size=image_size)
@@ -60,10 +64,13 @@ def main(argv=None):
         cfg.get("pretrained_weights_path") if cfg.get("pretrained") else None)
     if pretrained:
         load_pretrained(net, pretrained)
-        print(f"warm-started from {pretrained}")
+        if mesh.rank == 0:
+            print(f"warm-started from {pretrained}")
     tx = normal_optimizer(lr=float(cfg.get("lr", 1e-4)),
                           weight_decay=float(cfg.get("weight_decay", 2e-6)))
-    state = create_train_state(net.to(device), tx)
+    net = net.to(device)
+    broadcast_module(net)
+    state = create_train_state(shard_module(net, mesh), tx, mesh)
 
     def apply_fn(net, rgb):
         return net(rgb)

@@ -1,7 +1,10 @@
 """Shared helpers of the tests that hold omnidata_tpu_torch against the JAX
 package: numpy inputs go through both, and results come back as numpy."""
+import functools
+
 import numpy as np
 
+from omnidata_tpu_torch.graft_entry import TINY_DPT  # JAX's dryrun DPT
 from omnidata_tpu_torch.interop import camera_from_numpy, mesh_from_numpy
 from omnidata_tpu_torch.mesh import TriangleMesh
 
@@ -183,3 +186,24 @@ def jax_mini_scene(d: str, tasks=("rgb", "normal", "depth_zbuffer", "mask_valid"
         cli.main(["--model_path", d, "--task", task, "with", "RESOLUTION=64",
                   "RASTER_TILE=32", "RASTER_CAP=256", "RASTER_CHUNK=64"])
     return d
+
+
+@functools.lru_cache(maxsize=1)
+def _tiny_dpt_shapes() -> dict:
+    from omnidata_tpu_torch.models import DPTHybrid
+
+    return {k: v.shape for k, v in DPTHybrid(num_channels=1, **TINY_DPT).state_dict().items()}
+
+
+def tiny_dpt_state_dict(flax_tree) -> dict:
+    """A tiny DPT's Flax tree (its params, or a param-shaped optimizer
+    moment) as a port state dict; the never-run published tensors
+    ('*_drop': the classifier, refinenet4's first unit) zeros of the tiny
+    net's shapes."""
+    import torch
+
+    from omnidata_tpu_torch.models.convert import _dpt_mapping, state_dict_from_flax
+
+    conv = state_dict_from_flax(_dpt_mapping(TINY_DPT["vit_blocks"]), flax_tree)
+    return {k: conv[k] if conv[k].shape == shape else torch.zeros(shape)
+            for k, shape in _tiny_dpt_shapes().items()}

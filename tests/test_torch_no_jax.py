@@ -9,7 +9,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "omnidata_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_annotator.py",
-    ROOT / "tools" / "raster_measure.py", ROOT / "tools" / "loader_rate.py"]
+    ROOT / "tools" / "raster_measure.py", ROOT / "tools" / "loader_rate.py",
+    ROOT / "tests" / "_torch_dist_worker.py"]
 _BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "omnidata_tpu", "PIL", "yaml")
 
 
@@ -88,3 +89,27 @@ def test_eval_and_multitask_modules_import_with_jax_blocked():
 
 def test_midas_and_refocus_modules_import_with_jax_blocked():
     _import_with_jax_blocked(MIDAS_REFOCUS_MODULES)
+
+
+MULTI_DEVICE_MODULES = (
+    "omnidata_tpu_torch.train.parallel", "omnidata_tpu_torch.train.multihost",
+    "omnidata_tpu_torch.utils.collectives", "omnidata_tpu_torch.graft_entry",
+    "omnidata_tpu_torch.train_depth", "omnidata_tpu_torch.train_normal")
+
+
+def test_multi_device_modules_import_with_jax_blocked():
+    """train/parallel, train/multihost, graft_entry and the sharded trainers
+    (and the tests' rank worker, by path)."""
+    _import_with_jax_blocked(MULTI_DEVICE_MODULES)
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'optax', 'omnidata_tpu', 'PIL', 'yaml', 'h5py'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import _torch_dist_worker\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]

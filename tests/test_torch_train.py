@@ -402,14 +402,16 @@ def test_load_pretrained_from_a_published_layout_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("extra,error", [
-    ({"data_parallel": 2}, NotImplementedError), ({"model_parallel": 2}, NotImplementedError),
-    ({"data_parallel": 2, "model_parallel": 2, "packed_cache": "/tmp/pack"},
-     NotImplementedError), ({}, RuntimeError)])
+    ({"data_parallel": 2}, ValueError), ({"model_parallel": 2}, ValueError),
+    ({"data_parallel": 2, "model_parallel": 2, "packed_cache": "/tmp/pack"}, ValueError),
+    ({}, RuntimeError)])
 def test_trainers_refuse_what_is_not_ported(scene, tmp_path, monkeypatch, extra, error):
-    """Parallelism raises, beside the packed cache too (which is ported);
-    so does --device cuda without a card (the default device)."""
+    """A grid of data_parallel x model_parallel ranks needs a process group
+    of that size: in one process it raises the grid's ValueError (the
+    packed cache beside it is no reason to refuse); --device cuda without a
+    card (the default device) raises RuntimeError."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = _normal_cfg(tmp_path, scene, **extra)
     for main in (t_train_normal.main, t_train_depth.main):
-        with pytest.raises(error):
+        with pytest.raises(error, match="world size 1" if error is ValueError else None):
             main(["--config_file", path])
