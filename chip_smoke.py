@@ -72,7 +72,8 @@ which fails the run on error:
    kernel at K = 32, at the main paths' shapes (A and B on the bench
    batch, C's bodies on the large batch at ccap 192, C compacting also at
    the CLI's ccap 48): bit for bit against
-   its plain version on the same inputs (2 views at a time, timed), its
+   its plain version on the same inputs (2 views at a time, timed; at
+   ccap 48 the rows of the 8 views with the most staged faces), its
    item list built on the card equal to ``split_schedule``'s and (B, C
    compacting) the count pass's staged faces to ``stage_faces``'; beside
    its pixel-face pairs and
@@ -96,11 +97,11 @@ which fails the run on error:
     and of the same batches rendered and fetched without them. Then the
     CLI batch with the most scan-all and block-mode rows at the CLI's own
     ``ccap``: kernel C bit for bit against its plain version on its 2
-    hardest views, and the written outputs of its 8 hardest views equal to
+    hardest views, and the written outputs of its 2 hardest views equal to
     ``annotate_views`` on the plain rasters with the CLI's arguments; the
     check prints the launch's work items and split rows.
-13. CLI ``--task pano`` at 2048x1024 on the bench scene for 2 camera
-    locations, each panorama's render timed; outputs decode.
+13. CLI ``--task pano`` at 2048x1024 on the bench scene for 1 camera
+    location, the panorama's render timed; outputs decode.
 14. the host cues' device prefixes: NARF border maps, 2D blur and 2.5D
     channel maps (``annotator.cli.device_cue_maps``) of the bench and the
     large K = 32 batches on the card (timed), against the port on the CPU
@@ -119,7 +120,7 @@ which fails the run on error:
     float32 on the card (one EncoderBlock within 0.01 relative, the whole
     net correlated > 0.9, tests/test_models.py:302's bounds); img/s at
     float32 and bfloat16, batch 1, 8, 16, by CUDA events (median, min, max
-    of 5 reps), beside the FLOPs per image counted from the layer shapes
+    of 3 reps), beside the FLOPs per image counted from the layer shapes
     and their share of the card's dense peak; peak device memory. Then
     ``python -m omnidata_tpu_torch.demo`` on a seeded 640x480 PNG for both
     tasks at once; its PNGs must decode and not be constant. No TPU kernel's
@@ -128,7 +129,7 @@ which fails the run on error:
 16. training on phase 11's labels (the CLI's 16 bench views at 512²):
     a. one DPT-hybrid-384 depth step (published widths, seeded weights,
        batch 1 at 384², fixed triplets) before and after the 15k schedule
-       switch, and one UNet (downsample 6) normal step (batch 2 at 512²),
+       switch, and one UNet (downsample 6) normal step (batch 1 at 512²),
        each on the card against the CPU with TF32 off: the loss within
        1e-3; each parameter's gradient, backpropagated on the card from the
        CPU's dL/dpred, against the same in float64 on the CPU, within 3
@@ -137,20 +138,21 @@ which fails the run on error:
        differences (the loss's median and hard-example picks and Adam's
        sign-like first step amplify last-bit differences) and whether two
        card steps from one state agree bit for bit;
-    b. ``python -m omnidata_tpu_torch.train_depth`` (384², batch 8, 12
-       steps, validation and checkpoints every 6, top 2, augment, 8 loader
+    b. ``python -m omnidata_tpu_torch.train_depth`` (384², batch 8, 6
+       steps, validation and checkpoints every 3, top 2, augment, 8 loader
        threads) and ``train_normal`` (UNet, 512², batch 4, 6 steps, every 3)
        as subprocesses at once on phase 11's output: finite logged losses,
        ``scores.json`` on the validation loss, validation PNGs, ``last`` at
        the final step; then both again with ``--resume``: resumed at that
        step, ``last`` unchanged bit for bit;
-    c. times by CUDA events (3 warm-up steps, median, min, max of 10): the
-       depth step at batch 8, 384² before and after the switch, the normal
-       step at batch 16, 512² with remat on and off, each with the script's
-       cuDNN setting (TF32 off, deterministic) and with torch's defaults
-       (which the trainers run with); img/s, training FLOPs (3 forwards,
-       ``model_flops``), share of 67 TFLOP/s, peak memory; each step's
-       parts by CUDA events and a ``torch.profiler`` window; the loader's ms
+    c. times by CUDA events (2 warm-up steps, median, min, max of 6): the
+       depth step at batch 8, 384² before and after the switch with the
+       script's cuDNN setting (TF32 off, deterministic) and with torch's
+       defaults (which the trainers run with), the normal step at batch
+       16, 512² with remat on and off with torch's defaults; img/s,
+       training FLOPs (3 forwards, ``model_flops``), share of 67 TFLOP/s,
+       peak memory; each step's parts by CUDA events (mean of 2) and a
+       ``torch.profiler`` window of 2 steps; the loader's ms
        a sample and a batch (8 threads); the trainer loop's device idle
        share (loader, copy and step, torch's defaults). No TPU kernel's
        counterpart runs here either; the labels are kernel A's (phase 11).
@@ -175,13 +177,13 @@ which fails the run on error:
        at once: finite losses, GradNorm weights summing to 2 (an update
        whose weights come out NaN is skipped and logged); one step's losses
        on the card within 1e-3 of the CPU's (TF32 off); step times by CUDA
-       events (median, min, max of 10 after 3) at batch 4 and 256² in
+       events (median, min, max of 6 after 2) at batch 4 and 256² in
        torch's defaults, img/s, training FLOPs (``model_flops``, 3
        forwards), share of 67 TFLOP/s, peak memory;
     c. HRNet-W18 and W48 (``create_model("hrnet_w18" | "hrnet_w48")``):
        card against CPU at 129² within 1e-3 of max |CPU| (float32, TF32
        off); forwards at 513², batch 1 and 4, float32 and bfloat16, with
-       deterministic and autotuned cuDNN (median, min, max of 5 reps of
+       deterministic and autotuned cuDNN (median, min, max of 3 reps of
        4): img/s, FLOPs, share of 67 (989 for bfloat16) TFLOP/s, peak
        memory. No TPU kernel's counterpart runs in phase 17.
 18. MiDaS v2.1 and the refocus augmentation:
@@ -189,7 +191,7 @@ which fails the run on error:
        seeded) on the card against the CPU at 128² within 1e-3 of max |CPU|
        (float32, TF32 off); on ``midas_transform_v21`` of a seeded 640x480
        image (3 x 288 x 384); forwards at 384², batch 1, 8, 16 with
-       deterministic and autotuned cuDNN (median, min, max of 5 reps by CUDA
+       deterministic and autotuned cuDNN (median, min, max of 3 reps by CUDA
        events): img/s, GFLOP an image (``model_flops``), share of 67 TFLOP/s,
        peak memory, a profile window at batch 16;
     b. the same for ``midas_v21_small`` (EfficientNet-Lite3) at 256², and
@@ -251,9 +253,20 @@ which fails the run on error:
        host memory: not a multi-GPU number). 20b and 20c's two grids run
        at once, after 20a and 20d;
     d. the depth step past the switch at batch 8, 384², torch's defaults,
-       by CUDA events (median, min, max of 2 x 10 after 3, in turns A B B
-       A): the sharded path at world size 1 against the one-device step,
-       beside the card's name and power limit.
+       by CUDA events (median, min, max of 10 after 2, one device then
+       sharded): the sharded path at world size 1 against the one-device
+       step, beside the card's name and power limit.
+21. the offline accuracy chain: ``accuracy_benchmark.main`` in this
+    process on the card in torch's defaults, ``--train_scenes 2
+    --val_scenes 1 --normal_steps 12 --depth_steps 12`` and the tool's
+    defaults otherwise (512² renders through the CLI's batched route, the
+    UNet at batch 16 and DPT-hybrid-384 at batch 8 at their published
+    widths, seeded), root and report under ``build/chip_smoke_accuracy/``:
+    kernel A launched at least once a render batch (counters reset just
+    before, read just after), B and C not at all; every metric of the
+    report finite, untrained and trained rows of both models; the card's
+    name in the report. Prints the view counts, each stage's seconds and
+    the depth net's share of exactly-zero outputs on the held-out views.
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
@@ -261,8 +274,9 @@ log's last lines to stderr.
 Prints the kernel table as one JSON line (per kernel its K = 32 time,
 plain version, bound and work items, its main-path launches; no PyTorch
 call computes these kernels' function, so ``library_ms`` is null; phases
-14-20's numbers under "device_prefixes", "dpt", "train",
-"eval_multitask_hrnet", "midas", "refocus", "phase19" and "phase20"), the
+14-21's numbers under "device_prefixes", "dpt", "train",
+"eval_multitask_hrnet", "midas", "refocus", "phase19", "phase20" and
+"phase21"), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
@@ -300,6 +314,7 @@ N_TIMED_BATCHES = 4
 TIMED_REPS = 5
 LARGE_CCAP = 192  # bench.py's large-scene call
 LARGE_BATCHES = 2
+PLAIN48_VIEWS = 8  # phase 9: C at ccap 48 against its plain version on these views' rows
 
 EXPECTED = {  # modality -> (trailing shape, dtype name)
     "depth_zbuffer": ((), "uint16"),
@@ -319,8 +334,8 @@ HOST_LIBRARIES = ("narf", "felzenszwalb")  # the host cues' native cores
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 CLI_LOG = CLI_DIR / "cli.log"
 CLI_BENCH_ARGS = ["with", "NUM_POINTS=4", "STOP_VIEW_NUMBER=3"]
-PANO_CAMERAS = 2
-CLI_PLAIN_VIEWS = 8  # the CLI batch's hardest views held against the plain pipeline
+PANO_CAMERAS = 1
+CLI_PLAIN_VIEWS = 2  # the CLI batch's hardest views held against the plain pipeline
 # image outputs of `--task all` per view (semantic needs face labels)
 CLI_IMAGE_TASKS = ("rgb", "normal", "depth_zbuffer", "depth_euclidean",
                    "mask_valid", "reshading", "principal_curvature",
@@ -764,7 +779,7 @@ def check_cli_route(cli, bdir: str, views, settings, dev, route_calls: int) -> d
 
 DPT_RES = 384
 DPT_BATCHES = (1, 8, 16)
-DPT_REPS = 5
+DPT_REPS = 3
 DPT_F32_TOL = 1e-3  # max |card - CPU| / max |CPU|, float32 without TF32
 # dense peaks of one H100 SXM (data sheet): FP32 without tensor cores (TF32
 # off), BF16 tensor cores
@@ -962,7 +977,7 @@ def phase_dpt(dev, card: str) -> dict:
 
 DEPTH_RES, NORMAL_RES = 384, 512
 DEPTH_BS, NORMAL_BS = 8, 16
-TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAIN_WARMUP, TRAIN_TIMED = 2, 6
 TRAINER_TIMEOUT_S = 420
 STEP_LOSS_TOL = 1e-3  # |card - CPU| / |CPU| of the loss, TF32 off
 STEP_GRAD_TOL = 3.0  # per parameter: card's error vs float64 <= 3x the CPU's + 1e-2
@@ -1126,23 +1141,9 @@ def normal_fns():
 
 def write_config(path: Path, cfg: dict) -> str:
     """A trainer config in the YAML subset the port reads."""
-    def scalar(v):
-        if isinstance(v, bool):
-            return "true" if v else "false"
-        if isinstance(v, float):
-            return f"{v:.6e}"
-        if isinstance(v, str):
-            return "'" + v.replace("'", "''") + "'"
-        return str(v)
+    from omnidata_tpu_torch.utils.config import dumps
 
-    lines = []
-    for k, v in cfg.items():
-        if isinstance(v, dict):
-            lines.append(f"{k}:")
-            lines += [f"  {kk}: {scalar(vv)}" for kk, vv in v.items()]
-        else:
-            lines.append(f"{k}: {scalar(v)}")
-    path.write_text("\n".join(lines) + "\n")
+    path.write_text(dumps(cfg))
     return str(path)
 
 
@@ -1217,8 +1218,8 @@ def trainers_end_to_end(bdir: str) -> dict:
     common = {"val_fraction": 0.25, "augment": True, "num_workers": 8,
               "save_top_k": 2, "log_step": 2}
     depth_cfg = write_config(tdir / "depth.yml", {
-        "image_size": DEPTH_RES, "batch_size": 8, "max_steps": 12, "val_step": 6,
-        "ckpt_step": 6, "checkpoint_dir": str(tdir / "depth"), **common,
+        "image_size": DEPTH_RES, "batch_size": 8, "max_steps": 6, "val_step": 3,
+        "ckpt_step": 3, "checkpoint_dir": str(tdir / "depth"), **common,
         "data_paths": {"bench": bdir}})
     normal_cfg = write_config(tdir / "normal.yml", {
         "model": "unet", "image_size": NORMAL_RES, "batch_size": 4, "max_steps": 6,
@@ -1230,13 +1231,13 @@ def trainers_end_to_end(bdir: str) -> dict:
     outs = trainer_runs(runs)
     s_first = time.perf_counter() - t0
     res = {"depth": check_trained("train_depth", outs[0], tdir / "depth",
-                                  "val_depth_loss", 12, (6, 12), DEPTH_RES),
+                                  "val_depth_loss", 6, (3, 6), DEPTH_RES),
            "normal": check_trained("train_normal", outs[1], tdir / "normal",
                                    "val_normal_loss", 6, (3, 6), NORMAL_RES)}
     t0 = time.perf_counter()
     outs = trainer_runs([(m, a + ["--resume"]) for m, a in runs])
     s_resume = time.perf_counter() - t0
-    for (name, steps), out in zip((("depth", 12), ("normal", 6)), outs):
+    for (name, steps), out in zip((("depth", 6), ("normal", 6)), outs):
         if "resumed from" not in out or f"at step {steps}" not in out:
             raise AssertionError(f"train_{name} --resume: {out[-2000:]}")
         import torch
@@ -1307,14 +1308,14 @@ def cudnn_mode(mode: str) -> None:
     torch.backends.cudnn.deterministic = mode == "phase1"
 
 
-def step_times(step) -> list:
-    """ms of each of TRAIN_TIMED calls after TRAIN_WARMUP, by CUDA events."""
+def step_times(step, timed: int = TRAIN_TIMED) -> list:
+    """ms of each of timed calls after TRAIN_WARMUP, by CUDA events."""
     import torch
 
     for _ in range(TRAIN_WARMUP):
         step()
     out = []
-    for _ in range(TRAIN_TIMED):
+    for _ in range(timed):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
         step()
@@ -1373,10 +1374,11 @@ def profile_window(run, reps: int, top: int = 6) -> dict:
 
 
 def train_timings(dev, bdir: str, card: str) -> dict:
-    """16c: the depth step (DPT, bs 8, 384²) before and after the switch and
-    the normal step (UNet, bs 16, 512²) with remat on and off, each in both
-    cuDNN modes; img/s, FLOPs, share of peak, peak memory; the step split;
-    the loader; the trainer loop's idle share."""
+    """16c: the depth step (DPT, bs 8, 384²) before and after the switch in
+    both cuDNN modes and the normal step (UNet, bs 16, 512²) with remat on
+    and off in torch's defaults (the trainers' mode); img/s, FLOPs, share of
+    peak, peak memory; the step split; the loader; the trainer loop's idle
+    share."""
     import numpy as np
     import torch
 
@@ -1390,7 +1392,8 @@ def train_timings(dev, bdir: str, card: str) -> dict:
     res = {}
     gen = torch.Generator(device=dev).manual_seed(0)
     vnl = VNLParams(1.0, 1.0, (DEPTH_RES, DEPTH_RES))
-    configs = []  # (name, net factory, batch, step fn, optimizer, first step, size)
+    configs = []  # (name, net factory, batch, step fn, optimizer, first step, size,
+    # cuDNN modes: the first also times the parts and the profile window)
     dbatch = {k: v.to(dev) for k, v in
               train_batch(bdir, DEPTH_TASKS, DEPTH_RES, DEPTH_BS, False).items()}
     nbatch = {k: v.to(dev) for k, v in
@@ -1405,13 +1408,13 @@ def train_timings(dev, bdir: str, card: str) -> dict:
     for sched, step0 in (("ssi_only", 0), ("full_loss", T.SSI_ONLY_STEPS + 1)):
         configs.append((f"dpt_depth_bs{DEPTH_BS}_{sched}", lambda: DPTHybrid(num_channels=1),
                         dbatch, T.make_depth_train_step(dpt_apply, vnl, True, DEPTH_RES),
-                        T.depth_optimizer(1e-5), step0, DEPTH_RES))
+                        T.depth_optimizer(1e-5), step0, DEPTH_RES, ("phase1", "defaults")))
     for remat in (True, False):
         configs.append((f"unet_normal_bs{NORMAL_BS}_remat_{'on' if remat else 'off'}",
                         lambda r=remat: UNet(out_channels=3, downsample=6, remat=r),
                         nbatch, T.make_normal_train_step(unet_apply, True, NORMAL_RES),
-                        T.normal_optimizer(1e-4), 0, NORMAL_RES))
-    for name, make, batch, step_fn, tx, step0, size in configs:
+                        T.normal_optimizer(1e-4), 0, NORMAL_RES, ("defaults",)))
+    for name, make, batch, step_fn, tx, step0, size, modes in configs:
         net = make()
         init_weights(net, torch.Generator().manual_seed(0))
         net = net.to(dev)
@@ -1419,7 +1422,7 @@ def train_timings(dev, bdir: str, card: str) -> dict:
         state = T.create_train_state(net, tx)
         state.step = step0
         entry = {"train_gflop_per_image": 3 * fwd_flops / 1e9}
-        for mode in ("phase1", "defaults"):
+        for mode in modes:
             cudnn_mode(mode)
             torch.cuda.reset_peak_memory_stats(dev)
             ms = step_times(lambda: step_fn(state, batch, gen))
@@ -1435,13 +1438,14 @@ def train_timings(dev, bdir: str, card: str) -> dict:
                 f"a training image (3x forward) = {ips * 3 * fwd_flops / 1e12:.2f} "
                 f"TFLOP/s = {ips * 3 * fwd_flops / 67e12:.3f} of 67 TFLOP/s; peak "
                 f"{entry[mode]['peak_gib']:.2f} GiB; card {card}")
-        cudnn_mode("phase1")
+        cudnn_mode(modes[0])
         depth = name.startswith("dpt")
         fns = depth_fns(sample_triplets(gen, vnl, dev), vnl) if depth else normal_fns()
-        parts = [split_step(state, batch, gen, *fns, size, depth) for _ in range(4)][1:]
+        parts = [split_step(state, batch, gen, *fns, size, depth) for _ in range(3)][1:]
         entry["split_ms"] = {k: statistics.mean(p[k] for p in parts) for k in parts[0]}
-        entry["profile"] = profile_window(lambda: step_fn(state, batch, gen), 3)
-        log(f"train step {name}, parts (device ms, cuDNN phase1): " + ", ".join(
+        entry["profile"] = profile_window(lambda: step_fn(state, batch, gen), 2)
+        cudnn_mode("phase1")
+        log(f"train step {name}, parts (device ms, cuDNN {modes[0]}): " + ", ".join(
             f"{k} {v:.1f}" for k, v in entry["split_ms"].items()) + "; profile: "
             f"wall {entry['profile']['wall_ms']:.1f} ms, kernels "
             f"{entry['profile']['kernel_ms']:.1f} ms, idle share "
@@ -1528,12 +1532,13 @@ def train_checks(dev, bdir: str) -> dict:
         checks[f"dpt_depth_{sched}"] = step_card_vs_cpu(
             f"DPT depth {DEPTH_RES}² bs 1 {sched}", dev, net, T.depth_optimizer(1e-5),
             *depth_fns(triplets, vnl), batch, step)
-    # remat off: the same values (tests/test_torch_train.py), less CPU time
+    # remat off: the same values (tests/test_torch_train.py), less CPU time;
+    # batch 1 (GroupNorm couples no images), as the DPT's
     net = UNet(out_channels=3, downsample=6)
     init_weights(net, torch.Generator().manual_seed(0))
     checks["unet_normal"] = step_card_vs_cpu(
-        f"UNet normal {NORMAL_RES}² bs 2", dev, net, T.normal_optimizer(1e-4), *normal_fns(),
-        train_batch(bdir, NORMAL_TASKS, NORMAL_RES, 2, False), 0)
+        f"UNet normal {NORMAL_RES}² bs 1", dev, net, T.normal_optimizer(1e-4), *normal_fns(),
+        train_batch(bdir, NORMAL_TASKS, NORMAL_RES, 1, False), 0)
     return checks
 
 
@@ -1551,7 +1556,7 @@ MT_ARCHS = ("multitask", "mtan", "padnet", "crossstitch")
 MT_RES, MT_BS, MT_STEPS, MT_BALANCE = 256, 4, 6, 2  # train_multitask's defaults, 6 steps
 MT_LOSS_TOL = 1e-3  # |card - CPU| / |CPU| of one step's losses, TF32 off
 HRNET_VARIANTS = ("w18", "w48")
-HRNET_RES, HRNET_CHECK_RES, HRNET_BATCHES, HRNET_REPS = 513, 129, (1, 4), 5
+HRNET_RES, HRNET_CHECK_RES, HRNET_BATCHES, HRNET_REPS = 513, 129, (1, 4), 3
 HRNET_TOL = 1e-3  # max |card - CPU| / max |CPU|, float32 without TF32
 
 
@@ -1606,13 +1611,11 @@ def eval_runs(bdir: str, depth_ckpt: str, normal_ckpt: str, oasis_csv: str) -> d
     runs = {f"eval_depth align {a}": ("eval_depth", data + ["--checkpoint", depth_ckpt,
                                                            "--align", a])
             for a in ("none", "ssi")}
-    # seeded weights: the trained checkpoint's depth is all zeros, which the
-    # scale-shift alignment leaves as it is. The seeded net's final ReLU
-    # already zeroes part of its output, and 12 steps at lr 1e-5 zero the
-    # rest here. Whether JAX's trainer does the same at this width is not
-    # known: tests/test_torch_train_collapse.py compares the two only on
-    # the tiny DPT at 64² on the CPU, where neither collapses and each of
-    # the port's steps leaves JAX's share of zeros
+    # seeded weights as well: from this seed the trained checkpoint's depth
+    # goes to all zeros within a few steps, which the scale-shift alignment
+    # leaves as it is. JAX's trainer does the same from the same weights
+    # (tests/depth_collapse_experiment.py; tests/test_torch_train_collapse.py
+    # pins the dead head)
     runs["eval_depth seeded align ssi"] = ("eval_depth", data + ["--align", "ssi"])
     for model, ck in (("dpt", []), ("unet", ["--checkpoint", normal_ckpt])):
         runs[f"eval_normal {model}"] = ("eval_normal", data + ["--model", model] + ck)
@@ -1930,7 +1933,7 @@ def phase_eval_multitask(dev, card: str, bdir: str) -> dict:
 MIDAS_CELLS = (("midas_v21", 384), ("midas_v21_small", 256))  # hub names, their sizes
 MIDAS_CHECK_RES = 128
 MIDAS_BATCHES = (1, 8, 16)
-MIDAS_REPS = 5
+MIDAS_REPS = 3
 MIDAS_TOL = 1e-3  # max |card - CPU| / max |CPU|, float32 without TF32
 REFOCUS_PAIRS = 4
 REFOCUS_RES = 512  # the demo's transforms' size
@@ -2353,6 +2356,7 @@ def phase_data(card: str, bdir: str) -> dict:
 PAR_RES = 384  # DPT-hybrid-384's size
 PAR_BATCH = 2  # 20a, 20c: the global batch (one image a data rank in 20c)
 PAR_TIMED_BATCH = 8  # 20d, phase 16's
+PAR_TIMED_STEPS = 10  # 20d: one round of each
 PAR_RTOL = 1e-5  # 20c: loss terms against world size 1 (the CPU tests' bounds)
 # 20c: gradients (all, in L2) and clip norms against world size 1. Set
 # from one run on an H100: 2x1 at most 2.5e-6; 2x2 4.0e-6 SSI only,
@@ -2560,7 +2564,7 @@ def par_worker_nccl1(bdir: str, out: str) -> None:
         # 20d: torch's defaults, batch 8, the step past the switch
         timed = {}
         big = {k: torch.cat([v] * (PAR_TIMED_BATCH // PAR_BATCH)) for k, v in batch.items()}
-        for what in ("one device", "sharded, world 1", "sharded, world 1 ", "one device "):
+        for what in ("one device", "sharded, world 1"):
             from omnidata_tpu_torch import train as T
             from omnidata_tpu_torch.losses import VNLParams
             from omnidata_tpu_torch.train.parallel import shard_module
@@ -2573,7 +2577,7 @@ def par_worker_nccl1(bdir: str, out: str) -> None:
                                            VNLParams(1.0, 1.0, (PAR_RES, PAR_RES)),
                                            augment=True, image_size=PAR_RES)
             gen = torch.Generator(device=dev).manual_seed(0)
-            timed.setdefault(what.strip(), []).extend(step_times(lambda: step(state, big, gen)))
+            timed[what] = step_times(lambda: step(state, big, gen), PAR_TIMED_STEPS)
             del state, n
         res["timed_ms"] = {k: {"median": statistics.median(v), "min": min(v), "max": max(v),
                                "n": len(v)} for k, v in timed.items()}
@@ -2761,8 +2765,8 @@ def phase_parallel(card: str, bdir: str) -> dict:
         f"and after the switch (losses {losses}); {lines[0]}; {lines[1]}; {s_a:.1f} s")
     t = a["timed_ms"]
     log(f"20d depth step past the switch, batch {PAR_TIMED_BATCH}, {PAR_RES}², torch's "
-        f"defaults, ms by CUDA events (median/min/max of 2 x {TRAIN_TIMED} after "
-        f"{TRAIN_WARMUP} each, in turns A B B A): one device "
+        f"defaults, ms by CUDA events (median/min/max of {PAR_TIMED_STEPS} after "
+        f"{TRAIN_WARMUP}, one device then sharded): one device "
         f"{t['one device']['median']:.1f}/{t['one device']['min']:.1f}/"
         f"{t['one device']['max']:.1f}; sharded world 1 "
         f"{t['sharded, world 1']['median']:.1f}/{t['sharded, world 1']['min']:.1f}/"
@@ -2799,6 +2803,83 @@ def phase_parallel(card: str, bdir: str) -> dict:
     return {"nccl_world_1": {k: v for k, v in a.items() if k != "timed_ms"},
             "torchrun": b, "gloo_one_card": gloo, "timed_ms": t, "s_phase": s_phase,
             "card": card}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the offline accuracy chain
+
+ACC_DIR = ROOT / "build" / "chip_smoke_accuracy"
+ACC_ARGS = ["--train_scenes", "2", "--val_scenes", "1", "--normal_steps", "12",
+            "--depth_steps", "12"]  # the rest at the tool's defaults
+ACC_ROWS = ("untrained init", "trained")
+ACC_VIEWS_PER_DISPATCH = 32  # the tool's default: one raster launch a batch
+
+
+def phase_accuracy(card: str) -> dict:
+    """Phase 21: ``accuracy_benchmark.main`` in this process on the card
+    (see the module doc): kernel A launched once a render batch at least,
+    B and C not at all; every metric of the report finite, both rows of
+    both models; the card in the report."""
+    import math
+
+    from omnidata_tpu_torch import accuracy_benchmark as ab
+    from omnidata_tpu_torch.mesh import raster_kernels as rk
+
+    shutil.rmtree(ACC_DIR, ignore_errors=True)
+    ACC_DIR.mkdir(parents=True)
+    report, tool_log = ACC_DIR / "ACCURACY_TORCH.md", ACC_DIR / "accuracy.log"
+    counters = ((rk.raster_tiles_chunklist, "launches"), (rk.raster_tiles_compact, "launches"),
+                (rk.raster_tiles_compact, "count_launches"),
+                (rk.raster_tiles_streamed, "launches"),
+                (rk.raster_tiles_streamed, "count_launches"))
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    cudnn_mode("defaults")  # as the tool runs alone
+    t0 = time.perf_counter()
+    with open(tool_log, "w") as fh, contextlib.redirect_stdout(fh):
+        try:
+            out = ab.main(ACC_ARGS + ["--root", str(ACC_DIR / "run"), "--out", str(report)])
+        except BaseException:
+            fh.flush()
+            print(tool_log.read_text()[-4000:], file=sys.stderr)
+            raise
+        finally:
+            cudnn_mode("phase1")
+    s_phase = time.perf_counter() - t0
+    launches_a, launches_b, count_b, launches_c, count_c = (
+        getattr(fn, attr) for fn, attr in counters)
+    batches = 0
+    for split in ("train", "val"):
+        for scene in sorted((ACC_DIR / "run" / split).iterdir()):
+            n = len(list((scene / "rgb").iterdir()))
+            batches += -(-n // ACC_VIEWS_PER_DISPATCH)
+    sec = out["seconds"]
+    log(f"21 accuracy chain ({' '.join(ACC_ARGS)}, 512², UNet bs 16, DPT-hybrid-384 bs 8): "
+        f"{out['n_train_views']} train / {out['n_val_views']} val views; kernel A launches "
+        f"{launches_a} for {batches} render batches, B {launches_b} (count passes "
+        f"{count_b}), C {launches_c} (count passes {count_c}); {s_phase:.1f} s; card {card}")
+    log("21 stage seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in sec.items()))
+    log(f"21 depth zero share on the held-out views: untrained "
+        f"{out['depth_untrained_zero_share']:.6f}, trained {out['depth_trained_zero_share']:.6f}")
+    if launches_a < batches or launches_b or count_b or launches_c or count_c:
+        raise AssertionError("the accuracy chain must launch kernel A once a render batch "
+                             "or more, and neither B nor C")
+    text = report.read_text()
+    rows = ab.report_rows(text)
+    bad = [(sec_, m) for sec_ in ("Surface", "Depth") for m in ACC_ROWS
+           if len(rows.get((sec_, m), ())) != 7
+           or not all(map(math.isfinite, rows[(sec_, m)]))]
+    if bad:
+        raise AssertionError(f"accuracy report rows missing or not finite: {bad}")
+    if card.split(",")[0] not in text:
+        raise AssertionError(f"the accuracy report does not name the card {card!r}")
+    log(f"21 report: both rows of both models finite; UNet mean angular error "
+        f"{out['normal_untrained']['ang_error_mean']:.3f} -> "
+        f"{out['normal_trained']['ang_error_mean']:.3f}; DPT SSI-aligned L1 "
+        f"{out['depth_untrained']['eval_L1']:.3f} -> {out['depth_trained']['eval_L1']:.3f}")
+    return {"s_phase": s_phase, "render_batches": batches, "launches_a": launches_a,
+            "launches_b": launches_b + count_b, "launches_c": launches_c + count_c,
+            "results": out, "card": card}
 
 
 def phase20_worker(argv: list) -> int:
@@ -3165,45 +3246,57 @@ def main() -> int:
                                  inp32.tiles_per_view, TILE, 1)
     n_bchunks = inp32.pack.shape[1] // CHUNK
     streamed, chunklist = rk.raster_tiles_streamed, rk.raster_tiles_chunklist
+    # C at the CLI's ccap 48 against its plain version on the rows of the
+    # PLAIN48_VIEWS views with the most staged faces (rows are independent)
+    v48 = staged48.reshape(K_MAIN, -1).sum(1).argsort(
+        descending=True, stable=True)[:PLAIN48_VIEWS].sort().values
+    r48 = (v48[:, None] * linp48.tiles_per_view
+           + torch.arange(linp48.tiles_per_view, device=dev)).reshape(-1)
+    l48_hard = (linp48.ids[r48], linp48.counts[r48], linp48.origins[v48], linp48.pack,
+                tuple(p[r48] for p in linp48.dir_planes))
     # name -> (ms, work, kernel call, plain version, (wrapper, counts,
-    # chunks, overlaps[, stage cap]) of the item list's check)
+    # chunks, overlaps[, stage cap]) of the item list's check, the rows of
+    # the kernel's output that the plain version computes (None: all))
     k32 = {
         "A": (ms_a32, raster_work(inp32, staged_b),
               lambda: chunklist(*args32, inp32.dir_planes, **kw32),
               lambda: by_views(rk.raster_tiles_chunklist_reference)(
                   *args32, inp32.dir_planes, **kw32),
-              (chunklist, inp32.counts, n_bchunks, None)),
+              (chunklist, inp32.counts, n_bchunks, None), None),
         "B": (ms_b32, raster_work(inp32, staged_b, reads_bbox_words=True),
               lambda: rk.raster_tiles_compact(
                   *args32, inp32.bbox_words, inp32.dir_planes, **kw32),
               lambda: by_views(rk.raster_tiles_compact_reference)(
                   *args32, inp32.bbox_words, inp32.dir_planes, **kw32),
               (rk.raster_tiles_compact, inp32.counts, n_bchunks, staged_b,
-               rk.STAGE_CAP)),
+               rk.STAGE_CAP), None),
         "C plain body": (lms_cp, raster_work(linpC, staged),
                          lambda: streamed(*lC, **kwA),
                          lambda: by_views(rk.raster_tiles_streamed_reference)(
                              *lC, **kwA),
-                         (streamed, linpC.counts, n_lchunks, None)),
+                         (streamed, linpC.counts, n_lchunks, None), None),
         "C compacting": (lms_cc, raster_work(linpC, staged, reads_bbox_words=True),
                          lambda: streamed(*lC, bbox_words=linpC.bbox_words, **kwA),
                          lambda: by_views(rk.raster_tiles_streamed_reference)(
                              *lC, bbox_words=linpC.bbox_words, **kwA),
-                         (streamed, linpC.counts, n_lchunks, staged)),
+                         (streamed, linpC.counts, n_lchunks, staged), None),
         "C compacting, ccap 48": (
             lms_c48, raster_work(linp48, staged48, reads_bbox_words=True),
             lambda: streamed(*l48, bbox_words=linp48.bbox_words, **kwA),
             lambda: by_views(rk.raster_tiles_streamed_reference)(
-                *l48, bbox_words=linp48.bbox_words, **kwA),
-            (streamed, linp48.counts, n_lchunks, staged48)),
+                *l48_hard, bbox_words=linp48.bbox_words[v48], **kwA),
+            (streamed, linp48.counts, n_lchunks, staged48), r48),
     }
-    for name, (ms, work, run, plain, sched_of) in k32.items():
+    for name, (ms, work, run, plain, sched_of, rows) in k32.items():
         got = run()
+        if rows is not None:
+            got = tuple(g[rows] for g in got)
         work.update(check_schedule(f"kernel {name} K={K_MAIN}", *sched_of))
         work["plain_ms"], want = timed(plain)
         work["max_abs_err"] = check_kernel(
-            f"kernel {name} K={K_MAIN} vs plain ({want[0].shape[0]} rows)",
-            got, want)
+            f"kernel {name} K={K_MAIN} vs plain ({want[0].shape[0]} rows"
+            + (f": views {v48.tolist()}, the most staged faces" if rows is not None
+               else "") + ")", got, want)
         del got, want
         log(f"kernel {name} K={K_MAIN}: {ms:.3f} ms; {work['pairs']:.4g} "
             f"pixel-face pairs (bbox-overlapping faces), bound "
@@ -3212,7 +3305,7 @@ def main() -> int:
             f"{work['bytes_ms']:.3f}), {work['bound_ms'] / ms:.3f} of the bound; "
             f"items {work['items']}, split rows {work['split_rows']}; plain version "
             f"{work['plain_ms']:.1f} ms; card {card}")
-    del linp48, l48
+    del linp48, l48, l48_hard
     ms_plain_b, ms_kernel_b = in_turns(
         lambda: rk.raster_tiles_compact_reference(*args2c, **kw),
         lambda: rk.raster_tiles_compact(*args2c, **kw), 3, 20)
@@ -3432,6 +3525,9 @@ def main() -> int:
     # 20. multi-device training ----------------------------------------------
     parallel = phase_parallel(card, bdir)
 
+    # 21. the offline accuracy chain ------------------------------------------
+    accuracy = phase_accuracy(card)
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -3465,7 +3561,8 @@ def main() -> int:
               f"small: K={K_CHECK}", items_main_path=items_a,
               items_seg1=seg1["kernel A (bench)"], ms_large_k32=lms_a,
               launches_cli_bench=cli_a_bench,
-              launches_annotate_view=per_view["launches"]),
+              launches_annotate_view=per_view["launches"],
+              launches_accuracy_chain=accuracy["launches_a"]),
         entry("raster_compact (B)", "B", "raster_compact.cu", "601", launches_b,
               "render_views_fused(compact=True), bench scene", err_b,
               (ms_plain_b, ms_kernel_b),
@@ -3485,7 +3582,7 @@ def main() -> int:
               ms_ccap48=ms48, bound_ms_ccap48=work48["bound_ms"],
               pairs_ccap48=work48["pairs"], items_ccap48=work48["items"],
               split_rows_ccap48=work48["split_rows"],
-              plain_ms_ccap48=work48["plain_ms"],
+              plain_ms_ccap48=work48["plain_ms"], plain_views_ccap48=PLAIN48_VIEWS,
               max_abs_err_ccap48=work48["max_abs_err"],
               launches_cli_large=cli_c_large),
         entry("raster_streamed (C, plain body)", "C plain body",
@@ -3502,7 +3599,7 @@ def main() -> int:
         "device_prefixes": prefixes, "dpt": dpt, "train": train,
         "eval_multitask_hrnet": eval_mt, "midas": midas, "refocus": refocus,
         "phase19": {"per_view": per_view, "sharded": sharded, "data": data,
-                    "s": s19}, "phase20": parallel,
+                    "s": s19}, "phase20": parallel, "phase21": accuracy,
         "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -1,5 +1,7 @@
 """A reader for the subset of YAML that the trainers' configs use, giving
-what ``yaml.safe_load`` gives for it, so that the trainers need no PyYAML.
+what ``yaml.safe_load`` gives for it, so that the trainers need no PyYAML;
+and ``dumps``, a writer of that subset (what ``loads`` reads back equals
+the dict written).
 
 The subset: block mappings nested by indentation (spaces only), comments
 (a whole line, or after a space), and scalars resolved as YAML 1.1 resolves
@@ -163,3 +165,53 @@ def loads(text: str):
 def load_file(path: str):
     with open(path) as fh:
         return loads(fh.read())
+
+
+_PLAIN_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_.-]*$")
+
+
+def _dump_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v or v in (float("inf"), float("-inf")):
+            raise ValueError(f"{v!r} is outside the supported YAML subset")
+        text = repr(v).lower()
+        if "." not in text and "e" in text:  # 1e-05 would read back as a string
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    raise ValueError(f"{type(v).__name__} {v!r} is outside the supported YAML subset")
+
+
+def _plain(s: str) -> bool:
+    """s written unquoted reads back as s."""
+    try:
+        return scalar(s) == s
+    except ValueError:
+        return False
+
+
+def dumps(cfg: dict, indent: int = 0) -> str:
+    """A dict of scalars and non-empty nested dicts (string keys) -> YAML
+    text in the subset ``loads`` reads, keys in the dict's order; anything
+    else (lists, empty dicts, inf, nan) raises ValueError."""
+    lines = []
+    for k, v in cfg.items():
+        if not isinstance(k, str):
+            raise ValueError(f"key {k!r} is not a string")
+        key = k if _PLAIN_KEY.match(k) and _plain(k) else _dump_scalar(k)
+        if isinstance(v, dict):
+            if not v:
+                raise ValueError(f"{k}: an empty mapping is outside the supported "
+                                 "YAML subset")
+            lines.append(" " * indent + f"{key}:")
+            lines.append(dumps(v, indent + 2).rstrip("\n"))
+        else:
+            lines.append(" " * indent + f"{key}: {_dump_scalar(v)}")
+    return "\n".join(lines) + "\n"

@@ -17,9 +17,15 @@ predictions on the step's 2 views (the net ends in a ReLU) is compared.
   float32 rounding sets a small gradient's sign differently the states
   part, and later steps compound it.
 
-Neither collapses at this size, so the test does not say whether JAX's
-trainer collapses where the port's does (the full DPT at 384² on the
-card); that stays open.
+Neither collapses at this size. At full width the collapse is the
+reference's behaviour (tests/depth_collapse_experiment.py, CPU, 128²,
+batch 2): from the port's seeded initialisation the first step leaves
+99.9% of the outputs at zero in both packages, and whether a run then dies
+depends on the packages' rounding alone: JAX going on from the port's
+state after that step dies as the port does, the port going on from JAX's
+recovers as JAX does. The last test pins the state such a run ends in: a
+head whose every output is zero gets no gradient in either package, so
+no step leaves it.
 """
 import jax
 import jax.numpy as jnp
@@ -123,3 +129,43 @@ def test_neither_package_collapses_in_12_steps(runs):
     _, free = runs
     assert all(j < MAX_ZERO_SHARE and t < MAX_ZERO_SHARE for j, t in free), free
     assert 0.2 < free[0][0] < 0.8 and 0.2 < free[0][1] < 0.8, free
+
+
+def test_a_dead_head_stays_dead_in_both_packages(views):
+    """Every output of the depth net's final ReLU at zero (the last conv's
+    bias at -10): the SSI loss of a constant (1 within its epsilon) in both
+    packages, no parameter moved by either package's steps, the output
+    all zero after each."""
+    model = JDPT(num_channels=1, **TINY_DPT)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, H, H, 3)))
+    params = jax.tree_util.tree_map(lambda x: x, jax.device_get(variables))
+    head = params["params"]["head_conv3"]
+    head["bias"] = np.full_like(head["bias"], -10.0)
+
+    def japply(v, x):
+        return model.apply(v, jnp.transpose(x, (0, 2, 3, 1)))[..., 0]
+
+    jstep = jax.jit(jtrain.make_depth_train_step(japply, JVNLParams(1.0, 1.0, (H, H))))
+    jstate = jtrain.create_train_state(jax.tree_util.tree_map(jnp.asarray, params),
+                                       jtrain.depth_optimizer(lr=LR))
+    net = DPTHybrid(num_channels=1, **TINY_DPT)
+    net.load_state_dict(tiny_dpt_state_dict(params))
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    tstate = ttrain.create_train_state(net, ttrain.depth_optimizer(lr=LR))
+    tstep = ttrain.make_depth_train_step(lambda n, x: n(x)[:, 0], VNLParams(1.0, 1.0, (H, H)))
+    for s in range(3):
+        rows = slice(2 * s, 2 * s + 2)
+        key = jax.random.PRNGKey(s)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v[rows]) for k, v in views.items()}, key)
+        triplets = torch.from_numpy(np.array(j_sample_triplets(key, JVNLParams(1.0, 1.0, (H, H)))))
+        tm = tstep(tstate, {k: torch.from_numpy(v[rows]) for k, v in views.items()},
+                   triplets=triplets.long())
+        assert abs(float(jm["loss"]) - 1.0) < 1e-3 and abs(float(tm["loss"]) - 1.0) < 1e-3
+        assert abs(float(jm["loss"]) - float(tm["loss"])) < 1e-5  # float32 means
+        rgb = views["rgb"][rows]
+        assert (np.asarray(jax.jit(japply)(jstate.params, jnp.asarray(rgb))) == 0).all()
+        with torch.no_grad():
+            assert (tstate.net(torch.from_numpy(rgb)) == 0).all()
+    assert all(bool((a == b).all()) for a, b in zip(
+        jax.tree_util.tree_leaves(jstate.params), jax.tree_util.tree_leaves(params)))
+    assert all(torch.equal(v, start[k]) for k, v in tstate.net.state_dict().items())
