@@ -22,8 +22,10 @@ they trained (``eval_depth``, ``eval_normal``), the multi-task trainer
 annotator (``annotate_view``, kernel A once a view), the sharded annotator,
 the packed sample cache and the trajectory video. And multi-device
 training: the sharded step under NCCL at world size 1 and under gloo
-ranks sharing the card, ``train_depth`` under torchrun. Phases, each of
-which fails the run on error:
+ranks sharing the card, ``train_depth`` under torchrun. And the port's
+bench (``python -m omnidata_tpu_torch.bench``): the 1,423,360-face xl scene
+on kernel C, the 13-modality pipeline with its host-cue pool, the headline.
+Phases, each of which fails the run on error:
 
 1. set-up: the card's name and power limit; float32 matmuls and
    convolutions without TF32; build the CUDA kernels from csrc/ with nvcc,
@@ -73,7 +75,7 @@ which fails the run on error:
    batch, C's bodies on the large batch at ccap 192, C compacting also at
    the CLI's ccap 48): bit for bit against
    its plain version on the same inputs (2 views at a time, timed; at
-   ccap 48 the rows of the 8 views with the most staged faces), its
+   ccap 48 the rows of the 4 views with the most staged faces), its
    item list built on the card equal to ``split_schedule``'s and (B, C
    compacting) the count pass's staged faces to ``stage_faces``'; beside
    its pixel-face pairs and
@@ -267,6 +269,19 @@ which fails the run on error:
     report finite, untrained and trained rows of both models; the card's
     name in the report. Prints the view counts, each stage's seconds and
     the depth net's share of exactly-zero outputs on the held-out views.
+22. the port's bench (``omnidata_tpu_torch.bench``) in this process, in
+    torch's defaults: the xl scene (1,423,360 faces, a real Replica scan's
+    size) through ``bench_large_scene(build=build_xl_scene, prefix="xl")``
+    at 1 repetition: kernel C's count pass and sweep launched and kernel A
+    not (counters reset just before, read just after), the rows past C's
+    stage cap, split rows, ``prepare_raster``'s peak memory; every xl label
+    present with face ids agreeing with ``mask_valid``; kernel C's
+    compacting body alone at K = 32 on the xl batch (CUDA events) beside
+    its pairs and bound, then bit for bit against its plain version on the
+    rows of the 2 xl views that stage the most faces. ``bench_full13`` on 1
+    batch of the bench scene (kernel A launched, the host-cue pool runs one
+    job a view with finite seconds); the bench's headline line at 1
+    repetition.
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
@@ -275,8 +290,8 @@ Prints the kernel table as one JSON line (per kernel its K = 32 time,
 plain version, bound and work items, its main-path launches; no PyTorch
 call computes these kernels' function, so ``library_ms`` is null; phases
 14-21's numbers under "device_prefixes", "dpt", "train",
-"eval_multitask_hrnet", "midas", "refocus", "phase19", "phase20" and
-"phase21"), the
+"eval_multitask_hrnet", "midas", "refocus", "phase19", "phase20",
+"phase21" and "phase22"), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 when no CUDA device is present.
 
@@ -305,6 +320,8 @@ from raster_measure import (  # noqa: E402
     timed,
 )
 
+from omnidata_tpu_torch.utils.flops import PEAK_FLOPS, model_flops  # noqa: E402
+
 K_MAIN = 32
 K_CHECK = 2
 RES = 512
@@ -314,7 +331,7 @@ N_TIMED_BATCHES = 4
 TIMED_REPS = 5
 LARGE_CCAP = 192  # bench.py's large-scene call
 LARGE_BATCHES = 2
-PLAIN48_VIEWS = 8  # phase 9: C at ccap 48 against its plain version on these views' rows
+PLAIN48_VIEWS = 4  # phase 9: C at ccap 48 against its plain version on these views' rows
 
 EXPECTED = {  # modality -> (trailing shape, dtype name)
     "depth_zbuffer": ((), "uint16"),
@@ -781,46 +798,7 @@ DPT_RES = 384
 DPT_BATCHES = (1, 8, 16)
 DPT_REPS = 3
 DPT_F32_TOL = 1e-3  # max |card - CPU| / max |CPU|, float32 without TF32
-# dense peaks of one H100 SXM (data sheet): FP32 without tensor cores (TF32
-# off), BF16 tensor cores
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 DEMO_TIMEOUT_S = 300
-
-
-def model_flops(model, x) -> float:
-    """Multiply-adds x 2 of one forward on x, from the layer shapes: every
-    convolution and linear layer, and attention's two matrix products (no
-    interpolation, normalisation or elementwise work)."""
-    import torch
-
-    from omnidata_tpu_torch.models.layers import Attention
-
-    total = [0.0]
-
-    def conv(m, inp, out):
-        total[0] += 2.0 * out.numel() * (m.in_channels // m.groups) \
-            * m.kernel_size[0] * m.kernel_size[1]
-
-    def linear(m, inp, out):
-        total[0] += 2.0 * out.numel() * m.in_features
-
-    def attention(m, inp, out):
-        B, N, C = inp[0].shape
-        total[0] += 2.0 * 2 * B * N * N * C  # q k^T and attn v over all heads
-
-    hooks = []
-    for m in model.modules():
-        if isinstance(m, torch.nn.Conv2d):
-            hooks.append(m.register_forward_hook(conv))
-        elif isinstance(m, torch.nn.Linear):
-            hooks.append(m.register_forward_hook(linear))
-        elif isinstance(m, Attention):
-            hooks.append(m.register_forward_hook(attention))
-    with torch.no_grad():
-        model(x)
-    for h in hooks:
-        h.remove()
-    return total[0] / x.shape[0]
 
 
 def seeded_png(path: Path, seed: int = 0) -> None:
@@ -919,7 +897,7 @@ def phase_dpt(dev, card: str) -> dict:
                 xb = torch.rand(bs, 3, DPT_RES, DPT_RES, generator=gen).to(dev)
                 with torch.no_grad():
                     net(xb)  # warm-up (and the autotuner's search)
-                    iters = max(2, 8 // bs)
+                    iters = max(2, 4 // bs)
                     per = sorted(cuda_ms(lambda: net(xb), iters)
                                  for _ in range(DPT_REPS))
                 ips = [bs / (ms / 1e3) for ms in per]
@@ -2882,6 +2860,181 @@ def phase_accuracy(card: str) -> dict:
             "results": out, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the port's bench (python -m omnidata_tpu_torch.bench)
+
+BENCH_XL_REPS = 1  # bench_large_scene's repetitions on the xl scene
+BENCH_FULL13_BATCHES = 1
+
+
+def xl_kernel_c(xmesh, xcurv, cams, dev, card: str) -> dict:
+    """Kernel C's compacting body on an xl batch at the bench's ccap: timed
+    alone at K = 32 beside its pairs and bound (``raster_work``), then bit
+    for bit against its plain version on the rows of the K_CHECK views
+    that stage the most faces. -> what was measured and checked."""
+    import torch
+
+    from omnidata_tpu_torch import bench
+    from omnidata_tpu_torch.annotator import DEVICE_MODALITIES
+    from omnidata_tpu_torch.annotator.pipeline import _gather_attrs
+    from omnidata_tpu_torch.mesh import raster as raster_mod
+    from omnidata_tpu_torch.mesh import raster_kernels as rk
+
+    attrs, _ = _gather_attrs(xmesh, xcurv, DEVICE_MODALITIES)
+    inp = raster_mod.prepare_raster(cams, xmesh, TILE, CHUNK, attrs, bench.LARGE_CCAP,
+                                    compact=True, streamed=True)
+    admission_log(f"xl batch ({cams.location.shape[0]} views, pack "
+                  f"{tuple(inp.pack.shape)})", inp)
+    staged, _ = rk.stage_faces(inp.ids, inp.counts, inp.bbox_words, inp.pack.shape[0],
+                               CHUNK, inp.tiles_per_view, TILE, 1)
+    ckw = dict(chunk=CHUNK, tiles_per_view=inp.tiles_per_view)
+    full = (inp.ids, inp.counts, inp.origins, inp.pack, inp.dir_planes)
+    ms = cuda_ms(lambda: rk.raster_tiles_streamed(*full, bbox_words=inp.bbox_words,
+                                                  **ckw), 3)
+    work = raster_work(inp, staged, reads_bbox_words=True)
+    work.update(item_counts(rk.raster_tiles_streamed.last_schedule))
+    log(f"22 kernel C K={cams.location.shape[0]} on the xl batch: {ms:.3f} ms; "
+        f"{work['pairs']:.4g} pixel-face pairs, bound {work['bound_ms']:.3f} ms (by "
+        f"{work['bound_by']}; operations {work['ops_ms']:.3f}, "
+        f"{work['ops_ms_unfused']:.3f} unfused; bytes {work['bytes_ms']:.3f}), "
+        f"{work['bound_ms'] / ms:.3f} of the bound; items {work['items']}, split "
+        f"rows {work['split_rows']}; {int((staged > rk.STREAMED_STAGE_CAP).sum())} "
+        f"rows past the stage cap; card {card}")
+    vsel = staged.reshape(cams.location.shape[0], -1).sum(1).argsort(
+        descending=True, stable=True)[:K_CHECK].sort().values
+    rsel = (vsel[:, None] * inp.tiles_per_view
+            + torch.arange(inp.tiles_per_view, device=dev)).reshape(-1)
+    args = (inp.ids[rsel], inp.counts[rsel], inp.origins[vsel], inp.pack,
+            tuple(p[rsel] for p in inp.dir_planes))
+    ckw["bbox_words"] = inp.bbox_words[vsel]
+    got = rk.raster_tiles_streamed(*args, **ckw)
+    items = item_counts(rk.raster_tiles_streamed.last_schedule)
+    hard = staged[rsel]
+    past = int((hard > rk.STREAMED_STAGE_CAP).sum())
+    t0 = time.perf_counter()
+    want = rk.raster_tiles_streamed_reference(*args, **ckw)
+    torch.cuda.synchronize()
+    s_plain = time.perf_counter() - t0
+    err = check_kernel(
+        f"22 kernel C compacting body vs plain (xl views {vsel.tolist()}, the most "
+        f"staged faces: max {int(hard.max())} a row, {past} of {hard.numel()} rows past "
+        f"the {rk.STREAMED_STAGE_CAP} stage cap; {items['items']} work items, "
+        f"{items['split_rows']} rows split; plain {s_plain:.1f} s)", got, want)
+    return {"ms": ms, "work": work, "views": vsel.tolist(), "rows_past_stage_cap": past,
+            "max_staged": int(hard.max()), "max_abs_err": err, "s_plain": s_plain,
+            **items}
+
+
+def phase_bench(card: str, mesh, curv) -> dict:
+    """Phase 22: ``omnidata_tpu_torch.bench`` in this process on the card
+    in torch's defaults (see the module doc): the xl scene through
+    ``bench_large_scene(build=build_xl_scene, prefix="xl")`` at
+    BENCH_XL_REPS repetitions (kernel C's count pass and sweep launched,
+    kernel A not; counters reset just before, read just after), every xl
+    label present with face ids agreeing with mask_valid, kernel C bit for
+    bit with its plain version on the 2 xl views that stage the most faces;
+    ``bench_full13`` on BENCH_FULL13_BATCHES batch of the bench scene
+    (kernel A launched; K host-cue jobs with finite seconds); the headline
+    line of ``bench.main`` at 1 repetition (BENCH_FAST)."""
+    import io
+    import math
+
+    import torch
+
+    from omnidata_tpu_torch import bench
+    from omnidata_tpu_torch.annotator import DEVICE_MODALITIES, annotate_views
+    from omnidata_tpu_torch.mesh import raster_kernels as rk
+
+    dev = mesh.vertices.device
+    t_phase = time.perf_counter()
+    counters = ((rk.raster_tiles_streamed, "launches"),
+                (rk.raster_tiles_streamed, "count_launches"),
+                (rk.raster_tiles_chunklist, "launches"))
+    cudnn_mode("defaults")  # as the bench runs alone
+    try:
+        # 22a. the xl scene on kernel C
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        xl = bench.bench_large_scene(build=bench.build_xl_scene, prefix="xl",
+                                     device=dev, reps=BENCH_XL_REPS)
+        torch.cuda.synchronize()
+        launches_c, count_c, launches_a = (getattr(fn, attr) for fn, attr in counters)
+        log(f"22 xl scene ({xl['xl_scene_tris']} faces, padded "
+            f"{xl['xl_scene_faces_padded']}): bench_large_scene {xl['xl_scene_vps']} vps "
+            f"({BENCH_XL_REPS} rep); kernel C launches {launches_c} (count passes "
+            f"{count_c}), A {launches_a}; last launch: {xl['xl_rows_past_stage_cap']} of "
+            f"{xl['xl_rows']} rows past the {rk.STREAMED_STAGE_CAP} stage cap, max "
+            f"{xl['xl_max_staged']} staged, {xl['xl_split_rows']} rows split, "
+            f"{xl['xl_work_items']} work items; prepare_raster peak "
+            f"{xl.get('xl_prepare_raster_peak_gib')} GiB, annotate_views peak "
+            f"{xl.get('xl_peak_gib')} GiB; card {card}")
+        if launches_c < 1 or count_c < 1 or launches_a:
+            raise AssertionError("the xl scene must launch kernel C's count pass and "
+                                 "sweep, and not kernel A")
+        if xl["xl_scene_faces_padded"] >= 2**24:
+            raise AssertionError("xl face ids past 2^24 do not ride exactly as float32")
+        xmesh, xcurv = bench.build_xl_scene(device=dev)  # the bench's cache
+        # bench_large_scene's first timed batch (its n_batches = 2)
+        xcams = bench.camera_batch(bench.sample_cameras_np(K_MAIN * 3, seed=3),
+                                   range(K_MAIN, 2 * K_MAIN), RES, dev)
+        out = annotate_views(xcams, xmesh, xcurv, modalities=DEVICE_MODALITIES,
+                             tile=bench.LARGE_TILE, chunk=CHUNK, ccap=bench.LARGE_CCAP,
+                             streamed=True)
+        check_labels(out, K_MAIN, xmesh.num_faces, dev)
+        del out
+        xl["kernel_c"] = xl_kernel_c(xmesh, xcurv, xcams, dev, card)
+        del xmesh, xcurv
+
+        # 22b. full13 on the bench scene
+        n_views = K_MAIN * 16  # the headline's batches (bench.main)
+        cams_np = bench.sample_cameras_np(n_views + K_MAIN)
+        batches = [bench.camera_batch(cams_np, range(K_MAIN + b * K_MAIN,
+                                                     K_MAIN + (b + 1) * K_MAIN), RES, dev)
+                   for b in range(BENCH_FULL13_BATCHES)]
+        rk.raster_tiles_chunklist.launches = 0
+        full13 = bench.bench_full13(mesh, curv, batches, cams_np, K_MAIN, RES,
+                                    dict(tile=TILE, chunk=CHUNK),
+                                    n_batches=BENCH_FULL13_BATCHES)
+        torch.cuda.synchronize()
+        full13["kernel_a_launches"] = rk.raster_tiles_chunklist.launches
+        log(f"22 full13 ({BENCH_FULL13_BATCHES} batch of {K_MAIN}): " + json.dumps(full13))
+        secs = [*full13["full13_cue_secs"].values(),
+                *full13["full13_cue_secs_pipelined"].values()]
+        if (full13["full13_views"] != BENCH_FULL13_BATCHES * K_MAIN
+                or not all(map(math.isfinite, secs))
+                or full13["kernel_a_launches"] < 1):
+            raise AssertionError("full13: the pool must run one job a view with finite "
+                                 "cue seconds, on kernel A's labels")
+
+        # 22c. the headline line, 1 repetition
+        buf = io.StringIO()
+        saved = os.environ.get("BENCH_FAST")
+        os.environ["BENCH_FAST"] = "1"
+        try:
+            with contextlib.redirect_stdout(buf):
+                bench.main(["--device", "cuda"], reps=1)
+        finally:
+            if saved is None:
+                os.environ.pop("BENCH_FAST")
+            else:
+                os.environ["BENCH_FAST"] = saved
+        lines = buf.getvalue().splitlines()
+        headline = json.loads(lines[-1])
+        log(f"22 bench headline ({len(lines)} line): {lines[-1]}")
+        keys = {"metric", "value", "unit", "vs_baseline", "value_min", "value_max", "config"}
+        if len(lines) != 1 or set(headline) != keys or not headline["value"] > 0 \
+                or torch.cuda.get_device_name(0) not in headline["metric"]:
+            raise AssertionError(f"bench headline malformed: {lines}")
+    finally:
+        cudnn_mode("phase1")
+        torch.backends.cudnn.benchmark = False
+    s_phase = time.perf_counter() - t_phase
+    log(f"phase 22: {s_phase:.1f} s; card {card}")
+    return {"xl": xl, "launches_c": launches_c, "count_launches_c": count_c,
+            "launches_a_xl": launches_a, "full13": full13, "headline": headline,
+            "s_phase": s_phase}
+
+
 def phase20_worker(argv: list) -> int:
     """`chip_smoke.py --phase20 nccl1 BDIR OUT` or `--phase20 gloo BDIR OUT
     N_MODEL`: phase 20's processes."""
@@ -3528,6 +3681,9 @@ def main() -> int:
     # 21. the offline accuracy chain ------------------------------------------
     accuracy = phase_accuracy(card)
 
+    # 22. the port's bench -----------------------------------------------------
+    bench_res = phase_bench(card, mesh, curv)
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -3573,7 +3729,8 @@ def main() -> int:
               render_ms_a_b_b_a=ms_render_ab),
         entry("raster_streamed (C, compacting body)", "C compacting",
               "raster_compact.cu", "879", launches_c,
-              "large main path annotate_views", err_c["compacting"],
+              "large main path annotate_views",
+              max(err_c["compacting"], bench_res["xl"]["kernel_c"]["max_abs_err"]),
               c_turns["compacting"],
               shape=f"large K={K_MAIN}, ccap {LARGE_CCAP}, "
               f"stage_cap={rk.STREAMED_STAGE_CAP}; small: K=1",
@@ -3584,7 +3741,14 @@ def main() -> int:
               split_rows_ccap48=work48["split_rows"],
               plain_ms_ccap48=work48["plain_ms"], plain_views_ccap48=PLAIN48_VIEWS,
               max_abs_err_ccap48=work48["max_abs_err"],
-              launches_cli_large=cli_c_large),
+              launches_cli_large=cli_c_large,
+              launches_xl=bench_res["launches_c"],
+              count_launches_xl=bench_res["count_launches_c"],
+              xl_rows_past_stage_cap=bench_res["xl"]["xl_rows_past_stage_cap"],
+              xl_split_rows=bench_res["xl"]["xl_split_rows"],
+              xl_vps=bench_res["xl"]["xl_scene_vps"],
+              xl_kernel_c=bench_res["xl"]["kernel_c"],
+              s_phase22=bench_res["s_phase"]),
         entry("raster_streamed (C, plain body)", "C plain body",
               "raster_compact.cu", "879", launches_c_plain,
               "render_views_fused(streamed=True, compact=False), large scene",
@@ -3600,6 +3764,7 @@ def main() -> int:
         "eval_multitask_hrnet": eval_mt, "midas": midas, "refocus": refocus,
         "phase19": {"per_view": per_view, "sharded": sharded, "data": data,
                     "s": s19}, "phase20": parallel, "phase21": accuracy,
+        "phase22": bench_res,
         "card": card}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

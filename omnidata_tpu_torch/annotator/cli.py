@@ -428,6 +428,77 @@ def view_cue_maps(maps: dict, vi: int, view: dict, resolution: int) -> dict | No
     return vmaps or None
 
 
+def fetch_to_host(tree, ready=None, stream=None):
+    """Tensors of a tree of dicts, lists and tuples -> the same tree of numpy
+    arrays.
+
+    With a side ``stream`` (on a card), each tensor is copied into a pinned
+    host buffer on that stream once the event ``ready`` (recorded after the
+    work that made the tree) has fired, so the copy waits only for that work
+    and not for what the main stream has enqueued since; then the copies are
+    waited for. Without one, each tensor is ``.cpu()``'d in turn."""
+    if stream is None:
+        return tree_map(lambda x: x.cpu().numpy(), tree)
+
+    def copy(x):
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        x.record_stream(stream)
+        host.copy_(x, non_blocking=True)
+        return host
+
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        host = tree_map(copy, tree)
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return tree_map(lambda x: x.numpy(), host)
+
+
+def tree_map(fn, tree):
+    """fn on each leaf of a tree of dicts, lists and tuples -> the same tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def render_batches(batches, mesh, curv, kw: dict, labels, settings, prefixes: dict):
+    """The batched route's pipeline: ``annotate_views`` and
+    ``device_cue_maps`` on each camera batch in turn -> yields, in order,
+    each batch's (labels named in ``labels``, cue maps) on the host.
+
+    Batch b is yielded once batch b+1's render is enqueued and its fetch
+    submitted. One fetch thread copies each batch as soon as its own work
+    is done: on a card into pinned host buffers on a side stream
+    (``fetch_to_host``), so batch b's copy runs beside batch b+1's render
+    instead of queueing behind it on the one stream."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .pipeline import annotate_views
+
+    dev = mesh.vertices.device
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    with ThreadPoolExecutor(max_workers=1) as fetcher:
+        prev = None
+        for cams in batches:
+            out = annotate_views(cams, mesh, curv, **kw)
+            tree = ({t: out[t] for t in labels if t in out},
+                    device_cue_maps(out, cams.fov, settings, prefixes))
+            ready = None
+            if side is not None:
+                ready = torch.cuda.Event()
+                ready.record()
+            fut = fetcher.submit(fetch_to_host, tree, ready, side)
+            del out, tree
+            if prev is not None:
+                yield prev.result()
+            prev = fut
+        if prev is not None:
+            yield prev.result()
+
+
 def batched_route(settings, device: torch.device | str) -> bool:
     """The JAX CLI's route rule: batched on a card (a TPU there) or with
     FORCE_BATCHED_PATH set, per view otherwise."""
@@ -454,21 +525,18 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
     (``batched_route``) K views per launch, else one view at a time through
     ``annotate_view`` at ``view_cap``.
 
-    Batched, a one-thread fetcher waits for batch b and copies it to the host while
-    the main thread enqueues batch b+1 and hands batch b-1 to the PNG
-    writers (8 threads) and, for host_tasks (keypoints3d / segment_*), to
-    the host-cue pool, which computes them from the in-flight arrays. On the
-    device-prefix route (``device_prefixes``) the cues' input maps are
-    computed on the device from each batch and fetched with it, in the same
-    copy. On a card the copy is pageable and shares the one stream with the
-    renders, so it runs between batch b's render and b+1's, not beside
-    them."""
+    Batched, ``render_batches`` renders and fetches the batches while the
+    main thread hands each fetched batch to the PNG writers (8 threads)
+    and, for host_tasks (keypoints3d / segment_*), to the host-cue pool,
+    which computes them from the in-flight arrays. On the device-prefix
+    route (``device_prefixes``) the cues' input maps are computed on the
+    device from each batch and fetched with it, in the same copy."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ..cues.encode import save_png
     from ..sampling import file_name_for
     from ..utils.profiler import Profiler
-    from .pipeline import annotate_view, annotate_views
+    from .pipeline import annotate_view
 
     mesh, curv = prepare_device_mesh(model_path, tasks, settings, mesh_task, device)
     for t in list(tasks) + list(host_tasks):
@@ -505,53 +573,30 @@ def run_device_tasks(model_path: str, tasks: list[str], settings,
                 _host_cue_job, model_path, view, tuple(host_tasks), host_kv,
                 cue_in, dev_maps))
 
-    def host(x):
-        if isinstance(x, (tuple, list)):
-            return [host(y) for y in x]
-        return x.cpu().numpy()
-
-    def fetch(out, maps):
-        return ({t: host(out[t]) for t in mods if t in out},
-                {k: host(v) for k, v in maps.items()})
-
     i = 0
     host_pool_cm = _host_cue_pool() if host_tasks else contextlib.nullcontext()
     with Profiler("Render") as pflr, \
             ThreadPoolExecutor(max_workers=8) as io_pool, \
-            ThreadPoolExecutor(max_workers=1) as fetcher, \
             host_pool_cm as host_pool:
-
-        def process(chunk_views, fetched):
-            nonlocal i
-            arrs, maps = fetched
-            for vi, view in enumerate(chunk_views):
-                write_outputs(view, {t: a[vi] for t, a in arrs.items()},
-                              io_pool, host_pool,
-                              view_cue_maps(maps, vi, view, settings.RESOLUTION))
-                i += 1
-                pflr.step(f"finished img {i}/{n_imgs}")
-
         if batched:
-            prev = None
-            for s in range(0, n_imgs, K):
-                chunk_views = flat_views[s: s + K]
-                cams = view_batch(chunk_views, settings.RESOLUTION,
-                                  mesh.vertices.device)
-                out = annotate_views(cams, mesh, curv, **kw)
-                fut = fetcher.submit(
-                    fetch, out, device_cue_maps(out, cams.fov, settings, prefixes))
-                del out
-                if prev is not None:
-                    process(prev[0], prev[1].result())
-                prev = (chunk_views, fut)
-            if prev is not None:
-                process(prev[0], prev[1].result())
+            chunks = [flat_views[s: s + K] for s in range(0, n_imgs, K)]
+            cams = (view_batch(c, settings.RESOLUTION, mesh.vertices.device)
+                    for c in chunks)
+            fetched = render_batches(cams, mesh, curv, kw, mods, settings, prefixes)
+            for chunk_views, (arrs, maps) in zip(chunks, fetched):
+                for vi, view in enumerate(chunk_views):
+                    write_outputs(view, {t: a[vi] for t, a in arrs.items()},
+                                  io_pool, host_pool,
+                                  view_cue_maps(maps, vi, view, settings.RESOLUTION))
+                    i += 1
+                    pflr.step(f"finished img {i}/{n_imgs}")
         else:
             for view in flat_views:
                 cam = view_camera(view, settings.RESOLUTION, mesh.vertices.device)
                 out = annotate_view(cam, mesh, curv,
                                     cap=view_cap(cam, mesh, settings), **kw)
-                write_outputs(view, {t: host(out[t]) for t in mods if t in out},
+                write_outputs(view, fetch_to_host({t: out[t] for t in mods
+                                                   if t in out}),
                               io_pool, host_pool)
                 i += 1
                 pflr.step(f"finished img {i}/{n_imgs}")

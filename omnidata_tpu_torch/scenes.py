@@ -6,9 +6,13 @@ than 0.8 m and bakes curvature colours: 39,760 faces, padded to 39,936
 (312 chunks of 128), 19,900 vertices. ``build_large_scene`` is the
 Replica-scan-scale interior (8 denser spheres, 12 boxes, edges split at
 0.08 m): 584,704 faces, padded to 584,960 (4,570 chunks of 128).
-``sample_cameras_np`` draws fixated cameras inside the room. Same seeds,
-same arrays as ``bench.py``'s ``build_scene``, ``build_large_scene`` and
-``sample_cameras_np``. Nothing is cached on disk.
+``build_xl_scene`` is the size of a real Replica scan (10 spheres of
+128 x 256, 12 boxes, edges split at 0.055 m): 1,423,360 faces, padded to
+1,423,616 (11,122 chunks of 128). ``sample_cameras_np`` draws fixated
+cameras inside the room. Same seeds, same arrays as ``bench.py``'s
+``build_scene``, ``build_large_scene``, ``build_xl_scene`` and
+``sample_cameras_np``. Nothing is cached on disk here
+(``omnidata_tpu_torch.bench`` caches the arrays).
 """
 from __future__ import annotations
 
@@ -85,6 +89,13 @@ def build_large_scene(seed: int = 0, device: torch.device | str = "cpu"
     """The 584,704-face scene of ``bench.py``'s large-scene measurement ->
     (mesh with vertex colours, same mesh with curvature colours)."""
     return _build_interior(seed, 8, 12, 96, 0.08, device)
+
+
+def build_xl_scene(seed: int = 0, device: torch.device | str = "cpu"
+                   ) -> tuple[TriangleMesh, TriangleMesh]:
+    """The 1,423,360-face scene of ``bench.py``'s xl measurement ->
+    (mesh with vertex colours, same mesh with curvature colours)."""
+    return _build_interior(seed, 10, 12, 128, 0.055, device)
 
 
 def sample_cameras_np(n: int, seed: int = 1):

@@ -6,7 +6,8 @@ modality: the bench scene (``--scene bench``, ``scenes.build_scene(seed=0)``,
 cameras of seed 1, 4 batches) or the large scene (``--scene large``,
 ``scenes.build_large_scene(seed=0)``, cameras of seed 3, ccap 192, 2
 batches, as ``bench.py``'s large-scene measurement; ``--scene large48``:
-the same at the annotator CLI's ccap 48), on kernel A or, with
+the same at the annotator CLI's ccap 48; ``--scene xl``: the 1,423,360-face
+``scenes.build_xl_scene(seed=0)`` as the large scene), on kernel A or, with
 ``--streamed``, on kernel C's compacting body. ``--compact`` times kernel B
 (the compacting kernel on the row-major pack, stage cap 512) in A's place
 and ``render_views_fused(compact=True)`` against A's render, admission
@@ -56,10 +57,11 @@ from raster_measure import (cuda_ms, gpu_name_and_power_limit, item_counts,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K, RES, TILE, CHUNK = 32, 512, 32, 128
 SMALL_K = (1, 2, 8)
-CELLS = {  # scene -> (large scene, camera seed, ccap, timed batches)
-    "bench": (False, 1, None, 4),
-    "large": (True, 3, 192, 2),
-    "large48": (True, 3, 48, 2),
+CELLS = {  # scene -> (scenes' function, camera seed, ccap, timed batches)
+    "bench": ("build_scene", 1, None, 4),
+    "large": ("build_large_scene", 3, 192, 2),
+    "large48": ("build_large_scene", 3, 48, 2),
+    "xl": ("build_xl_scene", 3, 192, 2),
 }
 
 
@@ -94,9 +96,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda", 0)
-    large, cam_seed, ccap, n_batches = CELLS[a.scene]
-    build = scenes.build_large_scene if large else scenes.build_scene
-    mesh, curv = build(device=dev)
+    scene_fn, cam_seed, ccap, n_batches = CELLS[a.scene]
+    mesh, curv = getattr(scenes, scene_fn)(device=dev)
     n_chunks = mesh.faces.shape[0] // CHUNK
     cams = scenes.sample_cameras_np((n_batches + 1) * K, seed=cam_seed)
     batches = [scenes.camera_batch(cams, range(K * (b + 1), K * (b + 2)), RES, dev)
