@@ -45,6 +45,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils import profiler
+
 TASKS_ALL = [
     "points",
     "trajectory",
@@ -436,9 +438,19 @@ def fetch_to_host(tree, ready=None, stream=None):
     host buffer on that stream once the event ``ready`` (recorded after the
     work that made the tree) has fired, so the copy waits only for that work
     and not for what the main stream has enqueued since; then the copies are
-    waited for. Without one, each tensor is ``.cpu()``'d in turn."""
+    waited for. Without one, each tensor is ``.cpu()``'d in turn.
+
+    The copies are span ``pipeline.fetch`` (``utils.profiler``; on a card
+    its events sit on the side stream, after the wait for ``ready``); the
+    bytes copied go to counter ``fetch.bytes`` and, where torch keeps the
+    pinned allocator's statistics, the pinned host bytes newly allocated
+    through CUDA to ``fetch.pinned_alloc_bytes``."""
     if stream is None:
-        return tree_map(lambda x: x.cpu().numpy(), tree)
+        with profiler.span("pipeline.fetch"):
+            out = tree_map(lambda x: x.cpu().numpy(), tree)
+        if profiler.recording():
+            profiler.count("fetch.bytes", _tree_bytes(tree))
+        return out
 
     def copy(x):
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -446,13 +458,35 @@ def fetch_to_host(tree, ready=None, stream=None):
         host.copy_(x, non_blocking=True)
         return host
 
+    on = profiler.recording()
+    pinned = _pinned_bytes() if on else None
     with torch.cuda.stream(stream):
         stream.wait_event(ready)
-        host = tree_map(copy, tree)
+        with profiler.span("pipeline.fetch", stream=stream):
+            host = tree_map(copy, tree)
         done = torch.cuda.Event()
         done.record(stream)
+    if on:
+        profiler.count("fetch.bytes", _tree_bytes(tree))
+        if pinned is not None:
+            profiler.count("fetch.pinned_alloc_bytes", _pinned_bytes() - pinned)
     done.synchronize()
     return tree_map(lambda x: x.numpy(), host)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _pinned_bytes() -> int | None:
+    """Pinned host bytes the caching host allocator has allocated through
+    CUDA so far, or None where torch does not report it."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    return None if stats is None else stats().get("allocated_bytes.allocated")
 
 
 def tree_map(fn, tree):
@@ -473,30 +507,42 @@ def render_batches(batches, mesh, curv, kw: dict, labels, settings, prefixes: di
     submitted. One fetch thread copies each batch as soon as its own work
     is done: on a card into pinned host buffers on a side stream
     (``fetch_to_host``), so batch b's copy runs beside batch b+1's render
-    instead of queueing behind it on the one stream."""
+    instead of queueing behind it on the one stream.
+
+    Each batch is a ``utils.profiler`` batch, read once as it is pulled:
+    its spans and counts, in this thread and in the fetch thread, share its
+    id and record when it began while recording. The wait for a batch's
+    fetch is span ``pipeline.wait`` (host time)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from .pipeline import annotate_views
+
+    def fetched(fut, batch):
+        with profiler.in_batch(batch), profiler.span("pipeline.wait", device=False):
+            return fut.result()
 
     dev = mesh.vertices.device
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     with ThreadPoolExecutor(max_workers=1) as fetcher:
         prev = None
         for cams in batches:
-            out = annotate_views(cams, mesh, curv, **kw)
-            tree = ({t: out[t] for t in labels if t in out},
-                    device_cue_maps(out, cams.fov, settings, prefixes))
+            batch = profiler.new_batch()
+            with profiler.in_batch(batch):
+                out = annotate_views(cams, mesh, curv, **kw)
+                tree = ({t: out[t] for t in labels if t in out},
+                        device_cue_maps(out, cams.fov, settings, prefixes))
             ready = None
             if side is not None:
                 ready = torch.cuda.Event()
                 ready.record()
-            fut = fetcher.submit(fetch_to_host, tree, ready, side)
+            fut = fetcher.submit(profiler.call_in_batch, batch, fetch_to_host,
+                                 tree, ready, side)
             del out, tree
             if prev is not None:
-                yield prev.result()
-            prev = fut
+                yield fetched(*prev)
+            prev = fut, batch
         if prev is not None:
-            yield prev.result()
+            yield fetched(*prev)
 
 
 def batched_route(settings, device: torch.device | str) -> bool:

@@ -39,6 +39,7 @@ from ..mesh.shade import (
     textured_colors,
     vertex_colors,
 )
+from ..utils import profiler
 
 DEVICE_MODALITIES = (
     "depth_zbuffer",
@@ -109,7 +110,9 @@ def annotate_views(
     (cues.curvature.bake_curvature_colors); it shares the fragments.
     streamed: render with the streamed, compacting raster kernel (True),
     the chunk-list kernel (False), or by the size of the scene pack (None;
-    ``mesh.raster.render_views_fused``)."""
+    ``mesh.raster.render_views_fused``). The cue stack is span
+    ``annotate.labels`` (``utils.profiler``), keypoints2d within it
+    ``cues.keypoints2d``."""
     vertex_attrs, attr_slices = _gather_attrs(mesh, curvature_mesh, modalities)
     if vertex_attrs is not None:
         frag, attr_img = render_views_fused(
@@ -119,8 +122,9 @@ def annotate_views(
         frag = render_views_fused(cameras, mesh, tile, chunk, ccap=ccap,
                                   streamed=streamed)
         attr_img = None
-    return _labels(frag, cameras, mesh, curvature_mesh, modalities,
-                   keypoint_blur_sigma, attr_img, attr_slices)
+    with profiler.span("annotate.labels"):
+        return _labels(frag, cameras, mesh, curvature_mesh, modalities,
+                       keypoint_blur_sigma, attr_img, attr_slices)
 
 
 def annotate_view(
@@ -230,8 +234,9 @@ def _labels(frag: Fragments, cameras: Camera, mesh: TriangleMesh,
             kg = gray
             if keypoint_blur_sigma > 0:  # KEYPOINT_BLUR_RADIUS preprocessing
                 kg = gaussian_blur_constant(kg, keypoint_blur_sigma)
-            out["keypoints2d"] = img_as_uint16(
-                torch.clamp(keypoints2d(kg), 0.0, 1.0))
+            with profiler.span("cues.keypoints2d"):
+                kp = keypoints2d(kg)
+            out["keypoints2d"] = img_as_uint16(torch.clamp(kp, 0.0, 1.0))
 
     if "principal_curvature" in modalities and curvature_mesh is not None:
         if attr_img is not None:

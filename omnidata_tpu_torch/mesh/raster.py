@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.cameras import Camera, camera_rays, extrinsic_RT, intrinsic_matrix
+from ..utils import profiler
 from .mesh import TriangleMesh
 from .raster_kernels import (
     _BIG,
@@ -339,7 +340,10 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
                    expand_bcap: int | None = None, compact: bool = False,
                    streamed: bool = False) -> RasterInputs:
     """Admission, rays and scene pack for one raster launch over K views;
-    the bbox words when compact, the pack chunk-major when streamed."""
+    the bbox words when compact, the pack chunk-major when streamed. While
+    the recorder records (``utils.profiler``), the admission rows go to
+    counters ``raster.rows``, ``raster.rows_block`` (block mode) and
+    ``raster.rows_scan_all``."""
     res = cameras.resolution
     if res % tile:
         raise ValueError(f"resolution {res} is not a multiple of tile {tile}")
@@ -351,6 +355,10 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
     lo, hi = padded_bboxes(cameras, mesh, chunk)
     ids, counts = tile_admission(lo, hi, res, tile, chunk, ccap,
                                  hier_min_chunks, expand_bcap)
+    if profiler.recording():
+        profiler.count("raster.rows", counts.numel())
+        profiler.count("raster.rows_block", (counts <= -2).sum())
+        profiler.count("raster.rows_scan_all", (counts == -1).sum())
     words = bbox_words(lo, hi, res, tile) if compact else None
     del lo, hi
     origins, dirs = camera_rays(cameras)  # (K,3), (K,H,W,3)
@@ -398,36 +406,40 @@ def render_views_fused(
     kernels' cap (STAGE_CAP for B, STREAMED_STAGE_CAP for C); past it a
     tile gets kernel A's sweep of its raw list. All views go to one launch:
     the JAX package's other TPU limits (views split by scalar memory, an
-    XLA fallback) have no counterpart on a card."""
+    XLA fallback) have no counterpart on a card. Spans (``utils.profiler``):
+    ``raster.prepare`` (``prepare_raster``), then ``raster.render`` (the
+    kernel, the decode and the untiling)."""
     if streamed is None:
         n_attr = 0 if vertex_attrs is None else vertex_attrs.shape[1]
         streamed = pack_bytes(mesh.faces.shape[0], n_attr) > STREAMED_PACK_BYTES
     if compact is None:
         compact = streamed
-    inp = prepare_raster(cameras, mesh, tile, chunk, vertex_attrs, ccap,
-                         hier_min_chunks, expand_bcap, compact, streamed)
-    args = (inp.ids, inp.counts, inp.origins, inp.pack)
-    kw = dict(chunk=chunk, tiles_per_view=inp.tiles_per_view)
-    if streamed:
-        packed, acc = raster_tiles_streamed(
-            *args, inp.dir_planes, bbox_words=inp.bbox_words,
-            stage_cap=stage_cap or STREAMED_STAGE_CAP, **kw)
-    elif compact:
-        packed, acc = raster_tiles_compact(
-            *args, inp.bbox_words, inp.dir_planes,
-            stage_cap=stage_cap or STAGE_CAP, **kw)
-    else:
-        packed, acc = raster_tiles_chunklist(*args, inp.dir_planes, **kw)
-    valid, t, u, v, f, attr_t = decode_winners(
-        packed, acc, inp.origins, inp.dir_planes, inp.tiles_per_view)
-    del packed, acc
+    with profiler.span("raster.prepare"):
+        inp = prepare_raster(cameras, mesh, tile, chunk, vertex_attrs, ccap,
+                             hier_min_chunks, expand_bcap, compact, streamed)
+    with profiler.span("raster.render"):
+        args = (inp.ids, inp.counts, inp.origins, inp.pack)
+        kw = dict(chunk=chunk, tiles_per_view=inp.tiles_per_view)
+        if streamed:
+            packed, acc = raster_tiles_streamed(
+                *args, inp.dir_planes, bbox_words=inp.bbox_words,
+                stage_cap=stage_cap or STREAMED_STAGE_CAP, **kw)
+        elif compact:
+            packed, acc = raster_tiles_compact(
+                *args, inp.bbox_words, inp.dir_planes,
+                stage_cap=stage_cap or STAGE_CAP, **kw)
+        else:
+            packed, acc = raster_tiles_chunklist(*args, inp.dir_planes, **kw)
+        valid, t, u, v, f, attr_t = decode_winners(
+            packed, acc, inp.origins, inp.dir_planes, inp.tiles_per_view)
+        del packed, acc
 
-    K = cameras.location.shape[0]
-    n1d = cameras.resolution // tile
-    frag = _fragments(valid, t, u, v, f, inp.dirs, cameras.R, n1d, tile)
-    if vertex_attrs is None:
-        return frag
-    return frag, _untile(attr_t, K, n1d, tile)
+        K = cameras.location.shape[0]
+        n1d = cameras.resolution // tile
+        frag = _fragments(valid, t, u, v, f, inp.dirs, cameras.R, n1d, tile)
+        if vertex_attrs is None:
+            return frag
+        return frag, _untile(attr_t, K, n1d, tile)
 
 
 def _fragments(valid, t, u, v, f, dirs, R, n1d: int, tile: int) -> Fragments:

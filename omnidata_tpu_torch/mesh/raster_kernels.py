@@ -51,6 +51,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiler
+
 _BIG = 1e30
 _EPS = 1e-7
 _EDGE_EPS = 1e-5
@@ -595,7 +597,9 @@ def _sweep_launch(wrapper, symbol, ids, counts, origins, pack, bbox_words,
     ``split_schedule``'s items with those counts; both launches build their
     items on the card. Adds one to ``wrapper.count_launches`` for the count
     pass and to ``wrapper.launches`` for the sweep, and leaves the sweep's
-    schedule (with the counted staged faces) in ``wrapper.last_schedule``."""
+    schedule (with the counted staged faces) in ``wrapper.last_schedule``.
+    While the recorder records (``utils.profiler``), the rows staging more
+    than stage_cap faces go to counter ``raster.rows_past_stage_cap``."""
     rows, P = dir_planes[0].shape
     dev = pack.device
     nc = Fp // chunk
@@ -614,6 +618,9 @@ def _sweep_launch(wrapper, symbol, ids, counts, origins, pack, bbox_words,
                    next_item, staged.data_ptr(), seg_counts.data_ptr()],
                   [rows, P, *shape, seg])
             wrapper.count_launches += 1
+            if profiler.recording():
+                profiler.count("raster.rows_past_stage_cap",
+                               (staged > stage_cap).sum())
         out = _launch(
             "raster_compact", symbol,
             [*_ptrs(ids, counts, origins, pack, bbox_words, *dir_planes),

@@ -714,3 +714,78 @@ def test_refocus_on_the_card_matches_the_cpu(card):
     got = refocus_augmentation(rgb.to(card), depth.to(card), torch.Generator().manual_seed(1),
                                n_quantiles=10).cpu()
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("stage_cap", [None, 8], ids=["default_cap", "cap8"])
+def test_rows_past_stage_cap_counter_equals_the_launch(cuda_scene, stage_cap):
+    """Under the profiler, kernel C's compacting launch counts the rows that
+    staged more faces than its cap, as its schedule's staged faces say."""
+    from omnidata_tpu_torch.utils import profiler
+
+    mesh, cams = cuda_scene
+    profiler.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        traster.render_views_fused(cams, mesh, 32, CHUNK, streamed=True,
+                                   stage_cap=stage_cap)
+    got = profiler.summary()
+    profiler.reset()
+    staged = tk.raster_tiles_streamed.last_schedule.staged
+    cap = stage_cap or tk.STREAMED_STAGE_CAP
+    want = int((staged > cap).sum())
+    assert got["counters"]["raster.rows_past_stage_cap"]["total"] == want
+    assert got["counters"]["raster.rows"]["total"] == staged.numel()
+    if stage_cap:
+        assert want > 0
+    for name in ("raster.prepare", "raster.render"):
+        assert got["spans"][name]["device_ms"] > 0
+
+
+def test_pipeline_spans_have_device_times_on_the_card(cuda_scene):
+    """render_batches on the card: under the profiler every stage span has
+    device times (pipeline.fetch on the side stream, from the fetch thread)
+    and the fetch counters are kept; with nothing recording the recorder
+    makes no CUDA event (the pipeline's own two a batch only)."""
+    from omnidata_tpu_torch.annotator import cli
+    from omnidata_tpu_torch.utils import profiler
+
+    mesh, cams = cuda_scene
+    kw = dict(tile=32, chunk=CHUNK, modalities=("depth_zbuffer", "rgb", "keypoints2d"))
+    prefixes = {"narf": False, "seg2d": False, "seg25d": False}
+
+    def run():
+        return list(cli.render_batches(iter([cams, cams]), mesh, None, kw,
+                                       kw["modalities"], None, prefixes))
+
+    run()  # warm
+    made = []
+    real = torch.cuda.Event
+
+    def counted(*a, **k):
+        made.append(k.get("enable_timing", False))
+        return real(*a, **k)
+
+    torch.cuda.Event = counted
+    try:
+        off = run()
+    finally:
+        torch.cuda.Event = real
+    assert made == [False] * 4  # ready and done, for each of 2 batches
+    profiler.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        on = run()
+    got = profiler.summary()
+    profiler.reset()
+    for name in ("raster.prepare", "raster.render", "annotate.labels",
+                 "cues.keypoints2d", "pipeline.fetch"):
+        s = got["spans"][name]
+        assert s["count"] == 2 and s["device_ms"] > 0, name
+    assert got["spans"]["pipeline.wait"]["device_ms"] is None
+    c = got["counters"]
+    want = sum(a.nbytes for labels, _ in on for a in labels.values())
+    assert c["fetch.bytes"]["total"] == want
+    if cli._pinned_bytes() is not None:
+        assert 0 <= c["fetch.pinned_alloc_bytes"]["total"]
+    for (a, _), (b, _) in zip(on, off):
+        for m in kw["modalities"]:
+            np.testing.assert_array_equal(a[m], b[m])
