@@ -35,7 +35,10 @@ Phases, each of which fails the run on error:
 3. bench main path: ``annotate_views`` at K = 32 must launch kernel A
    (launch counter reset just before, read just after) and return every
    label with its shape and dtype, each view with valid pixels; the
-   launch's work items and split rows are printed.
+   launch's work items and split rows are printed. The admission kernels
+   on the bench batch and on its first view (flat rows, no bbox words):
+   bit for bit against the plain path, then timed in turns with it, and
+   ``prepare_raster``, beside their bound (``check_admission``).
 4. pipeline on kernel against plain: the same 2 views through the whole
    pipeline, once on the kernels and once on the plain rasters, must give
    equal labels.
@@ -89,18 +92,20 @@ Phases, each of which fails the run on error:
     ray-triangle tests per second.
 11. CLI on the bench scene: ``main(["--model_path", d, "--task", "all",
     "with", "NUM_POINTS=4", "STOP_VIEW_NUMBER=3"])``; every task's outputs
-    there and decoding, kernel A launched (count reset just before, read
-    just after), the device PNGs equal to ``annotate_views`` on the plain
-    rasters for the same views and batches. The plain rasters run 2 views
-    at a time, which gives the whole batch's rows.
+    there and decoding, the admission kernels and kernel A launched
+    (counts reset just before, read just after), the device PNGs equal to
+    ``annotate_views`` on the plain admission and rasters for the same
+    views and batches. The plain rasters run 2 views at a time, which gives
+    the whole batch's rows.
 12. CLI on the large scene: ``--task points`` at the default settings
     (timed), then the 12 device tasks in one ``run_device_tasks`` call:
-    kernel C launched and kernel A not; viewpoints/s with the PNG writes,
+    the admission kernels and kernel C launched, kernel A not; viewpoints/s with the PNG writes,
     and of the same batches rendered and fetched without them. Then the
     CLI batch with the most scan-all and block-mode rows at the CLI's own
     ``ccap``: kernel C bit for bit against its plain version on its 2
     hardest views, and the written outputs of its 2 hardest views equal to
-    ``annotate_views`` on the plain rasters with the CLI's arguments; the
+    ``annotate_views`` on the plain admission and rasters with the CLI's
+    arguments; the
     check prints the launch's work items and split rows.
 13. CLI ``--task pano`` at 2048x1024 on the bench scene for 1 camera
     location, the panorama's render timed; outputs decode.
@@ -270,15 +275,19 @@ Phases, each of which fails the run on error:
     name in the report. Prints the view counts, each stage's seconds and
     the depth net's share of exactly-zero outputs on the held-out views.
 22. the port's bench (``omnidata_tpu_torch.bench``) in this process, in
-    torch's defaults: the xl scene (1,423,360 faces, a real Replica scan's
-    size) through ``bench_large_scene(build=build_xl_scene, prefix="xl")``
-    at 1 repetition: kernel C's count pass and sweep launched and kernel A
-    not (counters reset just before, read just after), the rows past C's
+    torch's defaults: the xl scene (1,423,360 faces, an assumed room-scale
+    scan's size) through ``bench_large_scene(build=build_xl_scene,
+    prefix="xl")`` at 1 repetition: the admission kernels and kernel C's
+    count pass and sweep launched and kernel A not (counters reset just
+    before, read just after), the rows past C's
     stage cap, split rows, ``prepare_raster``'s peak memory; every xl label
     present with face ids agreeing with ``mask_valid``; kernel C's
     compacting body alone at K = 32 on the xl batch (CUDA events) beside
     its pairs and bound, then bit for bit against its plain version on the
-    rows of the 2 xl views that stage the most faces. ``bench_full13`` on 1
+    rows of the 2 xl views that stage the most faces; the admission kernels
+    on the xl batch at the CLI's ccap 48 bit for bit against the plain path
+    (ids, counts, bbox words), then the kernels and the plain path timed in
+    turns, and ``prepare_raster``, beside the kernels' bound. ``bench_full13`` on 1
     batch of the bench scene (kernel A launched, the host-cue pool runs one
     job a view with finite seconds); the bench's headline line at 1
     repetition.
@@ -346,7 +355,7 @@ EXPECTED = {  # modality -> (trailing shape, dtype name)
     "keypoints2d": ((), "uint16"),
     "fragments": ((), "int32"),
 }
-KERNEL_SOURCES = ("raster_chunklist", "raster_compact")
+KERNEL_SOURCES = ("raster_chunklist", "raster_compact", "raster_admission")
 HOST_LIBRARIES = ("narf", "felzenszwalb")  # the host cues' native cores
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 CLI_LOG = CLI_DIR / "cli.log"
@@ -498,16 +507,18 @@ def by_views(plain):
 
 @contextlib.contextmanager
 def plain_raster():
-    """Route render_views_fused through the plain PyTorch rasters (A, B and
-    C), K_CHECK views at a time, for the comparisons of phases 4, 7, 11 and
-    12 only (the wrappers themselves never do that on a CUDA tensor)."""
+    """Route render_views_fused through the plain PyTorch admission and
+    rasters (A, B and C, K_CHECK views at a time), for the comparisons of
+    phases 4, 7, 11 and 12 only (the wrappers themselves never do that on a
+    CUDA tensor)."""
     from omnidata_tpu_torch.mesh import raster, raster_kernels
 
     names = ("raster_tiles_chunklist", "raster_tiles_compact",
-             "raster_tiles_streamed")
+             "raster_tiles_streamed", "admission")
     saved = {n: getattr(raster, n) for n in names}
-    for n in names:
+    for n in names[:3]:
         setattr(raster, n, by_views(getattr(raster_kernels, f"{n}_reference")))
+    raster.admission = raster.admission_reference
     try:
         yield
     finally:
@@ -2869,7 +2880,8 @@ BENCH_FULL13_BATCHES = 1
 
 def xl_kernel_c(xmesh, xcurv, cams, dev, card: str) -> dict:
     """Kernel C's compacting body on an xl batch at the bench's ccap: timed
-    alone at K = 32 beside its pairs and bound (``raster_work``), then bit
+    alone at K = 32 after one warm call, beside its pairs and bound
+    (``raster_work``), then bit
     for bit against its plain version on the rows of the K_CHECK views
     that stage the most faces. -> what was measured and checked."""
     import torch
@@ -2889,8 +2901,11 @@ def xl_kernel_c(xmesh, xcurv, cams, dev, card: str) -> dict:
                                CHUNK, inp.tiles_per_view, TILE, 1)
     ckw = dict(chunk=CHUNK, tiles_per_view=inp.tiles_per_view)
     full = (inp.ids, inp.counts, inp.origins, inp.pack, inp.dir_planes)
-    ms = cuda_ms(lambda: rk.raster_tiles_streamed(*full, bbox_words=inp.bbox_words,
-                                                  **ckw), 3)
+    def sweep():
+        return rk.raster_tiles_streamed(*full, bbox_words=inp.bbox_words, **ckw)
+
+    sweep()  # the allocator's first blocks for the outputs are not timed
+    ms = cuda_ms(sweep, 3)
     work = raster_work(inp, staged, reads_bbox_words=True)
     work.update(item_counts(rk.raster_tiles_streamed.last_schedule))
     log(f"22 kernel C K={cams.location.shape[0]} on the xl batch: {ms:.3f} ms; "
@@ -2925,6 +2940,78 @@ def xl_kernel_c(xmesh, xcurv, cams, dev, card: str) -> dict:
             **items}
 
 
+# FP32 operations of one (view, face) in the admission kernels: the camera
+# transform of three corners (54), three projections (45, each IEEE division
+# counted as one), the bbox's mins and maxes (12), the screen test (4), the
+# bbox word (20) and the tile rectangle (16); crossings of the near plane
+# (a few faces a view) uncounted
+ADMISSION_OPS = 151
+
+
+def check_admission(what: str, mesh, curv, cams, card: str, compact: bool,
+                    streamed: bool) -> dict:
+    """The admission kernels on one batch at the CLI's chunk-list cap
+    (CHUNK_LIST_CAP), with bbox words when compact: bit for bit against the
+    plain path (``admission_reference``) on the same CUDA tensors; then the
+    kernels and the plain path timed in turns (plain, kernels, kernels,
+    plain) and ``prepare_raster`` (as ``annotate_views`` calls it) with
+    CUDA events, beside the bound: ADMISSION_OPS a (view, face) at
+    FP32_PEAK / 2 (``-fmad=false``), and the corners and face indices read
+    and the words, bits, ids and counts written once at HBM_BYTES_PER_S.
+    -> what was measured and checked."""
+    import torch
+
+    from omnidata_tpu_torch.annotator import DEVICE_MODALITIES
+    from omnidata_tpu_torch.annotator.pipeline import _gather_attrs
+    from omnidata_tpu_torch.mesh import raster as raster_mod
+    from omnidata_tpu_torch.mesh import raster_kernels as rk
+    from raster_measure import FP32_PEAK, HBM_BYTES_PER_S
+
+    K = cams.location.shape[0]
+    F = mesh.faces.shape[0]
+    n_chunks = -(-F // CHUNK)
+    ccap = min(rk.CHUNK_LIST_CAP, n_chunks)
+    args = (cams, mesh, TILE, CHUNK, ccap)
+    before = raster_mod.admission.launches
+    got = raster_mod.admission(*args, compact=compact)
+    torch.cuda.synchronize()
+    launched = raster_mod.admission.launches - before
+    want = raster_mod.admission_reference(*args, compact=compact)
+    equal = [g is None and w is None or torch.equal(g, w) for g, w in zip(got, want)]
+    c = got[1]
+    kinds = {"exact": int((c >= 0).sum()), "scan_all": int((c == -1).sum()),
+             "block": int((c <= -2).sum())}
+    hier = n_chunks > raster_mod.HIER_ADMISSION_MIN_CHUNKS
+    log(f"admission kernels vs plain ({what}, {K} views, {F} faces, "
+        f"{'hierarchical' if hier else 'flat'}, ccap {ccap}): ids, counts, bbox "
+        f"words equal {equal}; rows {kinds}; launches {launched}")
+    if not all(equal) or launched != 1:
+        raise AssertionError(f"the admission kernels disagree with the plain path "
+                             f"({what})")
+    del got, want
+    attrs, _ = _gather_attrs(mesh, curv, DEVICE_MODALITIES)
+    plain, ms = in_turns(lambda: raster_mod.admission_reference(*args, compact=compact),
+                         lambda: raster_mod.admission(*args, compact=compact), 3, 10)
+    raster_mod.prepare_raster(cams, mesh, TILE, CHUNK, attrs, ccap, compact=compact,
+                              streamed=streamed)
+    ms_prepare = cuda_ms(lambda: raster_mod.prepare_raster(
+        cams, mesh, TILE, CHUNK, attrs, ccap, compact=compact, streamed=streamed), 5)
+    rows = K * (RES // TILE) ** 2
+    n_bytes = 4 * (12 * F + K * (12 + 9) + K * n_chunks * CHUNK * compact
+                   + rows * -(-n_chunks // 32) + rows * (ccap + 1))
+    ops_ms = ADMISSION_OPS * K * n_chunks * CHUNK / (FP32_PEAK / 2) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"admission kernels K={K} ({what}): {ms[0]:.3f}, {ms[1]:.3f} ms; plain path "
+        f"{plain[0]:.3f}, {plain[1]:.3f} ms (plain, kernels, kernels, plain); "
+        f"prepare_raster {ms_prepare:.3f} ms; bound {bound_ms:.3f} ms (operations "
+        f"{ops_ms:.3f}, bytes {bytes_ms:.3f}: {n_bytes / 1e6:.1f} MB), "
+        f"{bound_ms / min(ms):.3f} of the bound; card {card}")
+    return {"ms": ms, "prepare_raster_ms": ms_prepare, "plain_ms": plain,
+            "bound_ms": bound_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bytes": n_bytes, "rows": kinds, "launches": launched}
+
+
 def phase_bench(card: str, mesh, curv) -> dict:
     """Phase 22: ``omnidata_tpu_torch.bench`` in this process on the card
     in torch's defaults (see the module doc): the xl scene through
@@ -2932,7 +3019,9 @@ def phase_bench(card: str, mesh, curv) -> dict:
     BENCH_XL_REPS repetitions (kernel C's count pass and sweep launched,
     kernel A not; counters reset just before, read just after), every xl
     label present with face ids agreeing with mask_valid, kernel C bit for
-    bit with its plain version on the 2 xl views that stage the most faces;
+    bit with its plain version on the 2 xl views that stage the most faces,
+    the admission kernels bit for bit with the plain path and timed
+    (``check_admission``);
     ``bench_full13`` on BENCH_FULL13_BATCHES batch of the bench scene
     (kernel A launched; K host-cue jobs with finite seconds); the headline
     line of ``bench.main`` at 1 repetition (BENCH_FAST)."""
@@ -2943,13 +3032,15 @@ def phase_bench(card: str, mesh, curv) -> dict:
 
     from omnidata_tpu_torch import bench
     from omnidata_tpu_torch.annotator import DEVICE_MODALITIES, annotate_views
+    from omnidata_tpu_torch.mesh import raster as raster_mod
     from omnidata_tpu_torch.mesh import raster_kernels as rk
 
     dev = mesh.vertices.device
     t_phase = time.perf_counter()
     counters = ((rk.raster_tiles_streamed, "launches"),
                 (rk.raster_tiles_streamed, "count_launches"),
-                (rk.raster_tiles_chunklist, "launches"))
+                (rk.raster_tiles_chunklist, "launches"),
+                (raster_mod.admission, "launches"))
     cudnn_mode("defaults")  # as the bench runs alone
     try:
         # 22a. the xl scene on kernel C
@@ -2958,19 +3049,20 @@ def phase_bench(card: str, mesh, curv) -> dict:
         xl = bench.bench_large_scene(build=bench.build_xl_scene, prefix="xl",
                                      device=dev, reps=BENCH_XL_REPS)
         torch.cuda.synchronize()
-        launches_c, count_c, launches_a = (getattr(fn, attr) for fn, attr in counters)
+        launches_c, count_c, launches_a, launches_adm = (
+            getattr(fn, attr) for fn, attr in counters)
         log(f"22 xl scene ({xl['xl_scene_tris']} faces, padded "
             f"{xl['xl_scene_faces_padded']}): bench_large_scene {xl['xl_scene_vps']} vps "
             f"({BENCH_XL_REPS} rep); kernel C launches {launches_c} (count passes "
-            f"{count_c}), A {launches_a}; last launch: {xl['xl_rows_past_stage_cap']} of "
+            f"{count_c}), A {launches_a}, admission {launches_adm}; last launch: {xl['xl_rows_past_stage_cap']} of "
             f"{xl['xl_rows']} rows past the {rk.STREAMED_STAGE_CAP} stage cap, max "
             f"{xl['xl_max_staged']} staged, {xl['xl_split_rows']} rows split, "
             f"{xl['xl_work_items']} work items; prepare_raster peak "
             f"{xl.get('xl_prepare_raster_peak_gib')} GiB, annotate_views peak "
             f"{xl.get('xl_peak_gib')} GiB; card {card}")
-        if launches_c < 1 or count_c < 1 or launches_a:
-            raise AssertionError("the xl scene must launch kernel C's count pass and "
-                                 "sweep, and not kernel A")
+        if launches_c < 1 or count_c < 1 or launches_a or launches_adm < 1:
+            raise AssertionError("the xl scene must launch the admission kernels and "
+                                 "kernel C's count pass and sweep, and not kernel A")
         if xl["xl_scene_faces_padded"] >= 2**24:
             raise AssertionError("xl face ids past 2^24 do not ride exactly as float32")
         xmesh, xcurv = bench.build_xl_scene(device=dev)  # the bench's cache
@@ -2983,6 +3075,8 @@ def phase_bench(card: str, mesh, curv) -> dict:
         check_labels(out, K_MAIN, xmesh.num_faces, dev)
         del out
         xl["kernel_c"] = xl_kernel_c(xmesh, xcurv, xcams, dev, card)
+        xl["admission"] = check_admission("the xl batch, phase 22", xmesh, xcurv, xcams,
+                                          card, compact=True, streamed=True)
         del xmesh, xcurv
 
         # 22b. full13 on the bench scene
@@ -3031,7 +3125,8 @@ def phase_bench(card: str, mesh, curv) -> dict:
     s_phase = time.perf_counter() - t_phase
     log(f"phase 22: {s_phase:.1f} s; card {card}")
     return {"xl": xl, "launches_c": launches_c, "count_launches_c": count_c,
-            "launches_a_xl": launches_a, "full13": full13, "headline": headline,
+            "launches_a_xl": launches_a, "launches_admission_xl": launches_adm,
+            "full13": full13, "headline": headline,
             "s_phase": s_phase}
 
 
@@ -3121,6 +3216,11 @@ def main() -> int:
         raise AssertionError("the bench main path did not launch kernel A")
     check_labels(out, K_MAIN, mesh.num_faces, dev)
     del out
+    # the admission kernels on the bench scene: flat rows, kernel A's callers
+    adm_bench = {f"K={k}": check_admission(f"bench scene, K={k}", mesh, curv,
+                                           batch(0, k), card, compact=False,
+                                           streamed=False)
+                 for k in (K_MAIN, 1)}
 
     # 4. pipeline on kernel against plain, 2 views ---------------------------
     cams2 = batch(0, K_CHECK)
@@ -3509,6 +3609,7 @@ def main() -> int:
     bdir = write_mesh_dir(CLI_DIR / "bench", mesh)
     rk.raster_tiles_chunklist.launches = 0
     rk.raster_tiles_streamed.launches = 0
+    raster_mod.admission.launches = 0
     device_cue_maps, route_calls = cli.device_cue_maps, []
 
     def counted_cue_maps(out, fov, settings, prefixes):
@@ -3527,6 +3628,7 @@ def main() -> int:
     route_calls = sum(m == ["narf", "seg25d_q", "seg2d_q"] for m in route_calls)
     cli_a_bench = rk.raster_tiles_chunklist.launches
     cli_c_bench = rk.raster_tiles_streamed.launches
+    cli_adm_bench = raster_mod.admission.launches
     bsettings = load_settings(CLI_BENCH_ARGS[1:])
     bviews = cli.device_views(bdir, bsettings)
     n_files = check_cli_outputs(bdir, bviews, CLI_IMAGE_TASKS + ("fragments",))
@@ -3535,9 +3637,11 @@ def main() -> int:
         raise AssertionError("vanishing points missing from point_info")
     log(f"CLI --task all (bench scene, {len(all_views)} views in point_info, "
         f"{len(bviews)} rendered): {s_cli_bench:.1f} s; {n_files} outputs "
-        f"decode; kernel A launches {cli_a_bench}, C {cli_c_bench}")
-    if cli_a_bench < 1 or cli_c_bench:
-        raise AssertionError("the bench CLI run must launch kernel A, not C")
+        f"decode; kernel A launches {cli_a_bench}, C {cli_c_bench}, admission "
+        f"{cli_adm_bench}")
+    if cli_a_bench < 1 or cli_c_bench or cli_adm_bench < 1:
+        raise AssertionError("the bench CLI run must launch the admission kernels "
+                             "and kernel A, not C")
     mods = tuple(t for t in cli.TASKS_ALL if t in cli.DEVICE_TASKS)
     cmesh, ccurv = cli.prepare_device_mesh(bdir, mods, bsettings, device=dev)
     unequal = []
@@ -3561,18 +3665,22 @@ def main() -> int:
     lviews = cli.device_views(ldir, lsettings)
     rk.raster_tiles_chunklist.launches = 0
     rk.raster_tiles_streamed.launches = 0
+    raster_mod.admission.launches = 0
     t0 = time.perf_counter()
     run_cli(cli.run_device_tasks, ldir, list(mods), lsettings, device=dev)
     torch.cuda.synchronize()
     s_pass = time.perf_counter() - t0
     cli_a_large = rk.raster_tiles_chunklist.launches
     cli_c_large = rk.raster_tiles_streamed.launches
+    cli_adm_large = raster_mod.admission.launches
     n_lfiles = check_cli_outputs(ldir, lviews, CLI_IMAGE_TASKS[:10] + ("fragments",))
     log(f"CLI --task points (large scene, default settings): {s_points_large:.2f} s, "
         f"{len(lviews)} views; device pass: {s_pass:.2f} s, {n_lfiles} outputs "
-        f"decode; kernel C launches {cli_c_large}, A {cli_a_large}")
-    if cli_c_large < 1 or cli_a_large:
-        raise AssertionError("the large CLI run must launch kernel C, not A")
+        f"decode; kernel C launches {cli_c_large}, A {cli_a_large}, admission "
+        f"{cli_adm_large}")
+    if cli_c_large < 1 or cli_a_large or cli_adm_large < 1:
+        raise AssertionError("the large CLI run must launch the admission kernels "
+                             "and kernel C, not A")
     t0 = time.perf_counter()
     lm, lc = cli.prepare_device_mesh(ldir, mods, lsettings, device=dev)
     s_setup = time.perf_counter() - t0
@@ -3755,6 +3863,14 @@ def main() -> int:
               err_c["plain"], c_turns["plain"],
               shape=f"large K={K_MAIN}, ccap {LARGE_CCAP}; small: K=1",
               items_seg1=seg1["kernel C plain body (large)"]),
+        {"name": "admission_overlap + admission_rows", "route": "cuda",
+         "source": src + "raster_admission.cu",
+         "replaces": "none (the JAX package admits with XLA ops)",
+         "launches_in": "prepare_raster on CUDA tensors",
+         "shape": f"xl K={K_MAIN}, tile {TILE}, ccap {rk.CHUNK_LIST_CAP}, compact",
+         **bench_res["xl"]["admission"], "bench_scene": adm_bench,
+         "launches_xl": bench_res["launches_admission_xl"],
+         "launches_cli_bench": cli_adm_bench, "launches_cli_large": cli_adm_large},
     ], "large_vps": lvps, "bench_vps": vps, "peak_gib_large": lpeak_gib,
         "s_kernel_build": s_build, "s_large_scene_build": s_large_scene,
         "raycast_tests_per_s": ray_tests / s_ray, "raycast_face_agreement": face_eq,

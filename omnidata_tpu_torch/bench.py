@@ -78,7 +78,7 @@ BASELINE_VIEWPOINTS_PER_SEC = 12.0 / 600.0  # reference demo: ~12 viewpoints / 1
 
 _SCENE_CACHE_DIR = Path(__file__).resolve().parent.parent / "tmp" / "bench_scenes_torch"
 _SCENE_CACHE_VERSION = "v1"
-KERNEL_SOURCES = ("raster_chunklist", "raster_compact")
+KERNEL_SOURCES = ("raster_chunklist", "raster_compact", "raster_admission")
 HOST_LIBRARIES = ("narf", "felzenszwalb")
 # bench_large_scene's launch (bench.py:383): views per call, tile, chunk-list
 # cap and resolution

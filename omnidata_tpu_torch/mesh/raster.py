@@ -11,6 +11,9 @@ raster kernel, winner decode.
    the tile) or C (streamed: the pack chunk-major, compacting by default);
 4. ``raster_kernels.decode_winners`` recomputes the winner's exact t/u/v and
    interpolates vertex attributes; tiles are put back into images.
+On a card steps 1 and 2 (and the bbox words) are two CUDA kernels
+(``admission``, ``csrc/raster_admission.cu``); on the CPU, the plain
+PyTorch functions they equal bit for bit (``admission_reference``).
 
 Tie semantics, admission encoding and outputs are those of
 ``omnidata_tpu.mesh.raster.render_views_fused``; ``render_view_fused`` is
@@ -38,6 +41,7 @@ from .raster_kernels import (
     LANE_MASK,
     STAGE_CAP,
     STREAMED_STAGE_CAP,
+    _call,
     _mt_packed_keys,
     _mt_precompute,
     decode_winners,
@@ -212,11 +216,7 @@ def admission_lists(overlap: torch.Tensor, true_counts: torch.Tensor,
     bcap = min(ccap, ncb)
     bvals, bidx = _ascending_first(ovb_any, bcap)
     blist = torch.where(bvals > ncb, bidx, ncb)  # pad -> all-zero sentinel block
-    if expand_bcap is None:
-        expand_bcap = EXPAND_BCAP
-    if expand_bcap < 1:
-        raise ValueError(f"expand_bcap must be >= 1, got {expand_bcap}")
-    bcap2 = min(bcap, expand_bcap)
+    bcap2 = min(bcap, _expand_bcap(expand_bcap))
     lanes = torch.arange(ab, dtype=torch.int32, device=overlap.device)
     cand = (blist[:, :bcap2, None] * ab + lanes).reshape(rows, bcap2 * ab)
     ov2p = pad(overlap, (0, (ncb + 1) * ab - n_chunks))
@@ -279,6 +279,15 @@ def tile_admission(lo: torch.Tensor, hi: torch.Tensor, res: int, tile: int,
         hier=n_chunks > hier_min, expand_bcap=expand_bcap)
 
 
+def _check_word_range(res: int, tile: int) -> None:
+    n1d = res // tile
+    if n1d > 256 or res > 2048:
+        raise ValueError(
+            f"compacting kernels pack tile indices ({n1d}/axis) and 8-px "
+            f"y-bands ({res // 8}) as u8 (resolution {res} / tile {tile}): "
+            "raise the tile size or pass compact=False")
+
+
 def bbox_words(lo: torch.Tensor, hi: torch.Tensor, res: int,
                tile: int) -> torch.Tensor:
     """Per-view per-face screen bboxes (padded, ``padded_bboxes``) as one
@@ -287,12 +296,7 @@ def bbox_words(lo: torch.Tensor, hi: torch.Tensor, res: int,
     slack keeps the quantized test a superset of the float one; dead faces
     quantize to lo 255 > hi 0 and never stage. The compacting kernels test
     these words against each tile (``raster_kernels.band_mask_and_flags``)."""
-    n1d = res // tile
-    if n1d > 256 or res > 2048:
-        raise ValueError(
-            f"compacting kernels pack tile indices ({n1d}/axis) and 8-px "
-            f"y-bands ({res // 8}) as u8 (resolution {res} / tile {tile}): "
-            "raise the tile size or pass compact=False")
+    _check_word_range(res, tile)
 
     def q(x, step):
         return torch.clamp(torch.floor(x / step), 0, 255).to(torch.int32)
@@ -301,6 +305,143 @@ def bbox_words(lo: torch.Tensor, hi: torch.Tensor, res: int,
     lo_b, hi_b = q(lo - 1.0, 8.0), q(hi + 1.0, 8.0)
     return (lo_t[..., 0] | (hi_t[..., 0] << 8)
             | (lo_b[..., 1] << 16) | (hi_b[..., 1] << 24)).contiguous()
+
+
+def _expand_bcap(expand_bcap: int | None) -> int:
+    expand_bcap = EXPAND_BCAP if expand_bcap is None else expand_bcap
+    if expand_bcap < 1:
+        raise ValueError(f"expand_bcap must be >= 1, got {expand_bcap}")
+    return expand_bcap
+
+
+def admission_rows_reference(bits: torch.Tensor, n_chunks: int, ccap: int,
+                             hier: bool, expand_bcap: int | None = None):
+    """The algorithm of the rows kernel (``admission_rows_kernel`` in
+    ``csrc/raster_admission.cu``) in plain PyTorch: ``admission_lists``
+    from the overlap matrix packed as bits (rows, ceil(n_chunks / 32))
+    int32, chunk c at bit c % 32 of word c // 32. The ranks of the set
+    chunks and of the set 8-chunk blocks (a block is a byte of a word) are
+    prefix sums, and the chunk (or, in block mode, block) of rank r goes to
+    slot r while the encoding admits it. -> (ids (rows, ccap), counts
+    (rows,)) int32, equal to ``admission_lists`` on the unpacked matrix."""
+    rows, nw = bits.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    ov = ((bits[:, :, None] >> shifts) & 1).bool().reshape(rows, nw * 32)
+    blocks = ov.reshape(rows, nw * 4, 8).any(-1)
+    n_set, n_blocks = ov.sum(1), blocks.sum(1)
+    crank = torch.cumsum(ov, 1) - 1
+    brank = torch.cumsum(blocks, 1) - 1
+    if hier:
+        ncb = -(-n_chunks // 8)
+        bcap = min(ccap, ncb)
+        bcap2 = min(bcap, _expand_bcap(expand_bcap))
+        k2 = min(ccap, 8 * bcap2)
+        exact = (n_set <= k2) & (n_blocks <= bcap2)
+        by_block = ~exact & (n_blocks <= bcap)
+        counts = torch.where(exact, n_set,
+                             torch.where(by_block, -n_blocks - 2, -1))
+        take = (ov & (crank < k2) & (brank.repeat_interleave(8, 1) < bcap2)
+                & ~by_block[:, None])
+    else:
+        counts = torch.where(n_set > ccap, -1, n_set)
+        take = ov & (crank < min(ccap, n_chunks))
+    ids = torch.zeros((rows, ccap), dtype=torch.int32, device=bits.device)
+    r, c = torch.nonzero(take, as_tuple=True)
+    ids[r, crank[r, c]] = c.to(torch.int32)
+    if hier:
+        r, b = torch.nonzero(blocks & by_block[:, None], as_tuple=True)
+        ids[r, brank[r, b]] = b.to(torch.int32)
+    return ids, counts.to(torch.int32)
+
+
+def admission_reference(cameras: Camera, mesh: TriangleMesh, tile: int,
+                        chunk: int, ccap: int,
+                        hier_min_chunks: int | None = None,
+                        expand_bcap: int | None = None, compact: bool = False):
+    """Plain version of ``admission``: ``padded_bboxes``, ``tile_admission``
+    and, when compact, ``bbox_words``, on the mesh's device.
+    -> (ids (K*T, ccap), counts (K*T,), bbox words (K, Fp) or None)."""
+    res = cameras.resolution
+    lo, hi = padded_bboxes(cameras, mesh, chunk)
+    ids, counts = tile_admission(lo, hi, res, tile, chunk, ccap,
+                                 hier_min_chunks, expand_bcap)
+    words = bbox_words(lo, hi, res, tile) if compact else None
+    return ids, counts, words
+
+
+def admission(cameras: Camera, mesh: TriangleMesh, tile: int, chunk: int,
+              ccap: int, hier_min_chunks: int | None = None,
+              expand_bcap: int | None = None, compact: bool = False):
+    """Chunk admission of K views and, when compact, their bbox words, as
+    ``admission_reference`` computes them. CPU tensors take that plain
+    version; CUDA tensors launch the two kernels of
+    ``csrc/raster_admission.cu`` (face bboxes -> tile-overlap bits and bbox
+    words; bits -> lists, hierarchical past ``hier_min_chunks`` chunks as
+    in ``tile_admission``), built on first use, and raise on what they do
+    not take or if they fail to build or launch; they equal the plain
+    version bit for bit. Each launch adds one to ``admission.launches``.
+    While the recorder records, counter ``raster.rows_fused`` gains the
+    rows the kernels admitted (none on the plain path)."""
+    res = cameras.resolution
+    dev = mesh.vertices.device
+    if dev.type == "cpu":
+        if profiler.recording():
+            profiler.count("raster.rows_fused", 0)  # all admitted by the plain path
+        return admission_reference(cameras, mesh, tile, chunk, ccap,
+                                   hier_min_chunks, expand_bcap, compact)
+    if compact:
+        _check_word_range(res, tile)
+    K = cameras.location.shape[0]
+    F = mesh.faces.shape[0]
+    n_chunks = -(-F // chunk)
+    hier = n_chunks > (HIER_ADMISSION_MIN_CHUNKS if hier_min_chunks is None
+                       else hier_min_chunks)
+    expand_bcap = _expand_bcap(expand_bcap) if hier else 1
+    rt = extrinsic_RT(cameras.location, cameras.R).contiguous()
+    km = intrinsic_matrix(cameras.fov, res).contiguous()
+    tensors = (mesh.vertices, mesh.faces, rt, km)
+    checks = [
+        (dev.type == "cuda", lambda: f"no kernel for {dev}"),
+        (all(t.device == dev for t in tensors),
+         lambda: "the mesh and the cameras must be on one device"),
+        (mesh.vertices.dtype == torch.float32 and rt.dtype == torch.float32
+         and km.dtype == torch.float32,
+         lambda: f"vertices and cameras must be float32, got "
+         f"{mesh.vertices.dtype}, {rt.dtype}"),
+        (mesh.faces.dtype == torch.int32 and mesh.faces.dim() == 2
+         and mesh.faces.shape[1] == 3,
+         lambda: f"faces must be int32 (F, 3), got {mesh.faces.dtype} "
+         f"{tuple(mesh.faces.shape)}"),
+        (mesh.vertices.is_contiguous() and mesh.faces.is_contiguous(),
+         lambda: "vertices and faces must be contiguous"),
+        (ccap >= 1 and chunk >= 1 and res % tile == 0,
+         lambda: f"ccap {ccap} and chunk {chunk} must be >= 1, tile {tile} "
+         f"divide resolution {res}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise ValueError(f"admission: {msg()}")
+    rows = K * (res // tile) ** 2
+    with torch.cuda.device(dev):
+        bits = torch.empty((rows, -(-n_chunks // 32)), dtype=torch.int32,
+                           device=dev)
+        ids = torch.empty((rows, ccap), dtype=torch.int32, device=dev)
+        counts = torch.empty(rows, dtype=torch.int32, device=dev)
+        words = (torch.empty((K, n_chunks * chunk), dtype=torch.int32,
+                             device=dev) if compact else None)
+        _call("raster_admission", "admission_launch",
+              [mesh.vertices.data_ptr(), mesh.faces.data_ptr(), rt.data_ptr(),
+               km.data_ptr(), None if words is None else words.data_ptr(),
+               bits.data_ptr(), ids.data_ptr(), counts.data_ptr()],
+              [mesh.num_faces, F, K, res, tile, chunk, n_chunks, ccap,
+               int(hier), expand_bcap])
+    admission.launches += 1
+    if profiler.recording():
+        profiler.count("raster.rows_fused", rows)
+    return ids, counts, words
+
+
+admission.launches = 0
 
 
 def _tiles(x: torch.Tensor, K: int, n1d: int, tile: int) -> torch.Tensor:
@@ -339,11 +480,13 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
                    ccap: int | None = None, hier_min_chunks: int | None = None,
                    expand_bcap: int | None = None, compact: bool = False,
                    streamed: bool = False) -> RasterInputs:
-    """Admission, rays and scene pack for one raster launch over K views;
-    the bbox words when compact, the pack chunk-major when streamed. While
-    the recorder records (``utils.profiler``), the admission rows go to
-    counters ``raster.rows``, ``raster.rows_block`` (block mode) and
-    ``raster.rows_scan_all``."""
+    """Admission (``admission``: the two kernels on a card, the plain
+    version on the CPU), rays and scene pack for one raster launch over K
+    views; the bbox words when compact, the pack chunk-major when streamed.
+    While the recorder records (``utils.profiler``), the admission rows go
+    to counters ``raster.rows``, ``raster.rows_block`` (block mode) and
+    ``raster.rows_scan_all``; ``admission`` counts ``raster.rows_fused``,
+    the rows its kernels admitted."""
     res = cameras.resolution
     if res % tile:
         raise ValueError(f"resolution {res} is not a multiple of tile {tile}")
@@ -352,15 +495,12 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
     F = mesh.faces.shape[0]
     n_chunks = -(-F // chunk)
     ccap = min(ccap or CHUNK_LIST_CAP, n_chunks)
-    lo, hi = padded_bboxes(cameras, mesh, chunk)
-    ids, counts = tile_admission(lo, hi, res, tile, chunk, ccap,
-                                 hier_min_chunks, expand_bcap)
+    ids, counts, words = admission(cameras, mesh, tile, chunk, ccap,
+                                   hier_min_chunks, expand_bcap, compact)
     if profiler.recording():
         profiler.count("raster.rows", counts.numel())
         profiler.count("raster.rows_block", (counts <= -2).sum())
         profiler.count("raster.rows_scan_all", (counts == -1).sum())
-    words = bbox_words(lo, hi, res, tile) if compact else None
-    del lo, hi
     origins, dirs = camera_rays(cameras)  # (K,3), (K,H,W,3)
     tile_dirs = _tiles(dirs, K, n1d, tile)  # (K*T, P, 3)
     dir_planes = tuple(tile_dirs[..., i].contiguous() for i in range(3))

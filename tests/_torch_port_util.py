@@ -91,6 +91,37 @@ def mixed_inputs(mesh, cams, tile, chunk):
              flat.dir_planes), flat.tiles_per_view)
 
 
+def pack_bits(overlap):
+    """(rows, n_chunks) bool -> (rows, ceil(n_chunks / 32)) int32, chunk c at
+    bit c % 32 of word c // 32: the admission rows kernel's bit matrix
+    (``raster.admission_rows_reference``)."""
+    import torch
+
+    rows, n = overlap.shape
+    nw = -(-n // 32)
+    p = torch.nn.functional.pad(overlap, (0, nw * 32 - n)).reshape(rows, nw, 32)
+    w = (p.long() << torch.arange(32, device=p.device)).sum(-1)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def clustered_overlap(rng, rows, n_chunks):
+    """A (rows, n_chunks) bool overlap matrix whose rows hold 0 to 450 set
+    8-chunk blocks, each a random non-empty set of its chunks, so that
+    every ccap from 8 to 192 meets exact, block-mode and scan-all rows."""
+    import torch
+
+    ncb = -(-n_chunks // 8)
+    ov = np.zeros((rows, ncb * 8), bool)
+    for r in range(rows):
+        nb = min([0, 1, 2, 3, 5, 7, 8, 9, 20, 33, 60, 200, 300, 450][r % 14], ncb)
+        dens = rng.uniform(0.1, 1.0)
+        for b in rng.choice(ncb, nb, replace=False):
+            m = rng.rand(8) < dens
+            m[rng.randint(8)] = True
+            ov[r, b * 8:(b + 1) * 8] = m
+    return torch.as_tensor(ov[:, :n_chunks])
+
+
 def chunk_major(pack, chunk):
     """(COLS, Fp) scene pack -> (Fp / chunk, COLS, chunk), kernel C's layout."""
     return pack.reshape(pack.shape[0], -1, chunk).permute(1, 0, 2).contiguous()

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from omnidata_tpu_torch.core.cameras import Camera, look_at_rotation
+from omnidata_tpu_torch.core.cameras import Camera, extrinsic_RT, look_at_rotation
 from omnidata_tpu_torch.mesh import from_arrays, room, uv_sphere
 from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
@@ -280,6 +280,138 @@ def test_stage_cap_past_shared_memory_raises(cuda_scene):
     tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs,
                             chunk=CHUNK, tiles_per_view=T)
     torch.cuda.synchronize()
+
+
+def _admission_scene(device):
+    """Room and three spheres: 32,492 faces padded to 32,493, not a multiple
+    of 128 (254 chunks of 128)."""
+    parts = [room(size=6.0, height=3.0),
+             uv_sphere(radius=0.7, center=(0.6, 0.1, 1.2), n_lat=64, n_lon=128),
+             uv_sphere(radius=0.5, center=(-1.4, 1.0, 1.5), n_lat=64, n_lon=128),
+             uv_sphere(radius=0.2, center=(2.0, -2.2, 0.6), n_lat=8, n_lon=16)]
+    vs, fs, base = [], [], 0
+    for m in parts:
+        vs.append(m.vertices.numpy())
+        fs.append(m.faces[: m.num_faces].numpy() + base)
+        base += m.vertices.shape[0]
+    return from_arrays(np.concatenate(vs), np.concatenate(fs), pad_multiple=1,
+                       device=device)
+
+
+def _admission_views(k, res, device, seed=0):
+    """k cameras inside the room, looking every way."""
+    rng = np.random.RandomState(seed)
+    locs = torch.tensor(rng.uniform([-2.4, -2.4, 0.3], [2.4, 2.4, 2.7], (k, 3)),
+                        dtype=torch.float32, device=device)
+    tgts = locs + torch.tensor(rng.normal(size=(k, 3)), dtype=torch.float32,
+                               device=device)
+    fov = torch.tensor(rng.uniform(0.6, 1.8, k), dtype=torch.float32, device=device)
+    return Camera(locs, look_at_rotation(locs, tgts), fov, res)
+
+
+@pytest.fixture(scope="module")
+def admission_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernel, no CPU mode)")
+    return _admission_scene("cuda")
+
+
+def _face_kinds(mesh, cams):
+    """Faces straddling the near plane, wholly behind it, and in front but
+    off screen, summed over the views."""
+    RT = extrinsic_RT(cams.location, cams.R)
+    tris = mesh.vertices[mesh.faces[: mesh.num_faces].long()]
+    z = torch.einsum("fcj,kj->kfc", tris, RT[:, 2, :3]) + RT[:, 2, 3, None, None]
+    front = z > 1e-4
+    _, _, live = traster.face_screen_bboxes(cams, mesh)
+    live = live[:, : mesh.num_faces]
+    return (int((front.any(-1) & ~front.all(-1)).sum()), int((~front.any(-1)).sum()),
+            int((front.any(-1) & ~live).sum()))
+
+
+def _assert_admission_equal(got, want):
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+ADMISSION_SETTINGS = [(hier_min, ccap, eb) for hier_min in (1, 10**9)
+                      for ccap in (8, 48, 192) for eb in (1, 32)]
+
+
+@pytest.mark.parametrize("K", [1, 3, 32])
+@pytest.mark.parametrize("tile", [8, 16, 32, 64])
+def test_admission_kernels_match_plain_path_bitwise(admission_scene, tile, K):
+    """The two admission kernels against padded_bboxes, tile_admission and
+    bbox_words on the same CUDA tensors at 128², hierarchical and flat, at
+    ccap 8, 48 and 192 and expand_bcap 1 and 32: every slot of ids, the
+    counts and the bbox words equal; faces straddle the near plane, lie
+    behind it and off screen; rows end exact, in block mode and scan-all."""
+    mesh = admission_scene
+    cams = _admission_views(K, 128, "cuda")
+    assert mesh.faces.shape[0] % 128 and all(_face_kinds(mesh, cams))
+    kinds = set()
+    for hier_min, ccap, eb in ADMISSION_SETTINGS:
+        before = traster.admission.launches
+        got = traster.admission(cams, mesh, tile, 128, ccap, hier_min, eb,
+                                compact=True)
+        torch.cuda.synchronize()
+        assert traster.admission.launches == before + 1
+        want = traster.admission_reference(cams, mesh, tile, 128, ccap, hier_min,
+                                           eb, compact=True)
+        _assert_admission_equal(got, want)
+        c = got[1]
+        kinds |= {k for k, m in (("exact", c >= 0), ("scan_all", c == -1),
+                                 ("block", c <= -2)) if bool(m.any())}
+    assert kinds == {"exact", "scan_all", "block"}
+
+
+@pytest.mark.parametrize("res, tile, K, chunk", [
+    (512, 8, 3, 128),    # 4,096 tiles a view
+    (2048, 8, 1, 128),   # 65,536 tiles: ranges of tile rows
+    (128, 16, 3, 48),    # chunks of 48: a word column of 1,536 faces
+    (64, 8, 32, 16),     # chunks of 16, 2,031 of them: seven views a CTA
+])
+def test_admission_kernels_match_plain_path_at_other_shapes(admission_scene, res,
+                                                            tile, K, chunk):
+    mesh = admission_scene
+    cams = _admission_views(K, res, "cuda", seed=res + K)
+    for hier_min, compact in ((1, True), (10**9, False)):
+        got = traster.admission(cams, mesh, tile, chunk, 48, hier_min, 32, compact)
+        want = traster.admission_reference(cams, mesh, tile, chunk, 48, hier_min,
+                                           32, compact)
+        _assert_admission_equal(got, want)
+
+
+def test_admission_refuses_what_the_kernels_do_not_take(admission_scene):
+    """float64 vertices raise before any launch; a chunk count the C side
+    refuses raises from the launch."""
+    mesh = admission_scene
+    cams = _admission_views(2, 128, "cuda")
+    before = traster.admission.launches
+    with pytest.raises(ValueError, match="float32"):
+        traster.admission(cams, mesh._replace(vertices=mesh.vertices.double()),
+                          32, 128, 48)
+    assert traster.admission.launches == before
+    buf = torch.zeros(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tk._call("raster_admission", "admission_launch", [buf.data_ptr()] * 8,
+                 [100, 100, 1, 128, 32, 128, 2, 8, 0, 1])  # 100 faces: 1 chunk
+    traster.admission(cams, mesh, 32, 128, 48)  # no error left behind
+    torch.cuda.synchronize()
+
+
+def test_prepare_raster_on_the_card_admits_through_the_kernels(admission_scene):
+    mesh = admission_scene
+    cams = _admission_views(3, 128, "cuda")
+    before = traster.admission.launches
+    inp = traster.prepare_raster(cams, mesh, 32, 128, ccap=8, hier_min_chunks=1,
+                                 compact=True, streamed=True)
+    assert traster.admission.launches == before + 1
+    want = traster.admission_reference(cams, mesh, 32, 128, 8, 1, None, True)
+    _assert_admission_equal((inp.ids, inp.counts, inp.bbox_words), want)
 
 
 @pytest.mark.parametrize("kw", [{}, dict(compact=True), dict(streamed=True),
@@ -734,6 +866,7 @@ def test_rows_past_stage_cap_counter_equals_the_launch(cuda_scene, stage_cap):
     want = int((staged > cap).sum())
     assert got["counters"]["raster.rows_past_stage_cap"]["total"] == want
     assert got["counters"]["raster.rows"]["total"] == staged.numel()
+    assert got["counters"]["raster.rows_fused"]["total"] == staged.numel()
     if stage_cap:
         assert want > 0
     for name in ("raster.prepare", "raster.render"):

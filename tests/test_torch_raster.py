@@ -10,6 +10,8 @@ fuse differently:
   valid, on >= 99.9% of pixels; t within 1e-4 where the faces agree;
   interpolated attributes within 1e-4.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ from omnidata_tpu.mesh.pallas_raster import raster_tiles_pallas_chunklist
 from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
 
-from _torch_port_util import mixed_inputs, room_sphere_views
+from _torch_port_util import (clustered_overlap, mixed_inputs, pack_bits,
+                              room_sphere_views)
 
 torch.set_num_threads(1)
 
@@ -76,6 +79,121 @@ def test_admission_lists_match_jax(hier, ccap, expand_bcap):
     assert ids.dtype == torch.int32 and counts.dtype == torch.int32
     np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
     np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+
+
+ADMISSION_GRID = [(hier, ccap, eb) for hier in (False, True)
+                  for ccap in (8, 48, 192) for eb in (1, 32)]
+
+
+@pytest.mark.parametrize("hier, ccap, expand_bcap", ADMISSION_GRID)
+def test_admission_rows_reference_matches_admission_lists(hier, ccap, expand_bcap):
+    """The rows kernel's algorithm in plain PyTorch, on the overlap matrix
+    packed as bits (ranks by prefix sums of chunks and 8-chunk blocks),
+    gives admission_lists' ids and counts, every don't-care slot included;
+    n_chunks 4,001 (not a multiple of 8 or 32) with exact, scan-all and
+    (hierarchical) block-mode rows."""
+    overlap = clustered_overlap(np.random.RandomState(11), 140, 4001)
+    want_ids, want_counts = traster.admission_lists(
+        overlap, overlap.sum(-1), ccap, hier, expand_bcap=expand_bcap)
+    bits = pack_bits(overlap)
+    ids, counts = traster.admission_rows_reference(bits, 4001, ccap, hier,
+                                                   expand_bcap)
+    assert ids.dtype == torch.int32 and counts.dtype == torch.int32
+    assert torch.equal(counts, want_counts) and torch.equal(ids, want_ids)
+    c = counts.numpy()
+    assert (c >= 0).any() and (c == -1).any() and ((c <= -2).any() == hier)
+
+
+def test_admission_refuses_what_no_kernel_takes(scene):
+    """A device with no kernels (meta) raises rather than take the plain
+    path, as do an expand_bcap below 1 and a resolution whose tiles the
+    bbox words cannot hold; nothing is launched."""
+    _, tmesh, _, tcam = scene
+    meta = dict(vertices=tmesh.vertices.to("meta"), faces=tmesh.faces.to("meta"))
+    mmesh = tmesh._replace(**meta)
+    mcam = dataclasses.replace(tcam, location=tcam.location.to("meta"),
+                               R=tcam.R.to("meta"), fov=tcam.fov.to("meta"))
+    before = traster.admission.launches
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        traster.admission(mcam, mmesh, 16, 64, 8)
+    with pytest.raises(ValueError, match="expand_bcap"):
+        traster.admission(mcam, mmesh, 16, 64, 8, 1, expand_bcap=0)
+    with pytest.raises(ValueError, match="raise the tile size"):
+        traster.admission(dataclasses.replace(mcam, resolution=4096), mmesh, 8, 64,
+                          8, compact=True)
+    assert traster.admission.launches == before
+
+
+def _jax_admission(lo, hi, res, tile, chunk, ccap, hier, expand_bcap):
+    """The JAX package's admission (render_views_fused: the separable
+    overlap as a bf16 einsum, then admission_lists) on the port's padded
+    bboxes."""
+    lo, hi = jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy())
+    n1d = res // tile
+    K, Fp = lo.shape[:2]
+    n_chunks = Fp // chunk
+    txs = jnp.arange(n1d) * tile
+    ov_x = (hi[..., 0:1] >= txs[None, None]) & (lo[..., 0:1] <= txs[None, None] + tile)
+    ov_y = (hi[..., 1:2] >= txs[None, None]) & (lo[..., 1:2] <= txs[None, None] + tile)
+    cnt = jnp.einsum("bfy,bfx->byx",
+                     ov_y.reshape(K * n_chunks, chunk, n1d).astype(jnp.bfloat16),
+                     ov_x.reshape(K * n_chunks, chunk, n1d).astype(jnp.bfloat16),
+                     preferred_element_type=jnp.float32)
+    overlap = (cnt > 0).reshape(K, n_chunks, n1d * n1d).transpose(0, 2, 1)
+    return jraster.admission_lists(
+        overlap.reshape(-1, n_chunks), overlap.sum(-1).reshape(-1), ccap, hier,
+        expand_bcap=expand_bcap)
+
+
+@pytest.mark.parametrize("tile, chunk, ccap, hier_min, expand_bcap, compact", [
+    (16, 64, 4, 1, 1, True), (16, 64, 8, 10**9, None, True),
+    (32, 64, 48, None, None, False), (8, 16, 8, 1, 32, True),
+    (64, 64, 192, 1, 32, True), (32, 48, 8, 1, None, True),
+])
+def test_prepare_raster_admission_matches_plain_and_jax(
+        scene, tile, chunk, ccap, hier_min, expand_bcap, compact):
+    """prepare_raster on CPU tensors admits through the plain functions
+    (padded_bboxes, tile_admission, bbox_words) exactly, and its lists and
+    words equal the JAX package's admission and word formula on the same
+    bboxes; chunk 48 leaves padding past the mesh's faces."""
+    jmesh, tmesh, _, tcam = scene
+    inp = traster.prepare_raster(tcam, tmesh, tile, chunk, ccap=ccap,
+                                 hier_min_chunks=hier_min,
+                                 expand_bcap=expand_bcap, compact=compact)
+    n_chunks = -(-tmesh.faces.shape[0] // chunk)
+    ccap = min(ccap, n_chunks)
+    lo, hi = traster.padded_bboxes(tcam, tmesh, chunk)
+    ids, counts = traster.tile_admission(lo, hi, RES, tile, chunk, ccap,
+                                         hier_min, expand_bcap)
+    assert torch.equal(inp.ids, ids) and torch.equal(inp.counts, counts)
+    assert (inp.bbox_words is None) != compact
+    if compact:
+        assert torch.equal(inp.bbox_words, traster.bbox_words(lo, hi, RES, tile))
+        jlo, jhi = jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy())
+
+        def q(x, step):
+            return jnp.clip(jnp.floor(x / step), 0, 255).astype(jnp.int32)
+
+        want = (q(jlo - 1.0, tile)[..., 0] | (q(jhi + 1.0, tile)[..., 0] << 8)
+                | (q(jlo - 1.0, 8.0)[..., 1] << 16) | (q(jhi + 1.0, 8.0)[..., 1] << 24))
+        np.testing.assert_array_equal(inp.bbox_words.numpy(), np.asarray(want))
+    hier = n_chunks > (traster.HIER_ADMISSION_MIN_CHUNKS if hier_min is None
+                       else hier_min)
+    want_ids, want_counts = _jax_admission(lo, hi, RES, tile, chunk, ccap, hier,
+                                           expand_bcap)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+    assert (counts != 0).any()
+
+
+def test_admission_on_cpu_is_the_plain_version(scene):
+    _, tmesh, _, tcam = scene
+    before = traster.admission.launches
+    got = traster.admission(tcam, tmesh, 16, 64, 8, 1, 1, compact=True)
+    want = traster.admission_reference(tcam, tmesh, 16, 64, 8, 1, 1, compact=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert traster.admission.launches == before
 
 
 def _kernel_inputs(tmesh, tcam, tile):

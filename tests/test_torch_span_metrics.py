@@ -34,6 +34,7 @@ SUMMARY = {
         "raster.rows": {"total": 32768, "batches": [0, 1, 2, 3]},
         "raster.rows_block": {"total": 1024, "batches": [0, 1, 2, 3]},
         "raster.rows_scan_all": {"total": 2048, "batches": [0, 1, 2, 3]},
+        "raster.rows_fused": {"total": 32768, "batches": [0, 1, 2, 3]},
         "raster.rows_past_stage_cap": {"total": 1000, "batches": [0, 1, 2, 3]},
         "fetch.bytes": {"total": 4000, "batches": [0, 1, 2, 3]},
         "fetch.pinned_alloc_bytes": {"total": 1000, "batches": [0, 1, 2, 3]},
@@ -53,10 +54,12 @@ WANT = {
     "rows_past_stage_cap_pct": (100.0 * 1000 / 32768,
                                 ("counters", "raster.rows_past_stage_cap")),
     "pinned_alloc_pct": (25.0, ("counters", "fetch.pinned_alloc_bytes")),
+    "rows_fused_pct": (100.0, ("counters", "raster.rows_fused")),
 }
 LAYERS = {
     "prepare_span_ms": "Admission (mesh.raster.prepare_raster)",
     "rows_over_ccap_pct": "Admission (mesh.raster.prepare_raster)",
+    "rows_fused_pct": "Admission (mesh.raster.prepare_raster)",
     "render_span_ms": "Raster kernels (mesh.raster_kernels, csrc)",
     "rows_past_stage_cap_pct": "Raster kernels (mesh.raster_kernels, csrc)",
     "cues_span_ms": "Cue stack (annotator.pipeline, cues)",
@@ -100,7 +103,8 @@ def test_a_zero_denominator_reads_none(monkeypatch):
     zero = {**SUMMARY, "counters": {k: {**v, "total": 0}
                                     for k, v in SUMMARY["counters"].items()}}
     monkeypatch.setattr(profiler, "summary", lambda: zero)
-    for name in ("rows_over_ccap_pct", "rows_past_stage_cap_pct", "pinned_alloc_pct"):
+    for name in ("rows_over_ccap_pct", "rows_past_stage_cap_pct", "pinned_alloc_pct",
+                 "rows_fused_pct"):
         assert _measured(_reader(name), name) is None
 
 
@@ -112,7 +116,7 @@ def test_entry_names_an_existing_layer_and_file(name):
     assert m["layer"] == LAYERS[name] and m["layer"] in older
     assert (ROOT / "benchmark" / "metrics" / f"{name}.py").is_file()
     assert m["moves"] == "views_per_s" and m["workloads"] == ["xl.annotate10"]
-    assert m["better"] == "lower"
+    assert m["better"] == ("higher" if name == "rows_fused_pct" else "lower")
     assert m["source"] == ("program_counter" if name.endswith("_pct") else "program_span")
     assert m["unit"] == ("%" if name.endswith("_pct") else "ms")
     assert callable(_reader(name).measure) and callable(_reader(name).read)

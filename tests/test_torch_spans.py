@@ -181,7 +181,7 @@ def test_row_counters_equal_a_direct_count(scene, hier_min):
     c = profiler.summary()["counters"]
     counts = raster.prepare_raster(*args).counts
     assert torch.equal(inp.counts, counts)
-    want = {"raster.rows": counts.numel(),
+    want = {"raster.rows": counts.numel(), "raster.rows_fused": 0,  # no kernel
             "raster.rows_block": int((counts <= -2).sum()),
             "raster.rows_scan_all": int((counts == -1).sum())}
     assert {k: v["total"] for k, v in c.items()} == want
