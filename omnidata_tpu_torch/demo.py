@@ -3,7 +3,8 @@ of the root ``demo.py`` (reference: omnidata_tools/torch/demo.py:23-163).
 
     python -m omnidata_tpu_torch.demo --task normal --img_path <img-or-dir> \\
         --output_path <dir> [--checkpoint omnidata_dpt_normal_v2.ckpt] \\
-        [--image_size 384] [--device cuda]
+        [--image_size 384] [--device cuda] [--dtype float32|bfloat16] \\
+        [--batch_size 1]
 
 For each image it writes <name>_rgb.png (the 512 centre crop) and
 <name>_{depth,normal}.png. Pre- and post-processing are the reference's:
@@ -11,6 +12,9 @@ shorter side resized to image_size with PIL's bilinear filter, centre crop,
 [0, 1] (depth: also normalised to [-1, 1]); outputs clamped to [0, 1];
 depth bicubic-upsampled to 512, inverted (1 - d) and written with the
 viridis colour map as ``plt.imsave`` writes it; normals as an RGB PNG.
+The crops go through ``models.predict.predict_batches`` ``--batch_size`` at
+a time (the model in ``--dtype``; bfloat16 keeps the norms in float32),
+so one batch runs while the previous one's outputs are written.
 
 It needs neither PIL nor matplotlib: it reads PNGs with
 ``cues.encode.load_rgb_u8``, reproduces PIL's BILINEAR resize
@@ -67,6 +71,9 @@ def build_parser():
     p.add_argument("--checkpoint", default=None, help="published torch checkpoint")
     p.add_argument("--image_size", type=int, default=384)
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="the model's precision (default float32)")
+    p.add_argument("--batch_size", type=int, default=1, help="images a forward pass")
     return p
 
 
@@ -97,12 +104,11 @@ def _resize_short_side_and_crop(img: np.ndarray, s: int) -> np.ndarray:
 
 def preprocess(img: np.ndarray, image_size: int, task: str) -> np.ndarray:
     """(H, W, 3) uint8 -> (1, 3, S, S) float32 with the reference's
-    transform chain."""
-    x = _resize_short_side_and_crop(img, image_size).astype(np.float32)
-    x = x.transpose(2, 0, 1) / 255.0
-    if task == "depth":
-        x = (x - 0.5) / 0.5
-    return x[None]
+    transform chain: the crop, then ``predict_batches``' normalisation."""
+    from .models.predict import normalise
+
+    crop = _resize_short_side_and_crop(img, image_size)
+    return normalise(torch.from_numpy(np.ascontiguousarray(crop[None])), task).numpy()
 
 
 def center_crop_512(img: np.ndarray) -> np.ndarray:
@@ -129,44 +135,55 @@ def main(argv=None):
         print("task should be one of the following: normal, depth")
         sys.exit(1)
 
+    from collections import deque
     from pathlib import Path
 
     from .cues.encode import save_png
     from .models import create_model
     from .models.layers import resize_bicubic
+    from .models.predict import predict_batches
+
+    img_path = Path(args.img_path)
+    if img_path.is_file():
+        files = [args.img_path]
+    elif img_path.is_dir():
+        files = sorted(glob.glob(args.img_path + "/*"))
+    else:
+        print("invalid file path!")
+        sys.exit(1)
+    if args.batch_size < 1:
+        raise SystemExit("--batch_size must be at least 1")
 
     os.makedirs(args.output_path, exist_ok=True)
     name = ("surface_normal_dpt_hybrid_384" if args.task == "normal"
             else "depth_dpt_hybrid_384")
-    model = create_model(name, checkpoint=args.checkpoint, device=args.device)
-    device = torch.device(args.device)
+    model = create_model(name, checkpoint=args.checkpoint, device=args.device,
+                         dtype=args.dtype)
+    names: deque = deque()  # each batch's output names, in predict order
 
-    def save_outputs(img_path, output_file_name):
-        save_path = os.path.join(args.output_path, f"{output_file_name}_{args.task}.png")
-        print(f"Reading input {img_path} ...")
-        img = load_rgb_u8(img_path)
-        x = torch.from_numpy(preprocess(img, args.image_size, args.task)).to(device)
-        save_png(os.path.join(args.output_path, f"{output_file_name}_rgb.png"),
-                 center_crop_512(img))
-        with torch.no_grad():
-            out = model(x).clamp(0.0, 1.0)
+    def crops():
+        for i in range(0, len(files), args.batch_size):
+            chunk = files[i:i + args.batch_size]
+            stems = [os.path.splitext(os.path.basename(f))[0] for f in chunk]
+            batch = []
+            for f, stem in zip(chunk, stems):
+                print(f"Reading input {f} ...")
+                img = load_rgb_u8(f)
+                save_png(os.path.join(args.output_path, f"{stem}_rgb.png"),
+                         center_crop_512(img))
+                batch.append(_resize_short_side_and_crop(img, args.image_size))
+            names.append(stems)
+            yield np.stack(batch)
+
+    for out in predict_batches(model, crops(), args.task):
+        for stem, pred in zip(names.popleft(), out):
+            save_path = os.path.join(args.output_path, f"{stem}_{args.task}.png")
             if args.task == "depth":
-                d = resize_bicubic(out[:1, None], (512, 512))[0, 0].clamp(0.0, 1.0)
-                save_png(save_path, viridis_rgba((1.0 - d).cpu().numpy()))
+                d = resize_bicubic(torch.from_numpy(pred)[None, None], (512, 512))
+                save_png(save_path, viridis_rgba((1.0 - d[0, 0].clamp(0.0, 1.0)).numpy()))
             else:
-                rgb = out[0].permute(1, 2, 0).cpu().numpy() * np.float32(255)
-                save_png(save_path, rgb.astype(np.uint8))
-        print(f"Writing output {save_path} ...")
-
-    img_path = Path(args.img_path)
-    if img_path.is_file():
-        save_outputs(args.img_path, os.path.splitext(os.path.basename(args.img_path))[0])
-    elif img_path.is_dir():
-        for f in sorted(glob.glob(args.img_path + "/*")):
-            save_outputs(f, os.path.splitext(os.path.basename(f))[0])
-    else:
-        print("invalid file path!")
-        sys.exit(1)
+                save_png(save_path, (pred.transpose(1, 2, 0) * np.float32(255)).astype(np.uint8))
+            print(f"Writing output {save_path} ...")
 
 
 if __name__ == "__main__":

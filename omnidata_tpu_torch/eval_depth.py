@@ -4,7 +4,7 @@ error, irmse), the port's counterpart of the root ``eval_depth.py``.
 
     python -m omnidata_tpu_torch.eval_depth --data_path <annotated dir> \\
         [--checkpoint ckpt.ckpt | <trainer checkpoint dir>] [--align none|ssi] \\
-        [--nyu_root <dir of .h5>] [--device cuda|cpu]
+        [--nyu_root <dir of .h5>] [--device cuda|cpu] [--dtype float32|bfloat16]
 
 DPT-hybrid depth at --image_size on the annotator layout (rgb,
 depth_zbuffer, mask_valid), or on NYU .h5 files (needs h5py). Prints the
@@ -38,6 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(midas_loss.py:10-30; absolute metrics are "
                         "meaningless for an SSI-stage model)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="the model's precision (default float32; bfloat16 keeps "
+                        "the norms in float32)")
     return p
 
 
@@ -111,7 +114,7 @@ def main(argv=None) -> dict:
     if not (args.nyu_root or args.data_path):
         raise SystemExit("one of --data_path / --nyu_root required")
     model = create_model("depth_dpt_hybrid_384", checkpoint=args.checkpoint,
-                         device=device)
+                         device=device, dtype=args.dtype)
     with torch.inference_mode():
         result = (_nyu if args.nyu_root else _annotated)(args, model, device)
     print(json.dumps(result, indent=2))

@@ -21,6 +21,12 @@ blocks before it.
 Any input size divisible by 16 works: the 24 x 24 position-embedding grid
 is resized as the JAX model resizes it (``jax.image.resize`` bilinear,
 antialiased when the grid shrinks).
+
+The forward pass records three spans (``utils.profiler``, only while a
+profiler runs): ``dpt.backbone`` (the ResNet stem and stages),
+``dpt.encoder`` (the patch projection, position embedding and
+transformer blocks) and ``dpt.decoder`` (reassemble, fusion and head),
+and the counter ``dpt.tokens`` (tokens entering the blocks, cls included).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import profiler
 from .layers import (
     EncoderBlock,
     GroupNormAct,
@@ -168,6 +175,7 @@ class DPTHybrid(nn.Module):
         super().__init__()
         self.hooks, self.pos_grid, self.vit_dim = tuple(hooks), pos_grid, vit_dim
         self.non_negative = non_negative
+        self._pe_cache = (None, None)  # (key, the resized embedding) while no grad
         self.pretrained = nn.Module()
         m = self.pretrained.model = nn.Module()
         m.cls_token = nn.Parameter(torch.zeros(1, 1, vit_dim))
@@ -194,31 +202,61 @@ class DPTHybrid(nn.Module):
         pe = self.pretrained.model.pos_embed
         if (gh, gw) == (self.pos_grid, self.pos_grid):
             return pe
+        key = (gh, gw, pe._version, pe.device, pe.dtype)
+        if not torch.is_grad_enabled() and self._pe_cache[0] == key:
+            return self._pe_cache[1]  # inference: no copy to the device to capture
         g = pe[:, 1:].reshape(1, self.pos_grid, self.pos_grid, -1).permute(0, 3, 1, 2)
         g = resize_scaled(g, (gh, gw), "linear")
-        return torch.cat([pe[:, :1], g.flatten(2).transpose(1, 2)], 1)
+        out = torch.cat([pe[:, :1], g.flatten(2).transpose(1, 2)], 1)
+        if not torch.is_grad_enabled():
+            self._pe_cache = (key, out)
+        return out
+
+    def stages(self):
+        """The forward pass as (span name, function) stages, each function
+        taking the previous one's tensors: the ResNet, the ViT, the decoder.
+        ``forward`` runs them in turn, each in its span;
+        ``registry.Predictor.graphed`` replays each as a CUDA graph in the
+        same span."""
+        return (("dpt.backbone", self._backbone), ("dpt.encoder", self._encoder),
+                ("dpt.decoder", self._decoder))
 
     def forward(self, x):
-        B, _, H, W = x.shape
-        gh, gw = H // 16, W // 16
+        out = (x,)
+        for name, stage in self.stages():
+            with profiler.span(name):
+                out = stage(*out)
+        return out[0]
+
+    def _backbone(self, x):
+        return tuple(self.pretrained.model.patch_embed.backbone(x))
+
+    def _encoder(self, layer_1, layer_2, feat):
         m = self.pretrained.model
-        layer_1, layer_2, feat = m.patch_embed.backbone(x)
+        B, (gh, gw) = feat.shape[0], feat.shape[-2:]
         tokens = m.patch_embed.proj(feat).flatten(2).transpose(1, 2)  # (B, N, C)
         seq = torch.cat([m.cls_token.expand(B, -1, -1).to(tokens.dtype), tokens], 1)
         seq = seq + self._pos_embed(gh, gw).to(tokens.dtype)
+        if profiler.recording():
+            profiler.count("dpt.tokens", B * seq.shape[1])
         hooked = {}
         for i, block in enumerate(m.blocks):
             seq = block(seq)
             if i in self.hooks:
                 hooked[i] = seq
+        return layer_1, layer_2, hooked[self.hooks[0]], hooked[self.hooks[1]]
+
+    def _decoder(self, layer_1, layer_2, tokens_3, tokens_4):
+        B = layer_2.shape[0]
+        gh, gw = (-(-n // 2) for n in layer_2.shape[-2:])  # the ViT's grid
 
         def tokens_to_map(t, post):
             r = post[0](t[:, 1:], t[:, 0])
             return r.transpose(1, 2).reshape(B, self.vit_dim, gh, gw)
 
         p3, p4 = self.pretrained.act_postprocess3, self.pretrained.act_postprocess4
-        layer_3 = p3[3](tokens_to_map(hooked[self.hooks[0]], p3))
-        layer_4 = p4[4](p4[3](tokens_to_map(hooked[self.hooks[1]], p4)))
+        layer_3 = p3[3](tokens_to_map(tokens_3, p3))
+        layer_4 = p4[4](p4[3](tokens_to_map(tokens_4, p4)))
 
         s = self.scratch
         path4 = s.refinenet4(s.layer4_rn(layer_4))
@@ -230,4 +268,4 @@ class DPTHybrid(nn.Module):
         y = head[0](path1)
         y = resize_bilinear(y, (y.shape[-2] * 2, y.shape[-1] * 2), align_corners=True)
         y = head[4](head[3](head[2](y)))
-        return F.relu(y) if self.non_negative else y
+        return (F.relu(y) if self.non_negative else y,)

@@ -22,15 +22,23 @@ parameter goes to bfloat16 except those of the normalisation layers, which
 stay float32 (their statistics are computed in float32 too; HRNet's
 BatchNorm layers, which the JAX package casts, stay float32 here as well);
 activations run in bfloat16 and the output comes back as float32.
+
+``Predictor.graphed`` runs the forward on a card as CUDA graphs, one per
+stage of ``Predictor.stages()`` (DPT: backbone, encoder, decoder),
+captured at the first call with each input shape and replayed in the
+stages' spans: the route ``models.predict`` takes it, where the eager
+forward's ~1,200 launches a batch would make the host the bottleneck.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
 import torch
 from torch import nn
 
+from ..utils import profiler
 from .convert import strip_prefix
 from .dpt import DPTHybrid
 from .hrnet import HRNet
@@ -46,10 +54,77 @@ class Predictor(nn.Module):
     def __init__(self, net: nn.Module, squeeze: bool, dtype: torch.dtype):
         super().__init__()
         self.net, self.squeeze, self.dtype = net, squeeze, dtype
+        self._graphs: dict = {}  # input shape -> _StageGraphs (``graphed``)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.net(x.to(self.dtype)).float()
+        return self._output(self.net(x.to(self.dtype)))
+
+    def _output(self, y: torch.Tensor) -> torch.Tensor:
+        y = y.float()
         return y[:, 0] if self.squeeze else y
+
+    def graphed(self, x: torch.Tensor) -> torch.Tensor:
+        """``forward`` on a card as CUDA graphs of ``stages()``, captured at
+        the first call with each input shape (so that a warm-up captures
+        them) and replayed after, each in its stage's span; returns a new
+        tensor. The graphs read the weights where they lie: for inference
+        on weights that no longer change."""
+        if x.shape not in self._graphs:
+            self._graphs[x.shape] = _StageGraphs(self, x)
+        return self._graphs[x.shape](x)
+
+    def stages(self):
+        """``forward`` as (span name, function) stages, each function taking
+        the previous one's tensors and returning a tuple: the net's own
+        ``stages()`` where it has them (DPT), else the net whole (name None),
+        with the input cast folded into the first and the output
+        convention into the last."""
+        stages = list(getattr(self.net, "stages", lambda: [(None, self.net)])())
+        name, first = stages[0]
+        stages[0] = (name, lambda x: _tuple(first(x.to(self.dtype))))
+        name, last = stages[-1]
+        stages[-1] = (name, lambda *t: (self._output(last(*t)[0]),))
+        return stages
+
+
+class _StageGraphs:
+    """``model.stages()`` captured as CUDA graphs for the shape of ``x``,
+    replayed in turn, each in its stage's span. The stages' outputs stay in
+    the graphs' memory: a call copies its input in and returns a copy of the
+    last stage's output."""
+
+    def __init__(self, model, x):
+        stages = model.stages()
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # lazy initialisation, outside the capture
+            for _ in range(2):
+                out = (x,)
+                for _, fn in stages:
+                    out = fn(*out)
+        torch.cuda.current_stream().wait_stream(side)
+        self.x = x.clone()
+        self.held, self.graphs = [], []  # every stage's outputs stay alive
+        pool = torch.cuda.graph_pool_handle()
+        out = (self.x,)
+        for name, fn in stages:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                out = fn(*out)
+            self.held.append(out)
+            self.graphs.append((name, graph))
+        self.out = out[0]
+
+    def __call__(self, x):
+        self.x.copy_(x)
+        for name, graph in self.graphs:
+            with profiler.span(name) if name else contextlib.nullcontext():
+                graph.replay()
+        return self.out.clone()
+
+
+def _tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
 
 
 def init_weights(net: nn.Module, generator: torch.Generator) -> None:

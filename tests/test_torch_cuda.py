@@ -922,3 +922,37 @@ def test_pipeline_spans_have_device_times_on_the_card(cuda_scene):
     for (a, _), (b, _) in zip(on, off):
         for m in kw["modalities"]:
             np.testing.assert_array_equal(a[m], b[m])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_predict_batches_graphs_equal_the_eager_predictor(card, dtype):
+    """models.predict on the card replays the Predictor's stages as CUDA
+    graphs (one capture per batch shape): each batch equals the eager
+    Predictor on the same upload, in order; under the profiler the stage
+    spans around the replays have device times."""
+    from omnidata_tpu_torch.models.dpt import DPTHybrid
+    from omnidata_tpu_torch.models.predict import _upload, predict_batches
+    from omnidata_tpu_torch.models.registry import Predictor, cast_params_bf16, init_weights
+    from omnidata_tpu_torch.utils import profiler
+
+    net = DPTHybrid(vit_dim=64, vit_heads=4, vit_blocks=4, hooks=(1, 3), features=64)
+    init_weights(net, torch.Generator().manual_seed(0))
+    if dtype == torch.bfloat16:
+        cast_params_bf16(net)
+    model = Predictor(net, True, dtype).to(card).eval()
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, 256, (n, 64, 64, 3)).astype(np.uint8) for n in (2, 2, 1)]
+    profiler.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        got = list(predict_batches(model, iter(batches)))
+    spans = profiler.summary()["spans"]
+    profiler.reset()
+    for crops, out in zip(batches, got):
+        with torch.inference_mode():
+            want = model(_upload(crops, card, "depth")).clamp(0, 1).cpu().numpy()
+        np.testing.assert_array_equal(out, want)
+    for name in ("dpt.backbone", "dpt.encoder", "dpt.decoder", "predict.upload",
+                 "predict.model", "pipeline.fetch"):
+        assert spans[name]["count"] == 3 and spans[name]["device_ms"] > 0, name
+    assert spans["dpt.encoder"]["parents"] == ["predict.model"]

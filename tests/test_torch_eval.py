@@ -54,6 +54,7 @@ METRIC_RTOL, MEDIAN_ATOL = 1e-5, 1e-4
 TTA_TOL = 1e-5
 EXT_TOL = 1e-4
 DRIVER_RTOL, DPT_RTOL = 1e-4, 1e-3
+BF16_RTOL = 0.05  # bfloat16's 8-bit mantissa over DPT's ~100 layers (0.54% seen, si_log)
 
 
 def _close_dict(got, want, rtol, atol=1e-12, median_atol=None):
@@ -395,6 +396,29 @@ def test_eval_depth_matches_jax(scene, weights, align, monkeypatch):
     want = _jax_driver("eval_depth", argv, bundles, monkeypatch)
     got = _run(t_eval_depth.main, argv + ["--device", "cpu"])
     _close_dict(got, want, DPT_RTOL, atol=1e-7)
+
+
+def test_eval_depth_in_bfloat16(scene, weights, monkeypatch):
+    """--dtype bfloat16 builds the model in bfloat16 (norms in float32) and
+    gives the float32 run's metrics within bfloat16's rounding."""
+    paths, _ = weights
+    argv = ["--data_path", scene, "--checkpoint", paths["dpt"], "--image_size", "64",
+            "--batch_size", "3", "--device", "cpu"]
+    dtypes = []
+    import omnidata_tpu_torch.models as tmodels
+
+    real = tmodels.create_model
+
+    def spy(name, **kw):
+        model = real(name, **kw)
+        dtypes.append(model.net.pretrained.model.blocks[0].attn.qkv.weight.dtype)
+        return model
+
+    monkeypatch.setattr(tmodels, "create_model", spy)
+    want = _run(t_eval_depth.main, argv)
+    got = _run(t_eval_depth.main, argv + ["--dtype", "bfloat16"])
+    assert dtypes == [torch.float32, torch.bfloat16]
+    _close_dict(got, want, BF16_RTOL, atol=1e-4)
 
 
 @pytest.mark.parametrize("extra", [[], ["--tta"], ["--oasis"], ["--oasis", "--tta"]])

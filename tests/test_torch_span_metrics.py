@@ -29,6 +29,14 @@ SUMMARY = {
                            "host_ms": 9.0, "device_ms": 4.5},
         "pipeline.wait": {"count": 3, "batches": [0, 1, 2], "parents": [""],
                           "host_ms": 6.75, "device_ms": None},
+        "predict.upload": {"count": 4, "batches": [0, 1, 2, 3], "parents": [""],
+                           "host_ms": 0.5, "device_ms": 0.375},
+        "dpt.backbone": {"count": 4, "batches": [0, 1, 2, 3],
+                         "parents": ["predict.model"], "host_ms": 2.5, "device_ms": 7.25},
+        "dpt.encoder": {"count": 4, "batches": [0, 1, 2, 3],
+                        "parents": ["predict.model"], "host_ms": 1.5, "device_ms": 6.5},
+        "dpt.decoder": {"count": 4, "batches": [0, 1, 2, 3],
+                        "parents": ["predict.model"], "host_ms": 2.0, "device_ms": 11.75},
     },
     "counters": {
         "raster.rows": {"total": 32768, "batches": [0, 1, 2, 3]},
@@ -56,6 +64,14 @@ WANT = {
     "pinned_alloc_pct": (25.0, ("counters", "fetch.pinned_alloc_bytes")),
     "rows_fused_pct": (100.0, ("counters", "raster.rows_fused")),
 }
+# the DPT cell's readers (metric -> value, span), each a layer of its own
+DPT_WANT = {
+    "predict_upload_span_ms": (0.375, ("spans", "predict.upload")),
+    "dpt_backbone_span_ms": (7.25, ("spans", "dpt.backbone")),
+    "dpt_encoder_span_ms": (6.5, ("spans", "dpt.encoder")),
+    "dpt_decoder_span_ms": (11.75, ("spans", "dpt.decoder")),
+}
+READERS = {**WANT, **DPT_WANT}
 LAYERS = {
     "prepare_span_ms": "Admission (mesh.raster.prepare_raster)",
     "rows_over_ccap_pct": "Admission (mesh.raster.prepare_raster)",
@@ -78,17 +94,17 @@ def _measured(mod, name):
     return mod.read({"stages": {name: mod.measure(None, None)}})
 
 
-@pytest.mark.parametrize("name", sorted(WANT))
+@pytest.mark.parametrize("name", sorted(READERS))
 def test_reader_reads_the_summary(name, monkeypatch):
     mod = _reader(name)
     monkeypatch.setattr(profiler, "summary", lambda: SUMMARY)
-    assert _measured(mod, name) == pytest.approx(WANT[name][0], rel=1e-12)
+    assert _measured(mod, name) == pytest.approx(READERS[name][0], rel=1e-12)
 
 
-@pytest.mark.parametrize("name", sorted(WANT))
+@pytest.mark.parametrize("name", sorted(READERS))
 def test_reader_is_none_without_its_span_or_counter(name, monkeypatch):
     mod = _reader(name)
-    kind, key = WANT[name][1]
+    kind, key = READERS[name][1]
     cut = {**SUMMARY, kind: {k: v for k, v in SUMMARY[kind].items() if k != key}}
     monkeypatch.setattr(profiler, "summary", lambda: cut)
     assert _measured(mod, name) is None
@@ -123,5 +139,22 @@ def test_entry_names_an_existing_layer_and_file(name):
 
 
 def test_new_entries_come_last():
+    """The annotate cell's span and counter metrics follow its older ones;
+    only entries of later cells come after them."""
     names = [m["name"] for m in SPEC["per_layer"]]
-    assert set(names[-len(WANT):]) == set(WANT)
+    first = min(names.index(n) for n in WANT)
+    assert set(names[first:first + len(WANT)]) == set(WANT)
+    later = SPEC["per_layer"][first + len(WANT):]
+    assert all("xl.annotate10" not in m["workloads"] for m in later)
+
+
+@pytest.mark.parametrize("name", sorted(DPT_WANT) + ["dpt_mfu"])
+def test_dpt_entries_list_only_the_dpt_cell(name):
+    m = {e["name"]: e for e in SPEC["per_layer"]}[name]
+    assert m["moves"] == "views_per_s" and m["workloads"] == ["dpt.infer-bf16-b8"]
+    assert (ROOT / "benchmark" / "metrics" / f"{name}.py").is_file()
+    if name == "dpt_mfu":
+        assert (m["source"], m["unit"], m["better"]) == ("host_clock", "%", "higher")
+    else:
+        assert (m["source"], m["unit"], m["better"]) == ("program_span", "ms", "lower")
+        assert callable(_reader(name).measure)
