@@ -101,8 +101,9 @@ Phases, each of which fails the run on error:
     (timed), then the 12 device tasks in one ``run_device_tasks`` call:
     the admission kernels and kernel C launched, kernel A not; viewpoints/s with the PNG writes,
     and of the same batches rendered and fetched without them. Then the
-    CLI batch with the most scan-all and block-mode rows at the CLI's own
-    ``ccap``: kernel C bit for bit against its plain version on its 2
+    CLI batch with the most rows longer than the CLI's own ``ccap`` (the
+    capped encoding's block-mode and scan-all rows; on the card exact
+    lists): kernel C bit for bit against its plain version on its 2
     hardest views, and the written outputs of its 2 hardest views equal to
     ``annotate_views`` on the plain admission and rasters with the CLI's
     arguments; the
@@ -487,7 +488,7 @@ def by_views(plain):
     views."""
     import torch
 
-    def run(ids, counts, origins, pack, *rest, tiles_per_view, **kw):
+    def run(ids, counts, origins, pack, *rest, tiles_per_view, offsets, **kw):
         def part(x, v, r):  # dir planes by row, bbox words by view
             return tuple(d[r] for d in x) if isinstance(x, (tuple, list)) else x[v]
 
@@ -496,8 +497,9 @@ def by_views(plain):
             v = slice(v0, v0 + K_CHECK)
             r = slice(v0 * tiles_per_view, (v0 + K_CHECK) * tiles_per_view)
             outs.append(plain(
-                ids[r], counts[r], origins[v], pack,
+                ids, counts[r], origins[v], pack,
                 *(part(x, v, r) for x in rest), tiles_per_view=tiles_per_view,
+                offsets=offsets[r],
                 **{k: x if x is None or k != "bbox_words" else x[v]
                    for k, x in kw.items()}))
         return tuple(torch.cat(o) for o in zip(*outs))
@@ -518,7 +520,10 @@ def plain_raster():
     saved = {n: getattr(raster, n) for n in names}
     for n in names[:3]:
         setattr(raster, n, by_views(getattr(raster_kernels, f"{n}_reference")))
-    raster.admission = raster.admission_reference
+    raster.admission = (
+        lambda cams, mesh, tile, chunk, ccap, hier_min_chunks=None,
+        expand_bcap=None, compact=False: raster.admission_exact_reference(
+            cams, mesh, tile, chunk, ccap, compact))
     try:
         yield
     finally:
@@ -605,11 +610,13 @@ def unequal_outputs(d: str, views, out) -> list:
 def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
                        dev) -> dict:
     """The CLI's own kernel-C inputs (its default ccap) against the plain
-    versions, on the CLI batch with the most scan-all, then block-mode,
-    rows: kernel C's compacting body bit for bit on the batch's K_CHECK
-    views with the most such rows, and every written output of its
+    versions, on the CLI batch with the most rows past the capped
+    encoding's ccap (lists longer than ccap, which the CPU's encoding puts
+    in block mode or scan-all; on the card every row's exact list), then
+    scan-all rows: kernel C's compacting body bit for bit on the batch's
+    K_CHECK views with the most such rows, and every written output of its
     CLI_PLAIN_VIEWS hardest views equal to annotate_views on the plain
-    rasters with the CLI's arguments. -> what was checked."""
+    admission and rasters with the CLI's arguments. -> what was checked."""
     import torch
 
     from omnidata_tpu_torch.annotator.pipeline import _gather_attrs
@@ -624,31 +631,37 @@ def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
             cli.view_batch(views, settings.RESOLUTION, dev), mesh, kw["tile"],
             kw["chunk"], attrs, compact=True, streamed=True)
 
+    ccap = min(rk.CHUNK_LIST_CAP, -(-mesh.faces.shape[0] // kw["chunk"]))
+
+    def hard(counts):
+        return (counts > ccap) | (counts < 0)
+
     def hard_rows(counts):
-        return int((counts == -1).sum()), int((counts <= -2).sum())
+        return int((counts > ccap).sum()), int((counts < 0).sum())
 
     rows_of = [hard_rows(admission(v).counts) for v in batches]
     b = max(range(len(batches)), key=lambda i: rows_of[i])
     views = batches[b]
     inp = admission(views)
-    ccap = inp.ids.shape[1]
     admission_log(f"CLI batch {b} ({len(views)} views, ccap {ccap})", inp)
     if sum(rows_of[b]) == 0:
-        raise AssertionError("no CLI batch has scan-all or block-mode rows")
-    per_view = (inp.counts < 0).reshape(len(views), -1).sum(1)
+        raise AssertionError(f"no CLI batch has rows longer than ccap {ccap}")
+    per_view = hard(inp.counts).reshape(len(views), -1).sum(1)
     vsel = per_view.argsort(descending=True, stable=True)[:K_CHECK].sort().values
     rsel = (vsel[:, None] * inp.tiles_per_view
             + torch.arange(inp.tiles_per_view, device=dev)).reshape(-1)
-    args = (inp.ids[rsel], inp.counts[rsel], inp.origins[vsel], inp.pack,
+    ids, counts, offsets = inp.ids, inp.counts[rsel], inp.offsets[rsel]
+    args = (ids, counts, inp.origins[vsel], inp.pack,
             tuple(p[rsel] for p in inp.dir_planes))
     ckw = dict(chunk=kw["chunk"], tiles_per_view=inp.tiles_per_view,
-               bbox_words=inp.bbox_words[vsel])
+               bbox_words=inp.bbox_words[vsel], offsets=offsets)
     got = rk.raster_tiles_streamed(*args, **ckw)
     items = item_counts(rk.raster_tiles_streamed.last_schedule)
     err = check_kernel(
         f"kernel C compacting body vs plain (CLI views {vsel.tolist()} of "
-        f"batch {b}, ccap {ccap}; scan-all, block rows {hard_rows(args[1])}; "
-        f"{items['items']} work items, {items['split_rows']} rows split)",
+        f"batch {b}, ccap {ccap}; rows longer than ccap, scan-all rows "
+        f"{hard_rows(counts)}; {items['items']} work items, "
+        f"{items['split_rows']} rows split)",
         got, rk.raster_tiles_streamed_reference(*args, **ckw))
     # the plain pipeline on the batch's CLI_PLAIN_VIEWS hardest views (views
     # are independent, so their outputs are the whole batch's)
@@ -666,8 +679,8 @@ def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
         raise AssertionError(f"CLI outputs differ from the plain pipeline: "
                              f"{unequal[:8]}")
     return {"checked_batch": b, "checked_views": len(views),
-            "checked_scan_all_rows": rows_of[b][0],
-            "checked_block_rows": rows_of[b][1], "max_abs_err_kernel_c": err,
+            "checked_rows_over_ccap": rows_of[b][0],
+            "checked_scan_all_rows": rows_of[b][1], "max_abs_err_kernel_c": err,
             "checked_items": items}
 
 
@@ -2898,8 +2911,9 @@ def xl_kernel_c(xmesh, xcurv, cams, dev, card: str) -> dict:
     admission_log(f"xl batch ({cams.location.shape[0]} views, pack "
                   f"{tuple(inp.pack.shape)})", inp)
     staged, _ = rk.stage_faces(inp.ids, inp.counts, inp.bbox_words, inp.pack.shape[0],
-                               CHUNK, inp.tiles_per_view, TILE, 1)
-    ckw = dict(chunk=CHUNK, tiles_per_view=inp.tiles_per_view)
+                               CHUNK, inp.tiles_per_view, TILE, 1,
+                               offsets=inp.offsets)
+    ckw = dict(chunk=CHUNK, tiles_per_view=inp.tiles_per_view, offsets=inp.offsets)
     full = (inp.ids, inp.counts, inp.origins, inp.pack, inp.dir_planes)
     def sweep():
         return rk.raster_tiles_streamed(*full, bbox_words=inp.bbox_words, **ckw)
@@ -2919,7 +2933,8 @@ def xl_kernel_c(xmesh, xcurv, cams, dev, card: str) -> dict:
         descending=True, stable=True)[:K_CHECK].sort().values
     rsel = (vsel[:, None] * inp.tiles_per_view
             + torch.arange(inp.tiles_per_view, device=dev)).reshape(-1)
-    args = (inp.ids[rsel], inp.counts[rsel], inp.origins[vsel], inp.pack,
+    ids, counts, ckw["offsets"] = inp.ids, inp.counts[rsel], inp.offsets[rsel]
+    args = (ids, counts, inp.origins[vsel], inp.pack,
             tuple(p[rsel] for p in inp.dir_planes))
     ckw["bbox_words"] = inp.bbox_words[vsel]
     got = rk.raster_tiles_streamed(*args, **ckw)
@@ -2951,14 +2966,17 @@ ADMISSION_OPS = 151
 def check_admission(what: str, mesh, curv, cams, card: str, compact: bool,
                     streamed: bool) -> dict:
     """The admission kernels on one batch at the CLI's chunk-list cap
-    (CHUNK_LIST_CAP), with bbox words when compact: bit for bit against the
-    plain path (``admission_reference``) on the same CUDA tensors; then the
-    kernels and the plain path timed in turns (plain, kernels, kernels,
-    plain) and ``prepare_raster`` (as ``annotate_views`` calls it) with
-    CUDA events, beside the bound: ADMISSION_OPS a (view, face) at
-    FP32_PEAK / 2 (``-fmad=false``), and the corners and face indices read
-    and the words, bits, ids and counts written once at HBM_BYTES_PER_S.
-    -> what was measured and checked."""
+    (CHUNK_LIST_CAP: a buffer of ``list_slots`` slots a row), with bbox
+    words when compact: bit for bit against the plain version of the card's
+    admission (``admission_exact_reference``) on the same CUDA tensors, and
+    the rows the capped encoding (``admission_reference``) would have put
+    in block mode or scan-all counted; then the kernels and the plain path
+    timed in turns (plain, kernels, kernels, plain) and ``prepare_raster``
+    (as ``annotate_views`` calls it) with CUDA events, beside the bound:
+    ADMISSION_OPS a (view, face) at FP32_PEAK / 2 (``-fmad=false``), and the
+    corners and face indices read and the words, bits, ids, counts and
+    offsets written once at HBM_BYTES_PER_S. -> what was measured and
+    checked."""
     import torch
 
     from omnidata_tpu_torch.annotator import DEVICE_MODALITIES
@@ -2976,29 +2994,34 @@ def check_admission(what: str, mesh, curv, cams, card: str, compact: bool,
     got = raster_mod.admission(*args, compact=compact)
     torch.cuda.synchronize()
     launched = raster_mod.admission.launches - before
-    want = raster_mod.admission_reference(*args, compact=compact)
+    want = raster_mod.admission_exact_reference(*args, compact=compact)
     equal = [g is None and w is None or torch.equal(g, w) for g, w in zip(got, want)]
-    c = got[1]
+    c = got.counts
+    capped = raster_mod.admission_reference(*args, compact=False).counts
     kinds = {"exact": int((c >= 0).sum()), "scan_all": int((c == -1).sum()),
-             "block": int((c <= -2).sum())}
-    hier = n_chunks > raster_mod.HIER_ADMISSION_MIN_CHUNKS
-    log(f"admission kernels vs plain ({what}, {K} views, {F} faces, "
-        f"{'hierarchical' if hier else 'flat'}, ccap {ccap}): ids, counts, bbox "
-        f"words equal {equal}; rows {kinds}; launches {launched}")
+             "block": int((c <= -2).sum()),
+             "capped_scan_all": int((capped == -1).sum()),
+             "capped_block": int((capped <= -2).sum()),
+             "positions": int(c.clamp(min=0).sum()), "longest": int(c.max())}
+    log(f"admission kernels vs plain ({what}, {K} views, {F} faces, ccap {ccap}): "
+        f"ids, counts, bbox words, offsets equal {equal}; rows {kinds}; launches "
+        f"{launched}")
     if not all(equal) or launched != 1:
         raise AssertionError(f"the admission kernels disagree with the plain path "
                              f"({what})")
-    del got, want
+    del got, want, capped
     attrs, _ = _gather_attrs(mesh, curv, DEVICE_MODALITIES)
-    plain, ms = in_turns(lambda: raster_mod.admission_reference(*args, compact=compact),
-                         lambda: raster_mod.admission(*args, compact=compact), 3, 10)
+    plain, ms = in_turns(
+        lambda: raster_mod.admission_exact_reference(*args, compact=compact),
+        lambda: raster_mod.admission(*args, compact=compact), 3, 10)
     raster_mod.prepare_raster(cams, mesh, TILE, CHUNK, attrs, ccap, compact=compact,
                               streamed=streamed)
     ms_prepare = cuda_ms(lambda: raster_mod.prepare_raster(
         cams, mesh, TILE, CHUNK, attrs, ccap, compact=compact, streamed=streamed), 5)
     rows = K * (RES // TILE) ** 2
     n_bytes = 4 * (12 * F + K * (12 + 9) + K * n_chunks * CHUNK * compact
-                   + rows * -(-n_chunks // 32) + rows * (ccap + 1))
+                   + rows * -(-n_chunks // 32)
+                   + rows * (raster_mod.list_slots(ccap, n_chunks) + 2))
     ops_ms = ADMISSION_OPS * K * n_chunks * CHUNK / (FP32_PEAK / 2) * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
@@ -3192,7 +3215,7 @@ def main() -> int:
     vattrs, _ = _gather_attrs(mesh, curv, DEVICE_MODALITIES)
     inp2 = raster_mod.prepare_raster(batch(0, K_CHECK), mesh, TILE, CHUNK, vattrs)
     args2 = (inp2.ids, inp2.counts, inp2.origins, inp2.pack, inp2.dir_planes)
-    kw = dict(chunk=CHUNK, tiles_per_view=inp2.tiles_per_view)
+    kw = dict(chunk=CHUNK, tiles_per_view=inp2.tiles_per_view, offsets=inp2.offsets)
     admission_log(f"bench ({K_CHECK} views, pack {tuple(inp2.pack.shape)})", inp2)
     err_a = check_kernel(
         f"kernel A vs plain ({K_CHECK} views)",
@@ -3254,7 +3277,8 @@ def main() -> int:
     inp32 = raster_mod.prepare_raster(batches[0], mesh, TILE, CHUNK, vattrs,
                                       compact=True)
     args32 = (inp32.ids, inp32.counts, inp32.origins, inp32.pack)
-    kw32 = dict(chunk=CHUNK, tiles_per_view=inp32.tiles_per_view)
+    kw32 = dict(chunk=CHUNK, tiles_per_view=inp32.tiles_per_view,
+                offsets=inp32.offsets)
     ms_kernel32 = cuda_ms(lambda: rk.raster_tiles_chunklist(
         *args32, inp32.dir_planes, **kw32), 10)
     ms_plain2, ms_kernel2 = in_turns(
@@ -3280,7 +3304,8 @@ def main() -> int:
     for cap in (rk.STAGE_CAP, 64):
         staged, _ = rk.stage_faces(inp2.ids, inp2.counts, inp2c.bbox_words,
                                    inp2.pack.shape[1] // CHUNK, CHUNK,
-                                   inp2.tiles_per_view, TILE, cap)
+                                   inp2.tiles_per_view, TILE, cap,
+                                   offsets=inp2.offsets)
         err_b = max(err_b, check_kernel(
             f"kernel B vs plain ({K_CHECK} views, stage cap {cap}; "
             f"{int((staged > cap).sum())} of {staged.numel()} rows fall back)",
@@ -3317,7 +3342,8 @@ def main() -> int:
                                       compact=True, streamed=True, **lkw)
     admission_log(f"large ({K_CHECK} views, pack {tuple(linp2.pack.shape)})", linp2)
     largs2 = (linp2.ids, linp2.counts, linp2.origins, linp2.pack, linp2.dir_planes)
-    lkw2 = dict(chunk=CHUNK, tiles_per_view=linp2.tiles_per_view)
+    lkw2 = dict(chunk=CHUNK, tiles_per_view=linp2.tiles_per_view,
+                offsets=linp2.offsets)
     err_c = {}
     for body, words in (("plain", None), ("compacting", linp2.bbox_words)):
         err_c[body] = check_kernel(
@@ -3363,7 +3389,8 @@ def main() -> int:
             raise AssertionError(f"{what} at seg 1 split no row")
     n_bchunks2 = inp2.pack.shape[1] // CHUNK
     overlaps2, _ = rk.stage_faces(inp2.ids, inp2.counts, inp2c.bbox_words,
-                                  n_bchunks2, CHUNK, inp2.tiles_per_view, TILE, 1)
+                                  n_bchunks2, CHUNK, inp2.tiles_per_view, TILE, 1,
+                                  offsets=inp2.offsets)
     long_rows = rk.list_trips(inp2.counts, n_bchunks2) > 1
     for cap in (rk.STAGE_CAP, 64):
         what = f"kernel B, stage cap {cap} (bench)"
@@ -3432,20 +3459,23 @@ def main() -> int:
     admission_log(f"large timed batch ({K_MAIN} views)", linpC)
     n_lchunks = linpC.pack.shape[0]
     staged, _ = rk.stage_faces(linpC.ids, linpC.counts, linpC.bbox_words,
-                               n_lchunks, CHUNK, linpC.tiles_per_view, TILE, 1)
+                               n_lchunks, CHUNK, linpC.tiles_per_view, TILE, 1,
+                               offsets=linpC.offsets)
     sf = staged.float()
     fb_rows = staged > rk.STREAMED_STAGE_CAP
     log(f"staged faces per row (timed batch): mean {float(sf.mean()):.1f}, p50 "
         f"{float(sf.quantile(0.5)):.0f}, p99 {float(sf.quantile(0.99)):.0f}, "
         f"max {int(sf.max())}; rows past {rk.STREAMED_STAGE_CAP}: "
         f"{int(fb_rows.sum())} of {staged.numel()}")
-    kwA = dict(chunk=CHUNK, tiles_per_view=linpA.tiles_per_view)
+    kwA = dict(chunk=CHUNK, tiles_per_view=linpA.tiles_per_view,
+               offsets=linpA.offsets)
+    kwC = dict(kwA, offsets=linpC.offsets)
     lA = (linpA.ids, linpA.counts, linpA.origins, linpA.pack, linpA.dir_planes)
     lC = (linpC.ids, linpC.counts, linpC.origins, linpC.pack, linpC.dir_planes)
     lms_a = cuda_ms(lambda: rk.raster_tiles_chunklist(*lA, **kwA), 3)
-    lms_cp = cuda_ms(lambda: rk.raster_tiles_streamed(*lC, **kwA), 3)
+    lms_cp = cuda_ms(lambda: rk.raster_tiles_streamed(*lC, **kwC), 3)
     lms_cc = cuda_ms(lambda: rk.raster_tiles_streamed(
-        *lC, bbox_words=linpC.bbox_words, **kwA), 3)
+        *lC, bbox_words=linpC.bbox_words, **kwC), 3)
     lms_render = cuda_ms(lambda: raster_mod.render_views_fused(
         lb, lmesh, TILE, CHUNK, lattrs, streamed=True, **lkw), 3)
     lms_prep = cuda_ms(lambda: raster_mod.prepare_raster(
@@ -3467,11 +3497,13 @@ def main() -> int:
     ms_b_small = {}
     for v in (1, 2, 8):  # B on the batch's first v views
         r = slice(0, v * inp32.tiles_per_view)
-        b_args = (inp32.ids[r], inp32.counts[r], inp32.origins[:v], inp32.pack,
+        ids_v, counts_v, offsets_v = inp32.ids, inp32.counts[r], inp32.offsets[r]
+        b_args = (ids_v, counts_v, inp32.origins[:v], inp32.pack,
                   inp32.bbox_words[:v], tuple(d[r] for d in inp32.dir_planes))
-        rk.raster_tiles_compact(*b_args, **kw32)
+        kw_v = dict(kw32, offsets=offsets_v)
+        rk.raster_tiles_compact(*b_args, **kw_v)
         ms_b_small[v] = cuda_ms(
-            lambda a=b_args: rk.raster_tiles_compact(*a, **kw32), 20)
+            lambda a=b_args, k=kw_v: rk.raster_tiles_compact(*a, **k), 20)
 
     def render_bench(compact):
         return lambda: raster_mod.render_views_fused(
@@ -3490,13 +3522,16 @@ def main() -> int:
     admission_log(f"large timed batch at ccap 48 ({K_MAIN} views)", linp48)
     l48 = (linp48.ids, linp48.counts, linp48.origins, linp48.pack,
            linp48.dir_planes)
+    kw48 = dict(kwA, offsets=linp48.offsets)
     lms_c48 = cuda_ms(lambda: rk.raster_tiles_streamed(
-        *l48, bbox_words=linp48.bbox_words, **kwA), 3)
+        *l48, bbox_words=linp48.bbox_words, **kw48), 3)
     staged48, _ = rk.stage_faces(linp48.ids, linp48.counts, linp48.bbox_words,
-                                 n_lchunks, CHUNK, linp48.tiles_per_view, TILE, 1)
+                                 n_lchunks, CHUNK, linp48.tiles_per_view, TILE, 1,
+                                 offsets=linp48.offsets)
     staged_b, _ = rk.stage_faces(inp32.ids, inp32.counts, inp32.bbox_words,
                                  inp32.pack.shape[1] // CHUNK, CHUNK,
-                                 inp32.tiles_per_view, TILE, 1)
+                                 inp32.tiles_per_view, TILE, 1,
+                                 offsets=inp32.offsets)
     n_bchunks = inp32.pack.shape[1] // CHUNK
     streamed, chunklist = rk.raster_tiles_streamed, rk.raster_tiles_chunklist
     # C at the CLI's ccap 48 against its plain version on the rows of the
@@ -3505,7 +3540,8 @@ def main() -> int:
         descending=True, stable=True)[:PLAIN48_VIEWS].sort().values
     r48 = (v48[:, None] * linp48.tiles_per_view
            + torch.arange(linp48.tiles_per_view, device=dev)).reshape(-1)
-    l48_hard = (linp48.ids[r48], linp48.counts[r48], linp48.origins[v48], linp48.pack,
+    ids48, counts48, offsets48 = linp48.ids, linp48.counts[r48], linp48.offsets[r48]
+    l48_hard = (ids48, counts48, linp48.origins[v48], linp48.pack,
                 tuple(p[r48] for p in linp48.dir_planes))
     # name -> (ms, work, kernel call, plain version, (wrapper, counts,
     # chunks, overlaps[, stage cap]) of the item list's check, the rows of
@@ -3524,20 +3560,21 @@ def main() -> int:
               (rk.raster_tiles_compact, inp32.counts, n_bchunks, staged_b,
                rk.STAGE_CAP), None),
         "C plain body": (lms_cp, raster_work(linpC, staged),
-                         lambda: streamed(*lC, **kwA),
+                         lambda: streamed(*lC, **kwC),
                          lambda: by_views(rk.raster_tiles_streamed_reference)(
-                             *lC, **kwA),
+                             *lC, **kwC),
                          (streamed, linpC.counts, n_lchunks, None), None),
         "C compacting": (lms_cc, raster_work(linpC, staged, reads_bbox_words=True),
-                         lambda: streamed(*lC, bbox_words=linpC.bbox_words, **kwA),
+                         lambda: streamed(*lC, bbox_words=linpC.bbox_words, **kwC),
                          lambda: by_views(rk.raster_tiles_streamed_reference)(
-                             *lC, bbox_words=linpC.bbox_words, **kwA),
+                             *lC, bbox_words=linpC.bbox_words, **kwC),
                          (streamed, linpC.counts, n_lchunks, staged), None),
         "C compacting, ccap 48": (
             lms_c48, raster_work(linp48, staged48, reads_bbox_words=True),
-            lambda: streamed(*l48, bbox_words=linp48.bbox_words, **kwA),
+            lambda: streamed(*l48, bbox_words=linp48.bbox_words, **kw48),
             lambda: by_views(rk.raster_tiles_streamed_reference)(
-                *l48_hard, bbox_words=linp48.bbox_words[v48], **kwA),
+                *l48_hard, bbox_words=linp48.bbox_words[v48],
+                **dict(kwA, offsets=offsets48)),
             (streamed, linp48.counts, n_lchunks, staged48), r48),
     }
     for name, (ms, work, run, plain, sched_of, rows) in k32.items():
@@ -3566,14 +3603,16 @@ def main() -> int:
         f"{ms_plain_b[0]:.3f}, {ms_kernel_b[0]:.3f}, {ms_kernel_b[1]:.3f}, "
         f"{ms_plain_b[1]:.3f} ms")
     lsel = slice(0, linp2.tiles_per_view)  # K = 1: the first view's rows
-    largs1 = (linp2.ids[lsel], linp2.counts[lsel], linp2.origins[:1],
+    ids1, counts1, offsets1 = linp2.ids, linp2.counts[lsel], linp2.offsets[lsel]
+    largs1 = (ids1, counts1, linp2.origins[:1],
               linp2.pack, tuple(d[lsel] for d in linp2.dir_planes))
+    lkw1 = dict(lkw2, offsets=offsets1)
     c_turns = {}
     for body, words in (("plain", None), ("compacting", linp2.bbox_words[:1])):
         c_turns[body] = in_turns(
             lambda w=words: rk.raster_tiles_streamed_reference(
-                *largs1, bbox_words=w, **lkw2),
-            lambda w=words: rk.raster_tiles_streamed(*largs1, bbox_words=w, **lkw2),
+                *largs1, bbox_words=w, **lkw1),
+            lambda w=words: rk.raster_tiles_streamed(*largs1, bbox_words=w, **lkw1),
             2, 10)
         (p0, p1), (k0, k1) = c_turns[body]
         log(f"kernel C {body} body K=1 large (plain, kernel, kernel, plain): "

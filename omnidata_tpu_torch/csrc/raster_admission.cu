@@ -7,9 +7,10 @@
 // (omnidata_tpu/mesh/raster.py: face_screen_bboxes, the separable overlap
 // einsum and admission_lists inside render_views_fused), which XLA fuses
 // on a TPU. The port's plain version of the same function
-// (omnidata_tpu_torch/mesh/raster.py: padded_bboxes, tile_admission,
-// bbox_words) runs about a hundred unfused PyTorch ops whose (K, Fp)-sized
-// float intermediates reach device memory.
+// (omnidata_tpu_torch/mesh/raster.py: admission_exact_reference, i.e.
+// padded_bboxes, tile_overlap, exact_lists, bbox_words) runs about a
+// hundred unfused PyTorch ops whose (K, Fp)-sized float intermediates reach
+// device memory.
 //
 // What bounds it: per (view, face) about 250 FP32 operations (the camera
 // transform of three corners, up to six projections with their IEEE
@@ -30,13 +31,26 @@
 // bit into a shared word for each tile its bbox overlaps. The shared words,
 // one per (view, tile), are the column; the CTA writes them once at the end.
 //
-// admission_rows_kernel: one warp a row. A first pass over the row's words
-// counts the set chunks and the set 8-chunk blocks (a block is a byte of a
-// word); the counts decide the encoding (admission_lists: flat top-k,
-// exact, block mode or scan-all); a second pass writes the chunk or block
-// ids in ascending order by their ranks, prefix sums of the words'
-// popcounts across the warp, and stops once the list is full; the rest of
-// the row's ccap slots are zero.
+// The lists (three small kernels after the overlap kernel, no host sync):
+// every row's exact list, each chunk whose bits are set for the row, in
+// ascending order and uncapped, in one flat int32 buffer at the row's
+// offset (a CSR layout: flat lists plus row offsets; raster_common.cuh's
+// Schedule reads it). This is the card's form; the JAX package's, which
+// the CPU keeps (raster.admission_lists: at most ccap ids a row, else block
+// mode or a scan of every chunk), serves the TPU's static shapes only.
+//   admission_rows_kernel, one warp a row: the row's count, the popcount
+//     of its words;
+//   admission_scan_kernel, one CTA: offsets, exclusive prefix sums of the
+//     counts, first over the rows of at most `slots` chunks, then over the
+//     longer rows after them. The buffer holds rows * slots (the caller's
+//     choice: raster.list_slots), so the short rows always fit: only a
+//     longer row whose list would end past it gets count -1, scan every
+//     chunk (winner-exact), as does every later longer row; offsets[rows]
+//     is where the listed slots end;
+//   admission_lists_kernel, one warp a row: the row's set chunks at their
+//     ranks (prefix sums of the words' popcounts across the warp) from its
+//     offset; the grid zeroes the slots past the last list.
+// Plain version: raster.admission_rows_reference (exact_lists on the bits).
 //
 // Exactness: the bbox evaluates face_screen_bboxes' float operations in
 // their order (sums left to right, torch.minimum/maximum's NaN
@@ -259,116 +273,139 @@ admission_overlap_kernel(const OverlapArgs a) {
 
 struct RowsArgs {
   const unsigned* bits;  // (rows, nw)
-  int* ids;              // (rows, ccap)
+  int* ids;              // (capacity,): the lists, flat
   int* counts;           // (rows,)
-  int rows, nw, n_chunks, ccap, hier, expand_bcap;
+  int* offsets;          // (rows + 1,)
+  int rows, nw, slots, capacity;  // capacity = rows * slots
 };
 
-// bit q set when chunk block q of the word (its byte q) holds a set chunk
-__device__ __forceinline__ unsigned block_bits(unsigned x) {
-  return (unsigned)((x & 0xffu) != 0u) | ((unsigned)((x & 0xff00u) != 0u) << 1) |
-         ((unsigned)((x & 0xff0000u) != 0u) << 2) |
-         ((unsigned)((x & 0xff000000u) != 0u) << 3);
-}
-
+// counts[row] = the set chunks of the row
 __global__ void __launch_bounds__(kThreads)
 admission_rows_kernel(const RowsArgs a) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   if (row >= a.rows) return;  // the whole warp
   const unsigned* bits = a.bits + (size_t)row * a.nw;
-  int* ids = a.ids + (size_t)row * a.ccap;
-
-  int n_set = 0, n_blocks = 0;
-  for (int w = lane; w < a.nw; w += 32) {
-    const unsigned x = bits[w];
-    n_set += __popc(x);
-    n_blocks += __popc(block_bits(x));
-  }
+  int n_set = 0;
+  for (int w = lane; w < a.nw; w += 32) n_set += __popc(bits[w]);
   n_set = __reduce_add_sync(kFull, n_set);
-  n_blocks = __reduce_add_sync(kFull, n_blocks);
+  if (lane == 0) a.counts[row] = n_set;
+}
 
-  // the encoding (admission_lists): chunk ids of rank < climit whose block
-  // has rank < blimit, or (by_block) block ids of rank < climit
-  int count, climit, blimit = INT_MAX;
-  bool by_block = false;
-  if (!a.hier) {
-    count = n_set > a.ccap ? -1 : n_set;
-    climit = min(a.ccap, a.n_chunks);
-  } else {
-    const int ncb = (a.n_chunks + 7) / 8;
-    const int bcap = min(a.ccap, ncb);
-    const int bcap2 = min(bcap, a.expand_bcap);
-    const int k2 = min(a.ccap, 8 * bcap2);
-    const bool exact = n_set <= k2 && n_blocks <= bcap2;
-    by_block = !exact && n_blocks <= bcap;
-    count = exact ? n_set : (by_block ? -n_blocks - 2 : -1);
-    climit = by_block ? bcap : k2;
-    blimit = bcap2;
+constexpr int kScanThreads = 1024;
+
+// One CTA, two passes over the rows in order. Pass 0 places the rows of at
+// most `slots` chunks from slot 0; their lists always fit, since they sum
+// to at most capacity. Pass 1 places the longer rows from where those end;
+// a longer row whose list would end past capacity gets count -1, scan every
+// chunk, and so does every later longer row, as the ends only grow. Such a
+// row's offset is its start clamped to capacity; offsets[rows] = the end
+// of the listed slots. Sums in 64 bits, so no count overflows them.
+__global__ void __launch_bounds__(kScanThreads)
+admission_scan_kernel(const RowsArgs a) {
+  __shared__ long long s_warp[kScanThreads / 32];
+  __shared__ long long s_carry;
+  __shared__ int s_used;  // the first refused offset, else capacity
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    s_carry = 0;
+    s_used = a.capacity;
   }
-
-  int cbase = 0, bbase = 0, written = 0;
-  for (int w0 = 0; w0 < a.nw; w0 += 32) {
-    if (by_block ? bbase >= climit : (cbase >= climit || bbase >= blimit)) {
-      break;  // warp-uniform: the list is full
+  __syncthreads();
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int r0 = 0; r0 < a.rows; r0 += kScanThreads) {
+      const int r = r0 + tid;
+      const int count = r < a.rows ? a.counts[r] : 0;
+      const bool mine = r < a.rows && (count > a.slots) == (pass == 1);
+      const long long n = mine ? count : 0;
+      long long v = n;  // inclusive prefix sum over the warp, then over warps
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const long long x = __shfl_up_sync(kFull, v, d);
+        if (lane >= d) v += x;
+      }
+      if (lane == 31) s_warp[warp] = v;
+      __syncthreads();
+      if (warp == 0) {
+        long long t = s_warp[lane];
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const long long x = __shfl_up_sync(kFull, t, d);
+          if (lane >= d) t += x;
+        }
+        s_warp[lane] = t;
+      }
+      __syncthreads();
+      const long long end = s_carry + (warp ? s_warp[warp - 1] : 0) + v;
+      if (mine) {
+        const long long off = end - n;
+        a.offsets[r] = (int)(off < a.capacity ? off : a.capacity);
+        if (end > a.capacity) {
+          a.counts[r] = -1;
+          atomicMin(&s_used, (int)(off < a.capacity ? off : a.capacity));
+        }
+      }
+      __syncthreads();
+      if (tid == kScanThreads - 1) s_carry = end;
+      __syncthreads();
     }
+  }
+  if (tid == 0) a.offsets[a.rows] = (int)(s_carry < s_used ? s_carry : s_used);
+}
+
+// The rows' set chunks, ascending, at ids[offsets[row] ...]; zeros in the
+// slots from offsets[rows] to capacity.
+__global__ void __launch_bounds__(kThreads)
+admission_lists_kernel(const RowsArgs a) {
+  const int used = a.offsets[a.rows];
+  for (int j = used + blockIdx.x * blockDim.x + threadIdx.x; j < a.capacity;
+       j += gridDim.x * blockDim.x) {
+    a.ids[j] = 0;
+  }
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= a.rows) return;  // the whole warp
+  const int count = a.counts[row];
+  if (count <= 0) return;  // nothing listed, or every chunk
+  const unsigned* bits = a.bits + (size_t)row * a.nw;
+  int* ids = a.ids + a.offsets[row];
+  for (int w0 = 0, base = 0; base < count && w0 < a.nw; w0 += 32) {  // uniform
     const int w = w0 + lane;
     const unsigned x = w < a.nw ? bits[w] : 0u;
-    const unsigned bm = block_bits(x);
-    const int nc = __popc(x), nb = __popc(bm);
-    int sc = nc, sb = nb;  // inclusive prefix sums over the warp
+    const int nc = __popc(x);
+    int sc = nc;  // inclusive prefix sum over the warp
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const int uc = __shfl_up_sync(kFull, sc, d);
-      const int ub = __shfl_up_sync(kFull, sb, d);
-      if (lane >= d) {
-        sc += uc;
-        sb += ub;
-      }
+      const int u = __shfl_up_sync(kFull, sc, d);
+      if (lane >= d) sc += u;
     }
-    const int crank = cbase + sc - nc, brank = bbase + sb - nb;
-    if (by_block) {
-      int r = brank;
-      for (unsigned m = bm; m != 0u && r < climit; m &= m - 1u, ++r) {
-        ids[r] = w * 4 + __ffs(m) - 1;
-        ++written;
-      }
-    } else {
-      int r = crank;
-      for (unsigned m = x; m != 0u && r < climit; m &= m - 1u, ++r) {
-        const int j = __ffs(m) - 1;
-        if (brank + __popc(bm & ((1u << (j >> 3)) - 1u)) >= blimit) break;
-        ids[r] = w * 32 + j;
-        ++written;
-      }
-    }
-    cbase += __shfl_sync(kFull, sc, 31);
-    bbase += __shfl_sync(kFull, sb, 31);
+    int r = base + sc - nc;
+    for (unsigned m = x; m != 0u; m &= m - 1u) ids[r++] = w * 32 + __ffs(m) - 1;
+    base += __shfl_sync(kFull, sc, 31);
   }
-  written = __reduce_add_sync(kFull, written);
-  for (int j = written + lane; j < a.ccap; j += 32) ids[j] = 0;
-  if (lane == 0) a.counts[row] = count;
 }
 
 }  // namespace
 
 // Admission of K views: the overlap kernel fills the bit matrix bits
 // (K * T, ceil(n_chunks / 32)) and, when words is not null, the bbox words
-// (K, n_chunks * chunk); the rows kernel turns the bits into ids (K * T,
-// ccap) and counts (K * T,). faces (F, 3) index vertices (V, 3); faces at
-// or past num_faces, and the padding up to n_chunks * chunk, are dead. rt
-// (K, 3, 4) and km (K, 3, 3) are the views' extrinsic and intrinsic
-// matrices. All on `stream`; returns a CUDA error code (0 on success).
+// (K, n_chunks * chunk); the rows, scan and lists kernels turn the bits into
+// every row's exact list: ids (K * T * slots,), counts (K * T,) and offsets
+// (K * T + 1,), the last the end of the listed slots. faces (F, 3) index
+// vertices (V, 3); faces at or past num_faces, and the padding up to
+// n_chunks * chunk, are dead. rt (K, 3, 4) and km (K, 3, 3) are the views'
+// extrinsic and intrinsic matrices. All on `stream`; returns a CUDA error
+// code (0 on success).
 extern "C" int admission_launch(const float* vertices, const int* faces,
                                 const float* rt, const float* km, int* words,
                                 unsigned* bits, int* ids, int* counts,
-                                int num_faces, int F, int K, int res, int tile,
-                                int chunk, int n_chunks, int ccap, int hier,
-                                int expand_bcap, void* stream) {
+                                int* offsets, int num_faces, int F, int K,
+                                int res, int tile, int chunk, int n_chunks,
+                                int slots, void* stream) {
   if (K < 1 || tile < 1 || res < tile || res % tile != 0 || chunk < 1 ||
       n_chunks < 1 || (long long)n_chunks * chunk > INT_MAX ||
       F > n_chunks * chunk || F <= (n_chunks - 1) * chunk || num_faces < 0 ||
-      num_faces > F) {
+      num_faces > F || slots < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const int n1d = res / tile;
@@ -389,7 +426,9 @@ extern "C" int admission_launch(const float* vertices, const int* faces,
   const int n_ranges = n1d / rows_per_range + (n1d % rows_per_range != 0);
   const int n_groups = K / views_per_cta + (K % views_per_cta != 0);
   const int rows = K * T;
-  if ((long long)n_groups * n_ranges > 65535 || ccap < 1 || expand_bcap < 1) {
+  // the offsets index the ids buffer with an int
+  if ((long long)n_groups * n_ranges > 65535 ||
+      (long long)rows * slots > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -398,12 +437,11 @@ extern "C" int admission_launch(const float* vertices, const int* faces,
                        rows_per_range, n_ranges};
   admission_overlap_kernel<<<dim3(nw, n_groups * n_ranges), kThreads, 0, s>>>(
       oa);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const RowsArgs ra{bits, ids, counts, rows, nw, n_chunks, ccap, hier,
-                    expand_bcap};
+  const RowsArgs ra{bits, ids, counts, offsets, rows, nw, slots, rows * slots};
   constexpr int rows_per_cta = kThreads / 32;
-  admission_rows_kernel<<<rows / rows_per_cta + (rows % rows_per_cta != 0),
-                          kThreads, 0, s>>>(ra);
+  const int row_ctas = rows / rows_per_cta + (rows % rows_per_cta != 0);
+  admission_rows_kernel<<<row_ctas, kThreads, 0, s>>>(ra);
+  admission_scan_kernel<<<1, kScanThreads, 0, s>>>(ra);
+  admission_lists_kernel<<<row_ctas, kThreads, 0, s>>>(ra);
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,8 @@
 // multiplies and adds a pair (three 3-term dot products, the edge scales)
 // plus compares and the key min, against 4 bytes of ray direction per pixel
 // and 36 bytes of geometry per face; and, on this card, the imbalance of
-// the rows: a row that scans all chunks (count -1) or a long block-mode
-// list is 10-100x the median row. Design answer: each CTA stages the
+// the rows: a row that scans all chunks (count -1) or lists hundreds is
+// 10-100x the median row. Design answer: each CTA stages the
 // per-face Moller-Trumbore invariants of a chunk once, computed
 // cooperatively into shared memory, and every thread then reuses them for
 // its pixels from registers; ray directions and the running winners live in
@@ -24,8 +24,8 @@
 // merge words' fill, then the sweep: one CTA per resident slot of the
 // card, no host sync in between; each thread owns PPT
 // pixels (p = threadIdx.x + k * blockDim.x). A CTA decodes its item's row
-// list (raster::Schedule: exact list, all chunks, or block mode) and sweeps
-// positions [seg * item, seg * (item + 1)) of it.
+// list (raster::Schedule: listed chunks at the row's offset, or all chunks)
+// and sweeps positions [seg * item, seg * (item + 1)) of it.
 //
 // Ties keep the TPU semantics: within a chunk the minimum of the full key
 // (t bits & ~0x1FFF) | lane, across chunks replacement only on strict
@@ -43,7 +43,8 @@ namespace {
 using namespace raster;
 
 struct Args {
-  const int* ids;
+  const int* ids;      // every row's list, flat
+  const int* offsets;  // (rows,): where each row's list starts in ids
   const int* counts;
   const float* origins;
   const float* pack;
@@ -52,7 +53,7 @@ struct Args {
   const float* dz;
   int* packed;
   float* acc;
-  int P, cols, Fp, chunk, ccap, tiles_per_view, n_chunks, seg;
+  int P, cols, Fp, chunk, tiles_per_view, n_chunks, seg;
 };
 
 template <int PPT>
@@ -69,8 +70,7 @@ raster_chunklist_kernel(const Args a, const ItemList items) {
   bool first = true;
   while (next_item(items, s_item, it, first)) {
     const int row = it.row;
-    const Schedule sched(a.ids + (size_t)row * a.ccap, a.counts[row], a.ccap,
-                         a.n_chunks);
+    const Schedule sched(a.ids, a.offsets, row, a.counts[row], a.n_chunks);
     const int view = row / a.tiles_per_view;
     const float ox = a.origins[view * 3 + 0];
     const float oy = a.origins[view * 3 + 1];
@@ -117,27 +117,28 @@ int launch(const Args& a, const ItemList& items, int threads,
 
 // Builds the item list (schedule_kernel, segments of `seg` list positions)
 // and sweeps it, all on `stream`; returns a CUDA error code (0 on
-// success). rows = K*T tiles; P pixels per tile; pack is (cols, Fp)
+// success). rows = K*T tiles; P pixels per tile; row r's list is
+// ids[offsets[r] ...], counts[r] long (raster_common.cuh); pack is (cols, Fp)
 // row-major. The caller allocates the item list (order, ends, n_items,
 // done: rows each; next: 1) and the merge words (rows, P); the launch
 // fills them.
 extern "C" int raster_chunklist_launch(
-    const int* ids, const int* counts, const float* origins,
-    const float* pack, const float* dx, const float* dy, const float* dz,
-    int* order, int* ends, int* n_items, int* done, int* next,
-    unsigned long long* merge, int* packed, float* acc, int rows, int P,
-    int cols, int Fp, int chunk, int ccap, int tiles_per_view, int n_chunks,
+    const int* ids, const int* offsets, const int* counts,
+    const float* origins, const float* pack, const float* dx, const float* dy,
+    const float* dz, int* order, int* ends, int* n_items, int* done,
+    int* next, unsigned long long* merge, int* packed, float* acc, int rows,
+    int P, int cols, int Fp, int chunk, int tiles_per_view, int n_chunks,
     int seg, void* stream) {
-  if (rows <= 0 || P <= 0 || chunk < 1 || chunk > kMaxChunk || ccap < 1 ||
-      n_chunks < 1 || cols < 10 || !segments_fit(n_chunks, ccap, seg)) {
+  if (rows <= 0 || P <= 0 || chunk < 1 || chunk > kMaxChunk ||
+      n_chunks < 1 || cols < 10 || !segments_fit(n_chunks, seg)) {
     return (int)cudaErrorInvalidValue;
   }
   const int threads = P < kMaxThreads ? P : kMaxThreads;
   if (P % threads != 0 || !ppt_instantiated(P / threads)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a{ids, counts, origins, pack, dx, dy, dz, packed, acc,
-               P, cols, Fp, chunk, ccap, tiles_per_view, n_chunks, seg};
+  const Args a{ids, offsets, counts, origins, pack, dx, dy, dz, packed, acc,
+               P, cols, Fp, chunk, tiles_per_view, n_chunks, seg};
   const ItemList items{order, ends, rows, next, done, merge};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ScheduleArgs sa{counts, nullptr, rows, n_chunks, seg, chunk, 0,

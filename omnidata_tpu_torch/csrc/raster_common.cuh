@@ -10,6 +10,9 @@
 // kernel and plain version agree bit for bit. Float constants are formed in
 // double and rounded once to float32, as the JAX package forms them.
 //
+// Lists (Schedule below): the card's exact form only, every row's list at
+// its offset into one flat id buffer.
+//
 // Work items (kernels A, B and C). A row's raw-list sweep is cut into
 // segments of at most `seg` consecutive list positions; each segment is one
 // item.
@@ -56,12 +59,15 @@ __device__ __forceinline__ int big_packed() {
   return __float_as_int(kBig) & kTieMask;
 }
 
-// One row's chunk list. counts >= 0: that many listed chunk ids; -1: every
-// chunk in order; <= -2: block mode, -count-2 listed 8-chunk block ids, each
-// expanded to its 8 chunks. An id past the last chunk (the tail of the last
-// block) is clamped to it.
+// One row's chunk list, in the exact form admission writes on a card
+// (raster_admission.cu): counts[row] >= 0 ascending chunk ids at
+// ids[offsets[row] ...], every chunk that holds a face whose bbox overlaps
+// the tile, uncapped (CSR: a flat list plus row offsets); or count -1, a
+// row past the buffer, which scans every chunk in order. The capped form of
+// the CPU and the JAX package (raster.admission_lists: block mode, at most
+// ccap ids a row) reaches no kernel. A list has at most n_chunks positions.
 __host__ __device__ __forceinline__ int list_trip(int count, int n_chunks) {
-  return count == -1 ? n_chunks : (count < -1 ? (-count - 2) * 8 : count);
+  return count == -1 ? n_chunks : count;
 }
 
 // ceil(a / b) for a >= 0, b >= 1, without the overflow of a + b - 1
@@ -69,23 +75,18 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
   return a / b + (a % b != 0);
 }
 
+// Row `row`'s list, decoded; callers ask only positions i < trip.
 struct Schedule {
   const int* ids;
-  int ccap, n_chunks, trip;
-  bool full, block;
+  int trip;
+  bool full;
 
-  __device__ Schedule(const int* row_ids, int count, int ccap_, int n_chunks_)
-      : ids(row_ids), ccap(ccap_), n_chunks(n_chunks_),
-        trip(list_trip(count, n_chunks_)), full(count == -1),
-        block(count < -1) {}
-  // the chunk id at list position i before the clamp
-  __device__ int raw(int i) const {
-    if (full) return i;
-    const int j = min(block ? i / 8 : i, ccap - 1);
-    const int listed = ids[j];
-    return block ? listed * 8 + i % 8 : listed;
-  }
-  __device__ int chunk_of(int i) const { return min(raw(i), n_chunks - 1); }
+  __device__ Schedule(const int* all_ids, const int* offsets, int row,
+                      int count, int n_chunks)
+      : ids(count == -1 ? all_ids : all_ids + offsets[row]),
+        trip(list_trip(count, n_chunks)), full(count == -1) {}
+  // the chunk id at list position i
+  __device__ int chunk_of(int i) const { return full ? i : ids[i]; }
 };
 
 // The scene pack [v0|e1|e2|face_id|attr corners] as (cols, Fp), row-major.
@@ -487,11 +488,10 @@ inline int persistent_grid(Kernel kernel, int threads, size_t dyn,
   return 0;
 }
 
-// The longest list a row can hold (all chunks, or whole 8-chunk blocks past
-// the last chunk, or ccap listed chunks) in segments of seg positions.
-inline int max_segments(int n_chunks, int ccap, int seg) {
-  const int trip = n_chunks + 7 > ccap ? n_chunks + 7 : ccap;
-  return ceil_div(trip, seg);
+// The longest list a row can hold (every chunk) in segments of seg
+// positions.
+inline int max_segments(int n_chunks, int seg) {
+  return ceil_div(n_chunks, seg);
 }
 
 // Pixels per thread that the entry points instantiate (checked before the
@@ -501,8 +501,8 @@ inline bool ppt_instantiated(int ppt) {
 }
 
 // The entry points' check on the split: segment indices fit the tie bits.
-inline bool segments_fit(int n_chunks, int ccap, int seg) {
-  return seg >= 1 && max_segments(n_chunks, ccap, seg) <= kMaxSegments;
+inline bool segments_fit(int n_chunks, int seg) {
+  return seg >= 1 && max_segments(n_chunks, seg) <= kMaxSegments;
 }
 
 }  // namespace raster

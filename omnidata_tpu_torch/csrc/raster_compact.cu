@@ -16,8 +16,7 @@
 //
 // Compacting, per (view, tile) row:
 //   pass 1 walks the row's list in (position, lane) order, blockDim.x faces
-//     per round, skips the clamped duplicates at the tail of a block-mode
-//     list, and tests each face's u8-packed bbox word (x in tiles, y in
+//     per round, and tests each face's u8-packed bbox word (x in tiles, y in
 //     8-row bands) against the tile. A warp ballot and __popc give each
 //     surviving face its slot; the face ids go to shared memory (4 bytes a
 //     face: 2 KB at B's cap of 512, 32 KB at C's 8192). The count includes
@@ -79,7 +78,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 struct Args {
-  const int* ids;
+  const int* ids;      // every row's list, flat
+  const int* offsets;  // (rows,): where each row's list starts in ids
   const int* counts;
   const float* origins;
   const int* bbox;  // (K, Fp) u8-packed bbox words, or null: plain body
@@ -88,8 +88,7 @@ struct Args {
   const float* dz;
   int* packed;
   float* acc;
-  int P, cols, Fp, chunk, ccap, tiles_per_view, n_chunks, tile, n1d,
-      stage_cap;
+  int P, cols, Fp, chunk, tiles_per_view, n_chunks, tile, n1d, stage_cap;
 };
 
 // The split: segments of seg list positions; per row the staged
@@ -135,8 +134,8 @@ __device__ __forceinline__ void issue_geometry(GeoBuf& buf, const Pack& pack,
 // Pass 1 over list elements [e_begin, e_end) (element e = position
 // e / chunk, lane e % chunk): the faces whose bbox word overlaps tile
 // (tx, ty) go to s_stage from slot `base` on, in (position, lane) order,
-// fresh positions only, as long as slots stay below stage_cap. Returns base
-// plus their count, faces past stage_cap included.
+// as long as slots stay below stage_cap. Returns base plus their count,
+// faces past stage_cap included.
 __device__ int stage_range(const Schedule& sched, const int* bbox_view,
                            int chunk, int tx, int ty, int tile, int stage_cap,
                            int e_begin, int e_end, int base, int* s_stage,
@@ -153,14 +152,11 @@ __device__ int stage_range(const Schedule& sched, const int* bbox_view,
     int f = 0;
     if (e < e_end) {
       const int i = e / chunk;
-      const int raw = sched.raw(i);
-      if (raw < sched.n_chunks) {  // not a clamped tail duplicate
-        f = raw * chunk + (e - i * chunk);
-        const int w = bbox_view[f];
-        const int lo_tx = w & 0xFF, hi_tx = (w >> 8) & 0xFF;
-        const int lo_by = (w >> 16) & 0xFF, hi_by = (w >> 24) & 0xFF;
-        m = lo_tx <= tx && tx <= hi_tx && lo_by <= y_hi && hi_by >= y_lo;
-      }
+      f = sched.chunk_of(i) * chunk + (e - i * chunk);
+      const int w = bbox_view[f];
+      const int lo_tx = w & 0xFF, hi_tx = (w >> 8) & 0xFF;
+      const int lo_by = (w >> 16) & 0xFF, hi_by = (w >> 24) & 0xFF;
+      m = lo_tx <= tx && tx <= hi_tx && lo_by <= y_hi && hi_by >= y_lo;
     }
     const unsigned bal = __ballot_sync(0xffffffffu, m);
     if (lane == 0) s_wcount[parity][warp] = __popc(bal);
@@ -229,8 +225,7 @@ struct RowSetup {
   int best[PPT], win[PPT];
 
   __device__ RowSetup(const Args& a, int row)
-      : sched(a.ids + (size_t)row * a.ccap, a.counts[row], a.ccap,
-              a.n_chunks) {
+      : sched(a.ids, a.offsets, row, a.counts[row], a.n_chunks) {
     view = row / a.tiles_per_view;
     const int tiv = row - view * a.tiles_per_view;
     tx = tiv % a.n1d;
@@ -254,8 +249,7 @@ raster_count_kernel(const Args a, const Split sp, const ItemList items) {
   bool first = true;
   while (next_item(items, s_item, it, first)) {
     const int row = it.row;
-    const Schedule sched(a.ids + (size_t)row * a.ccap, a.counts[row], a.ccap,
-                         a.n_chunks);
+    const Schedule sched(a.ids, a.offsets, row, a.counts[row], a.n_chunks);
     const int view = row / a.tiles_per_view;
     const int tiv = row - view * a.tiles_per_view;
     const int i0 = it.seg * sp.seg;
@@ -317,7 +311,7 @@ raster_sweep_kernel(const Args a, const Pack pack, const Split sp,
 // Refuses what no body takes; threads per CTA on success, else 0.
 int check_args(const Args& a, int rows) {
   if (rows <= 0 || a.P <= 0 || a.chunk < 1 || a.chunk > kMaxChunk ||
-      a.ccap < 1 || a.n_chunks < 1 || a.cols < 10 || a.stage_cap < 1 ||
+      a.n_chunks < 1 || a.cols < 10 || a.stage_cap < 1 ||
       a.tile * a.tile != a.P || a.n1d * a.n1d != a.tiles_per_view ||
       a.n1d > 256) {
     return 0;
@@ -364,12 +358,11 @@ int sweep(const Args& a, const Pack& pack, int rows, int seg, int* order,
           unsigned long long* merge, int* staged, int* seg_counts,
           void* stream) {
   const int threads = check_args(a, rows);
-  if (threads == 0 || !segments_fit(a.n_chunks, a.ccap, seg) ||
+  if (threads == 0 || !segments_fit(a.n_chunks, seg) ||
       (a.bbox != nullptr) != (staged != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Split sp{seg, max_segments(a.n_chunks, a.ccap, seg), staged,
-                 seg_counts};
+  const Split sp{seg, max_segments(a.n_chunks, seg), staged, seg_counts};
   const ItemList items{order, ends, rows, next, done, merge};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ScheduleArgs sa{a.counts, staged, rows, a.n_chunks, seg, a.chunk,
@@ -387,13 +380,13 @@ int sweep(const Args& a, const Pack& pack, int rows, int seg, int* order,
   }
 }
 
-Args make_args(const int* ids, const int* counts, const float* origins,
-               const int* bbox, const float* dx, const float* dy,
-               const float* dz, int* packed, float* acc, int P, int cols,
-               int Fp, int chunk, int ccap, int tiles_per_view, int n_chunks,
-               int tile, int n1d, int stage_cap) {
-  return Args{ids,  counts, origins, bbox, dx,   dy,    dz,
-              packed, acc,  P,       cols, Fp,   chunk, ccap,
+Args make_args(const int* ids, const int* offsets, const int* counts,
+               const float* origins, const int* bbox, const float* dx,
+               const float* dy, const float* dz, int* packed, float* acc,
+               int P, int cols, int Fp, int chunk, int tiles_per_view,
+               int n_chunks, int tile, int n1d, int stage_cap) {
+  return Args{ids,  offsets, counts, origins, bbox, dx,    dy,
+              dz,   packed,  acc,    P,       cols, Fp,    chunk,
               tiles_per_view, n_chunks, tile, n1d, stage_cap};
 }
 
@@ -406,18 +399,18 @@ Args make_args(const int* ids, const int* counts, const float* origins,
 // (rows, max_segments) where a segment exists; all on `stream`. Other
 // arguments as raster_compact_launch.
 extern "C" int raster_count_launch(
-    const int* ids, const int* counts, const int* bbox, int* order,
-    int* ends, int* n_items, int* next, int* staged, int* seg_counts,
-    int rows, int P, int Fp, int chunk, int ccap, int tiles_per_view,
+    const int* ids, const int* offsets, const int* counts, const int* bbox,
+    int* order, int* ends, int* n_items, int* next, int* staged,
+    int* seg_counts, int rows, int P, int Fp, int chunk, int tiles_per_view,
     int n_chunks, int tile, int n1d, int seg, void* stream) {
-  const Args a = make_args(ids, counts, nullptr, bbox, nullptr, nullptr,
-                           nullptr, nullptr, nullptr, P, 10, Fp, chunk, ccap,
-                           tiles_per_view, n_chunks, tile, n1d, 1);
+  const Args a = make_args(ids, offsets, counts, nullptr, bbox, nullptr,
+                           nullptr, nullptr, nullptr, nullptr, P, 10, Fp,
+                           chunk, tiles_per_view, n_chunks, tile, n1d, 1);
   const int threads = check_args(a, rows);
-  if (bbox == nullptr || threads == 0 || !segments_fit(n_chunks, ccap, seg)) {
+  if (bbox == nullptr || threads == 0 || !segments_fit(n_chunks, seg)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Split sp{seg, max_segments(n_chunks, ccap, seg), staged, seg_counts};
+  const Split sp{seg, max_segments(n_chunks, seg), staged, seg_counts};
   const ItemList items{order, ends, rows, next, nullptr, nullptr};
   int grid = 0;
   int err = persistent_grid(raster_count_kernel, threads, 0, &grid);
@@ -433,21 +426,23 @@ extern "C" int raster_count_launch(
 
 // Kernel B's sweep. Launches on `stream` and returns a CUDA error code (0
 // on success). rows = K*T tiles of P = tile^2 pixels, T = n1d^2 tiles a
-// view; pack is (cols, Fp) row-major; bbox is (K, Fp), required, and
+// view; row r's list is ids[offsets[r] ...], counts[r] long
+// (raster_common.cuh); pack is (cols, Fp) row-major; bbox is (K, Fp),
+// required, and
 // staged and seg_counts come from the count pass. The caller allocates the
 // item list (order, ends, n_items, done: rows each; next: 1) and the merge
 // words (rows, P).
 extern "C" int raster_compact_launch(
-    const int* ids, const int* counts, const float* origins,
-    const float* pack, const int* bbox, const float* dx, const float* dy,
-    const float* dz, int* order, int* ends, int* n_items, int* done,
-    int* next, unsigned long long* merge, int* staged, int* seg_counts,
-    int* packed, float* acc, int rows, int P, int cols, int Fp, int chunk,
-    int ccap, int tiles_per_view, int n_chunks, int tile, int n1d,
+    const int* ids, const int* offsets, const int* counts,
+    const float* origins, const float* pack, const int* bbox, const float* dx,
+    const float* dy, const float* dz, int* order, int* ends, int* n_items,
+    int* done, int* next, unsigned long long* merge, int* staged,
+    int* seg_counts, int* packed, float* acc, int rows, int P, int cols,
+    int Fp, int chunk, int tiles_per_view, int n_chunks, int tile, int n1d,
     int stage_cap, int seg, void* stream) {
   if (bbox == nullptr) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(ids, counts, origins, bbox, dx, dy, dz, packed,
-                           acc, P, cols, Fp, chunk, ccap, tiles_per_view,
+  const Args a = make_args(ids, offsets, counts, origins, bbox, dx, dy, dz,
+                           packed, acc, P, cols, Fp, chunk, tiles_per_view,
                            n_chunks, tile, n1d, stage_cap);
   return sweep(a, RowMajor{pack, Fp}, rows, seg, order, ends, n_items, done,
                next, merge, staged, seg_counts, stream);
@@ -457,15 +452,15 @@ extern "C" int raster_compact_launch(
 // (Fp / chunk, cols, chunk) and bbox may be null (the plain body, with
 // staged and seg_counts null).
 extern "C" int raster_streamed_launch(
-    const int* ids, const int* counts, const float* origins,
-    const float* pack, const int* bbox, const float* dx, const float* dy,
-    const float* dz, int* order, int* ends, int* n_items, int* done,
-    int* next, unsigned long long* merge, int* staged, int* seg_counts,
-    int* packed, float* acc, int rows, int P, int cols, int Fp, int chunk,
-    int ccap, int tiles_per_view, int n_chunks, int tile, int n1d,
+    const int* ids, const int* offsets, const int* counts,
+    const float* origins, const float* pack, const int* bbox, const float* dx,
+    const float* dy, const float* dz, int* order, int* ends, int* n_items,
+    int* done, int* next, unsigned long long* merge, int* staged,
+    int* seg_counts, int* packed, float* acc, int rows, int P, int cols,
+    int Fp, int chunk, int tiles_per_view, int n_chunks, int tile, int n1d,
     int stage_cap, int seg, void* stream) {
-  const Args a = make_args(ids, counts, origins, bbox, dx, dy, dz, packed,
-                           acc, P, cols, Fp, chunk, ccap, tiles_per_view,
+  const Args a = make_args(ids, offsets, counts, origins, bbox, dx, dy, dz,
+                           packed, acc, P, cols, Fp, chunk, tiles_per_view,
                            n_chunks, tile, n1d, stage_cap);
   return sweep(a, ChunkMajor{pack, cols, chunk}, rows, seg, order, ends,
                n_items, done, next, merge, staged, seg_counts, stream);

@@ -11,9 +11,14 @@ raster kernel, winner decode.
    the tile) or C (streamed: the pack chunk-major, compacting by default);
 4. ``raster_kernels.decode_winners`` recomputes the winner's exact t/u/v and
    interpolates vertex attributes; tiles are put back into images.
-On a card steps 1 and 2 (and the bbox words) are two CUDA kernels
-(``admission``, ``csrc/raster_admission.cu``); on the CPU, the plain
-PyTorch functions they equal bit for bit (``admission_reference``).
+On a card steps 1 and 2 (and the bbox words) are CUDA kernels (``admission``,
+``csrc/raster_admission.cu``) that write every row's exact list, uncapped,
+into one flat buffer at the row's offset (``exact_lists``; the plain version
+of the whole is ``admission_exact_reference``). On the CPU admission is the
+JAX package's capped encoding (``admission_reference``: at most ``ccap``
+chunks a row, else block mode or a scan of every chunk), which the tests
+hold against the JAX package, given to the kernels as exact lists
+(``capped_as_exact``). Both give the same winners.
 
 Tie semantics, admission encoding and outputs are those of
 ``omnidata_tpu.mesh.raster.render_views_fused``; ``render_view_fused`` is
@@ -45,6 +50,7 @@ from .raster_kernels import (
     _mt_packed_keys,
     _mt_precompute,
     decode_winners,
+    list_trips,
     raster_tiles_chunklist,
     raster_tiles_compact,
     raster_tiles_streamed,
@@ -238,6 +244,32 @@ def admission_lists(overlap: torch.Tensor, true_counts: torch.Tensor,
     return ids.contiguous(), counts.to(torch.int32)
 
 
+def capped_as_exact(ids: torch.Tensor, counts: torch.Tensor, n_chunks: int):
+    """The capped encoding (``admission_lists``: ids (rows, ccap)) in the
+    exact form that the raster kernels read (``raster_kernels``' module
+    docstring) -> (ids (max(slots, 1),), counts (rows,), offsets (rows,)),
+    int32. A listed row keeps its chunks; a block-mode row lists the chunks
+    of its 8-chunk blocks below n_chunks, ascending; a scan-all row keeps
+    count -1 and no slots. The kernels sweep the same chunks in the same
+    order, less the re-sweeps of the last chunk that a block past it made,
+    which change no winner."""
+    rows, ccap = ids.shape
+    block = counts <= -2
+    j = torch.arange(8 * ccap, device=ids.device)
+    by_block = ids.repeat_interleave(8, 1) * 8 + j % 8
+    listed = torch.nn.functional.pad(ids, (0, 7 * ccap))
+    chunk_ids = torch.where(block[:, None], by_block, listed)
+    take = torch.where(block[:, None],
+                       (j // 8 < (-counts - 2)[:, None]) & (by_block < n_chunks),
+                       j < counts[:, None])
+    n = take.sum(1)
+    flat = chunk_ids[take].to(torch.int32)  # row-major, so at the offsets
+    if flat.numel() == 0:
+        flat = torch.zeros(1, dtype=torch.int32, device=ids.device)
+    return (flat, torch.where(counts == -1, -1, n).to(torch.int32),
+            (torch.cumsum(n, 0) - n).to(torch.int32))
+
+
 def padded_bboxes(cameras: Camera, mesh: TriangleMesh, chunk: int):
     """``face_screen_bboxes`` padded to whole chunks: lo, hi (K, Fp, 2), the
     padding dead (lo = +BIG, hi = -BIG)."""
@@ -250,15 +282,13 @@ def padded_bboxes(cameras: Camera, mesh: TriangleMesh, chunk: int):
     return lo, hi
 
 
-def tile_admission(lo: torch.Tensor, hi: torch.Tensor, res: int, tile: int,
-                   chunk: int, ccap: int, hier_min_chunks: int | None = None,
-                   expand_bcap: int | None = None):
+def tile_overlap(lo: torch.Tensor, hi: torch.Tensor, res: int, tile: int,
+                 chunk: int) -> torch.Tensor:
     """Face-granular chunk admission for every (view, tile) from the padded
-    bboxes (``padded_bboxes``): a chunk is listed for a tile when at least
-    one of its faces' bboxes overlaps the tile. The per-chunk any-face
-    overlap is a separable y/x test contracted over the chunk's faces (a
-    float32 batched matmul of 0/1 values, exact).
-    -> (ids (K*T, ccap), counts (K*T,)) as in ``admission_lists``."""
+    bboxes (``padded_bboxes``): (K*T, n_chunks) bool, a chunk set for a
+    tile when at least one of its faces' bboxes overlaps the tile. The
+    per-chunk any-face overlap is a separable y/x test contracted over the
+    chunk's faces (a float32 batched matmul of 0/1 values, exact)."""
     n1d = res // tile
     T = n1d * n1d
     K, Fp = lo.shape[:2]
@@ -271,12 +301,48 @@ def tile_admission(lo: torch.Tensor, hi: torch.Tensor, res: int, tile: int,
     ovx_f = ov_x.reshape(K * n_chunks, chunk, n1d).to(torch.float32)
     cnt = torch.bmm(ovy_f.transpose(1, 2), ovx_f)  # (K*NC, Ty, Tx)
     overlap = (cnt > 0).reshape(K, n_chunks, T).transpose(1, 2)  # (K,T,NC)
-    true_counts = overlap.sum(-1)
+    return overlap.reshape(K * T, n_chunks)
+
+
+def tile_admission(lo: torch.Tensor, hi: torch.Tensor, res: int, tile: int,
+                   chunk: int, ccap: int, hier_min_chunks: int | None = None,
+                   expand_bcap: int | None = None):
+    """The capped encoding (``admission_lists``) of ``tile_overlap``:
+    -> (ids (K*T, ccap), counts (K*T,))."""
+    overlap = tile_overlap(lo, hi, res, tile, chunk)
     hier_min = (HIER_ADMISSION_MIN_CHUNKS if hier_min_chunks is None
                 else hier_min_chunks)
-    return admission_lists(
-        overlap.reshape(K * T, n_chunks), true_counts.reshape(K * T), ccap,
-        hier=n_chunks > hier_min, expand_bcap=expand_bcap)
+    return admission_lists(overlap, overlap.sum(-1), ccap,
+                           hier=overlap.shape[1] > hier_min,
+                           expand_bcap=expand_bcap)
+
+
+def exact_lists(overlap: torch.Tensor, slots: int):
+    """The card's encoding of the (rows, n_chunks) overlap matrix: every
+    row's set chunks, ascending and uncapped, in one flat buffer of rows *
+    slots at the row's offset. -> (ids (rows * slots,), counts (rows,),
+    offsets (rows,)), int32. The rows of at most ``slots`` chunks come
+    first, at the exclusive prefix sums of their counts, and always fit;
+    the longer rows follow in row order. A longer row whose list would end
+    past the buffer (and so every later longer row) lists nothing and has
+    count -1, scan every chunk, which is winner-exact; its offset is its
+    start clamped to the buffer's end. The slots past the last list are
+    zero."""
+    rows = overlap.shape[0]
+    capacity = rows * slots
+    n = overlap.sum(1)
+    short = n <= slots
+    first = torch.cumsum(torch.where(short, n, 0), 0)
+    ends = torch.where(short, first, torch.where(short, 0, n).cumsum(0)
+                       + torch.where(short, n, 0).sum())
+    fits = ends <= capacity
+    offsets = torch.clamp(ends - n, max=capacity)
+    ids = torch.zeros(capacity, dtype=torch.int32, device=overlap.device)
+    r, c = torch.nonzero(overlap & fits[:, None], as_tuple=True)
+    rank = torch.cumsum(overlap, 1)[r, c] - 1
+    ids[offsets[r] + rank] = c.to(torch.int32)
+    return (ids, torch.where(fits, n, -1).to(torch.int32),
+            offsets.to(torch.int32))
 
 
 def _check_word_range(res: int, tile: int) -> None:
@@ -314,89 +380,114 @@ def _expand_bcap(expand_bcap: int | None) -> int:
     return expand_bcap
 
 
-def admission_rows_reference(bits: torch.Tensor, n_chunks: int, ccap: int,
-                             hier: bool, expand_bcap: int | None = None):
-    """The algorithm of the rows kernel (``admission_rows_kernel`` in
-    ``csrc/raster_admission.cu``) in plain PyTorch: ``admission_lists``
-    from the overlap matrix packed as bits (rows, ceil(n_chunks / 32))
-    int32, chunk c at bit c % 32 of word c // 32. The ranks of the set
-    chunks and of the set 8-chunk blocks (a block is a byte of a word) are
-    prefix sums, and the chunk (or, in block mode, block) of rank r goes to
-    slot r while the encoding admits it. -> (ids (rows, ccap), counts
-    (rows,)) int32, equal to ``admission_lists`` on the unpacked matrix."""
+def admission_rows_reference(bits: torch.Tensor, n_chunks: int, slots: int):
+    """The algorithm of the rows kernels (``csrc/raster_admission.cu``) in
+    plain PyTorch: ``exact_lists`` of the overlap matrix packed as bits
+    (rows, ceil(n_chunks / 32)) int32, chunk c at bit c % 32 of word c //
+    32. -> (ids (rows * slots,), counts (rows,), offsets (rows,)) int32."""
     rows, nw = bits.shape
     shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
     ov = ((bits[:, :, None] >> shifts) & 1).bool().reshape(rows, nw * 32)
-    blocks = ov.reshape(rows, nw * 4, 8).any(-1)
-    n_set, n_blocks = ov.sum(1), blocks.sum(1)
-    crank = torch.cumsum(ov, 1) - 1
-    brank = torch.cumsum(blocks, 1) - 1
-    if hier:
-        ncb = -(-n_chunks // 8)
-        bcap = min(ccap, ncb)
-        bcap2 = min(bcap, _expand_bcap(expand_bcap))
-        k2 = min(ccap, 8 * bcap2)
-        exact = (n_set <= k2) & (n_blocks <= bcap2)
-        by_block = ~exact & (n_blocks <= bcap)
-        counts = torch.where(exact, n_set,
-                             torch.where(by_block, -n_blocks - 2, -1))
-        take = (ov & (crank < k2) & (brank.repeat_interleave(8, 1) < bcap2)
-                & ~by_block[:, None])
-    else:
-        counts = torch.where(n_set > ccap, -1, n_set)
-        take = ov & (crank < min(ccap, n_chunks))
-    ids = torch.zeros((rows, ccap), dtype=torch.int32, device=bits.device)
-    r, c = torch.nonzero(take, as_tuple=True)
-    ids[r, crank[r, c]] = c.to(torch.int32)
-    if hier:
-        r, b = torch.nonzero(blocks & by_block[:, None], as_tuple=True)
-        ids[r, brank[r, b]] = b.to(torch.int32)
-    return ids, counts.to(torch.int32)
+    return exact_lists(ov[:, :n_chunks], slots)
+
+
+class Admission(NamedTuple):
+    """The lists of K views' (view, tile) rows and, when compacting, the
+    bbox words (K, Fp) (else None). The exact form (``exact_lists``,
+    ``capped_as_exact``): ``ids`` flat, counts and ``offsets`` (rows,);
+    ``admission_reference`` alone gives the capped form, ``ids`` (rows,
+    ccap) and ``offsets`` None (``admission_lists``)."""
+
+    ids: torch.Tensor
+    counts: torch.Tensor
+    bbox_words: torch.Tensor | None
+    offsets: torch.Tensor | None
 
 
 def admission_reference(cameras: Camera, mesh: TriangleMesh, tile: int,
                         chunk: int, ccap: int,
                         hier_min_chunks: int | None = None,
-                        expand_bcap: int | None = None, compact: bool = False):
-    """Plain version of ``admission``: ``padded_bboxes``, ``tile_admission``
-    and, when compact, ``bbox_words``, on the mesh's device.
-    -> (ids (K*T, ccap), counts (K*T,), bbox words (K, Fp) or None)."""
+                        expand_bcap: int | None = None,
+                        compact: bool = False) -> Admission:
+    """The CPU's admission, the JAX package's capped encoding:
+    ``padded_bboxes``, ``tile_admission`` and, when compact, ``bbox_words``,
+    on the mesh's device. -> Admission(ids (K*T, ccap), counts (K*T,), bbox
+    words (K, Fp) or None, None)."""
     res = cameras.resolution
     lo, hi = padded_bboxes(cameras, mesh, chunk)
     ids, counts = tile_admission(lo, hi, res, tile, chunk, ccap,
                                  hier_min_chunks, expand_bcap)
     words = bbox_words(lo, hi, res, tile) if compact else None
-    return ids, counts, words
+    return Admission(ids, counts, words, None)
+
+
+def list_slots(ccap: int, n_chunks: int) -> int:
+    """List slots a row of the card's buffer: ccap, or the words a row of
+    the tile-overlap bit matrix, ceil(n_chunks / 32), where that is more. A
+    buffer as large as the bit matrix grows with the scene, so that on a
+    large one the longer rows of large tiles still fit."""
+    return max(ccap, -(-n_chunks // 32))
+
+
+def admission_exact_reference(cameras: Camera, mesh: TriangleMesh, tile: int,
+                              chunk: int, ccap: int,
+                              compact: bool = False) -> Admission:
+    """Plain version of ``admission`` on a card: ``padded_bboxes``,
+    ``tile_overlap`` encoded by ``exact_lists`` in a buffer of ``list_slots``
+    slots a row and, when compact, ``bbox_words``, on the mesh's device.
+    -> Admission(ids (K*T*slots,), counts (K*T,), bbox words or None,
+    offsets (K*T,))."""
+    res = cameras.resolution
+    lo, hi = padded_bboxes(cameras, mesh, chunk)
+    overlap = tile_overlap(lo, hi, res, tile, chunk)
+    ids, counts, offsets = exact_lists(overlap,
+                                       list_slots(ccap, overlap.shape[1]))
+    words = bbox_words(lo, hi, res, tile) if compact else None
+    return Admission(ids, counts, words, offsets)
 
 
 def admission(cameras: Camera, mesh: TriangleMesh, tile: int, chunk: int,
               ccap: int, hier_min_chunks: int | None = None,
-              expand_bcap: int | None = None, compact: bool = False):
-    """Chunk admission of K views and, when compact, their bbox words, as
-    ``admission_reference`` computes them. CPU tensors take that plain
-    version; CUDA tensors launch the two kernels of
-    ``csrc/raster_admission.cu`` (face bboxes -> tile-overlap bits and bbox
-    words; bits -> lists, hierarchical past ``hier_min_chunks`` chunks as
-    in ``tile_admission``), built on first use, and raise on what they do
-    not take or if they fail to build or launch; they equal the plain
-    version bit for bit. Each launch adds one to ``admission.launches``.
-    While the recorder records, counter ``raster.rows_fused`` gains the
-    rows the kernels admitted (none on the plain path)."""
+              expand_bcap: int | None = None,
+              compact: bool = False) -> Admission:
+    """Chunk admission of K views and, when compact, their bbox words, in
+    the exact form (``Admission``). CPU tensors take the JAX package's
+    capped encoding (``admission_reference``: hierarchical past
+    ``hier_min_chunks`` chunks, ``expand_bcap``, the two used only here)
+    through ``capped_as_exact``; CUDA tensors launch the kernels
+    (``_admission_kernels``). While the recorder records, counter
+    ``raster.rows_fused`` gains the rows the kernels admitted (none on the
+    plain path) and ``raster.rows_block`` the rows in block mode (none on a
+    card)."""
+    if mesh.vertices.device.type != "cpu":
+        if profiler.recording():
+            profiler.count("raster.rows_block", 0)
+        return _admission_kernels(cameras, mesh, tile, chunk, ccap, compact)
+    capped = admission_reference(cameras, mesh, tile, chunk, ccap,
+                                 hier_min_chunks, expand_bcap, compact)
+    if profiler.recording():
+        profiler.count("raster.rows_fused", 0)  # all admitted by the plain path
+        profiler.count("raster.rows_block", (capped.counts <= -2).sum())
+    n_chunks = -(-mesh.faces.shape[0] // chunk)
+    ids, counts, offsets = capped_as_exact(capped.ids, capped.counts, n_chunks)
+    return Admission(ids, counts, capped.bbox_words, offsets)
+
+
+def _admission_kernels(cameras: Camera, mesh: TriangleMesh, tile: int,
+                       chunk: int, ccap: int, compact: bool) -> Admission:
+    """``admission`` on a card: the kernels of ``csrc/raster_admission.cu``
+    (face bboxes -> tile-overlap bits and bbox words; bits -> every row's
+    exact list in a buffer of ``list_slots`` slots a row, no host sync),
+    built on first use, which equal ``admission_exact_reference`` bit for
+    bit, and raise on what they do not take or if they fail to build or
+    launch. Each launch adds one to ``admission.launches``."""
     res = cameras.resolution
     dev = mesh.vertices.device
-    if dev.type == "cpu":
-        if profiler.recording():
-            profiler.count("raster.rows_fused", 0)  # all admitted by the plain path
-        return admission_reference(cameras, mesh, tile, chunk, ccap,
-                                   hier_min_chunks, expand_bcap, compact)
     if compact:
         _check_word_range(res, tile)
     K = cameras.location.shape[0]
     F = mesh.faces.shape[0]
     n_chunks = -(-F // chunk)
-    hier = n_chunks > (HIER_ADMISSION_MIN_CHUNKS if hier_min_chunks is None
-                       else hier_min_chunks)
-    expand_bcap = _expand_bcap(expand_bcap) if hier else 1
     rt = extrinsic_RT(cameras.location, cameras.R).contiguous()
     km = intrinsic_matrix(cameras.fov, res).contiguous()
     tensors = (mesh.vertices, mesh.faces, rt, km)
@@ -422,23 +513,26 @@ def admission(cameras: Camera, mesh: TriangleMesh, tile: int, chunk: int,
         if not ok:
             raise ValueError(f"admission: {msg()}")
     rows = K * (res // tile) ** 2
+    slots = list_slots(ccap, n_chunks)
     with torch.cuda.device(dev):
         bits = torch.empty((rows, -(-n_chunks // 32)), dtype=torch.int32,
                            device=dev)
-        ids = torch.empty((rows, ccap), dtype=torch.int32, device=dev)
+        ids = torch.empty(rows * slots, dtype=torch.int32, device=dev)
         counts = torch.empty(rows, dtype=torch.int32, device=dev)
+        offsets = torch.empty(rows + 1, dtype=torch.int32, device=dev)
         words = (torch.empty((K, n_chunks * chunk), dtype=torch.int32,
                              device=dev) if compact else None)
         _call("raster_admission", "admission_launch",
               [mesh.vertices.data_ptr(), mesh.faces.data_ptr(), rt.data_ptr(),
                km.data_ptr(), None if words is None else words.data_ptr(),
-               bits.data_ptr(), ids.data_ptr(), counts.data_ptr()],
-              [mesh.num_faces, F, K, res, tile, chunk, n_chunks, ccap,
-               int(hier), expand_bcap])
+               bits.data_ptr(), ids.data_ptr(), counts.data_ptr(),
+               offsets.data_ptr()],
+              [mesh.num_faces, F, K, res, tile, chunk, n_chunks, slots])
     admission.launches += 1
     if profiler.recording():
         profiler.count("raster.rows_fused", rows)
-    return ids, counts, words
+    # offsets[rows] is the kernels' own: the listed slots, where the zeros start
+    return Admission(ids, counts, words, offsets[:rows])
 
 
 admission.launches = 0
@@ -460,7 +554,8 @@ def _untile(x: torch.Tensor, K: int, n1d: int, tile: int) -> torch.Tensor:
 
 class RasterInputs(NamedTuple):
     """Everything a raster kernel reads for K views (rows = K*T tiles):
-    admission lists, per-view ray origins (K,3), the scene pack (COLS, Fp),
+    admission lists (``Admission``'s exact form: ids, counts, offsets),
+    per-view ray origins (K,3), the scene pack (COLS, Fp),
     or chunk-major (NC, COLS, chunk) for the streamed kernel, per-tile ray
     directions 3 x (rows, P), the bbox words (K, Fp) when compacting (else
     None); plus the (K,H,W,3) ray image."""
@@ -473,6 +568,7 @@ class RasterInputs(NamedTuple):
     tiles_per_view: int
     dirs: torch.Tensor
     bbox_words: torch.Tensor | None
+    offsets: torch.Tensor
 
 
 def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
@@ -480,13 +576,16 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
                    ccap: int | None = None, hier_min_chunks: int | None = None,
                    expand_bcap: int | None = None, compact: bool = False,
                    streamed: bool = False) -> RasterInputs:
-    """Admission (``admission``: the two kernels on a card, the plain
-    version on the CPU), rays and scene pack for one raster launch over K
-    views; the bbox words when compact, the pack chunk-major when streamed.
-    While the recorder records (``utils.profiler``), the admission rows go
-    to counters ``raster.rows``, ``raster.rows_block`` (block mode) and
-    ``raster.rows_scan_all``; ``admission`` counts ``raster.rows_fused``,
-    the rows its kernels admitted."""
+    """Admission (``admission``: exact lists from the kernels on a card, the
+    capped encoding as exact lists on the CPU), rays and scene pack for one
+    raster launch over K views; the bbox words when compact, the pack
+    chunk-major when streamed. While the recorder records
+    (``utils.profiler``), the admission rows go to counters ``raster.rows``
+    and ``raster.rows_scan_all`` (the rows that scan every chunk: on a card
+    only longer rows past the list buffer), and the list positions the
+    raster kernel walks (``list_trips``, summed) to
+    ``raster.list_positions``; ``admission`` counts ``raster.rows_fused``,
+    the rows its kernels admitted, and ``raster.rows_block``."""
     res = cameras.resolution
     if res % tile:
         raise ValueError(f"resolution {res} is not a multiple of tile {tile}")
@@ -495,12 +594,14 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
     F = mesh.faces.shape[0]
     n_chunks = -(-F // chunk)
     ccap = min(ccap or CHUNK_LIST_CAP, n_chunks)
-    ids, counts, words = admission(cameras, mesh, tile, chunk, ccap,
-                                   hier_min_chunks, expand_bcap, compact)
+    ids, counts, words, offsets = admission(cameras, mesh, tile, chunk, ccap,
+                                            hier_min_chunks, expand_bcap,
+                                            compact)
     if profiler.recording():
         profiler.count("raster.rows", counts.numel())
-        profiler.count("raster.rows_block", (counts <= -2).sum())
         profiler.count("raster.rows_scan_all", (counts == -1).sum())
+        profiler.count("raster.list_positions",
+                       list_trips(counts, n_chunks).sum())
     origins, dirs = camera_rays(cameras)  # (K,3), (K,H,W,3)
     tile_dirs = _tiles(dirs, K, n1d, tile)  # (K*T, P, 3)
     dir_planes = tuple(tile_dirs[..., i].contiguous() for i in range(3))
@@ -512,7 +613,7 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
     else:
         pack = pack.T
     return RasterInputs(ids, counts, origins.contiguous(), pack.contiguous(),
-                        dir_planes, n1d * n1d, dirs, words)
+                        dir_planes, n1d * n1d, dirs, words, offsets)
 
 
 def render_views_fused(
@@ -534,9 +635,12 @@ def render_views_fused(
 
     Returns batched Fragments (K,H,W,...), and (Fragments, attr_img
     (K,H,W,C)) when vertex_attrs is given. Candidate admission is by
-    128-face chunk, at most ``ccap`` (default CHUNK_LIST_CAP) per tile;
-    tiles that need more take block mode or a full scan, so no candidate is
-    ever dropped.
+    128-face chunk: on a card every tile's exact list, in a buffer of
+    ``list_slots`` slots a tile (at least ``ccap``, default CHUNK_LIST_CAP),
+    where only tiles of more chunks than that can fall back to a full scan;
+    on the CPU at most
+    ``ccap`` per tile, tiles that need more taking block mode or a full
+    scan. No candidate is ever dropped.
 
     The kernel: streamed=True takes kernel C (the pack chunk-major),
     compacting unless compact=False; otherwise compact=True takes kernel B
@@ -559,7 +663,8 @@ def render_views_fused(
                              hier_min_chunks, expand_bcap, compact, streamed)
     with profiler.span("raster.render"):
         args = (inp.ids, inp.counts, inp.origins, inp.pack)
-        kw = dict(chunk=chunk, tiles_per_view=inp.tiles_per_view)
+        kw = dict(chunk=chunk, tiles_per_view=inp.tiles_per_view,
+                  offsets=inp.offsets)
         if streamed:
             packed, acc = raster_tiles_streamed(
                 *args, inp.dir_planes, bbox_words=inp.bbox_words,

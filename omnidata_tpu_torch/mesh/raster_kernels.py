@@ -2,10 +2,19 @@
 winner decode.
 
 Per (view, tile) row the caller supplies the ascending ids of the 128-face
-Morton chunks admitted for that tile (``raster.admission_lists``). For every
-pixel ray and every swept face, Möller–Trumbore runs in the factored form
-det = -D·n, u·det = D·r, v·det = D·q, t·det = e2·q, with n = e1×e2,
-q = tvec×e1, r = e2×tvec and e2·q computed once per face
+Morton chunks admitted for that tile in the exact form that admission
+writes (``raster.admission``): ``ids`` one flat int32 buffer, ``offsets``
+(rows,) int32 and ``counts`` (rows,) int32; row r lists the ``counts[r]``
+chunks ``ids[offsets[r]:offsets[r] + counts[r]]``, every chunk that holds a
+face whose bbox overlaps the tile, uncapped (a CSR layout: a flat list plus
+row offsets). A row whose list would have run past the buffer has count
+-1: scan every chunk. The capped form of the CPU and the JAX package
+(``raster.admission_lists``: block mode, at most ccap ids a row) reaches
+these functions only through ``raster.capped_as_exact``.
+
+For every pixel ray and every swept face, Möller–Trumbore runs in the
+factored form det = -D·n, u·det = D·r, v·det = D·q, t·det = e2·q, with n =
+e1×e2, q = tvec×e1, r = e2×tvec and e2·q computed once per face
 (``_mt_precompute``). Per pixel the winner is the minimum of a packed int32
 key: the float bits of t with the low 13 mantissa bits replaced by the lane
 (the face's index in the swept chunk). Within a chunk the full key decides,
@@ -75,39 +84,24 @@ _MAX_SEGMENTS = 1 << 13  # segment indices ride in the key's 13 tie bits
 
 def list_trips(counts: torch.Tensor, n_chunks: int) -> torch.Tensor:
     """List positions each row sweeps (see ``chunk_schedule``)."""
-    return torch.where(counts == -1, n_chunks,
-                       torch.where(counts < -1, (-counts - 2) * 8, counts))
+    return torch.where(counts == -1, n_chunks, counts)
 
 
-def chunk_schedule(ids: torch.Tensor, counts: torch.Tensor, n_chunks: int):
-    """Decode each row's list -> (trip (rows,), chunk_of, fresh_of).
-
-    counts >= 0: ``count`` listed chunks; -1: all n_chunks chunks in order;
-    <= -2: block mode, the list holds -count-2 8-chunk block ids, each
-    expanded to its 8 chunks (trip = 8 * blocks). The id is clamped to the
-    last chunk: a tail block may run past it, and a re-swept duplicate chunk
-    cannot strictly improve any winner. chunk_of(i) gives the chunk at list
-    position i for every row (meaningful where i < trip); fresh_of(i) is
-    False exactly for the clamped tail duplicates, which the compacting
-    kernels do not stage again."""
-    ccap = ids.shape[1]
+def chunk_schedule(ids: torch.Tensor, counts: torch.Tensor, n_chunks: int,
+                   offsets: torch.Tensor):
+    """Decode each row's list (module docstring) -> (trip (rows,),
+    chunk_of): counts >= 0, ``count`` listed chunks at the row's offset;
+    -1, all n_chunks chunks in order. chunk_of(i) gives the chunk at list
+    position i for every row (meaningful where i < trip)."""
     full = counts == -1
-    block = counts < -1
     trip = list_trips(counts, n_chunks)
-
-    def raw_of(i: int) -> torch.Tensor:
-        j = torch.clamp(torch.where(block, i // 8, i), max=ccap - 1)
-        listed = torch.gather(ids, 1, j[:, None].long())[:, 0]
-        ci = torch.where(block, listed * 8 + i % 8, listed)
-        return torch.where(full, i, ci)
+    last = max(ids.numel() - 1, 0)
 
     def chunk_of(i: int) -> torch.Tensor:
-        return torch.clamp(raw_of(i), max=n_chunks - 1)
+        listed = ids[(offsets.long() + i).clamp(0, last)]
+        return torch.where(full, i, listed)
 
-    def fresh_of(i: int) -> torch.Tensor:
-        return raw_of(i) < n_chunks
-
-    return trip, chunk_of, fresh_of
+    return trip, chunk_of
 
 
 def band_mask_and_flags(bb: torch.Tensor, tx, ty, tile: int, pblk: int,
@@ -137,23 +131,22 @@ def band_mask_and_flags(bb: torch.Tensor, tx, ty, tile: int, pblk: int,
 
 
 def stage_faces(ids, counts, bbox_words, n_chunks: int, chunk: int,
-                tiles_per_view: int, tile: int, stage_cap: int):
+                tiles_per_view: int, tile: int, stage_cap: int, *, offsets):
     """Pass 1 of the compacting kernels, plainly: per row, the faces of the
     listed chunks whose bbox word overlaps the row's tile, in list order
-    then lane order (ascending face id), skipping the clamped tail
-    duplicates of block mode. -> (staged (rows,) int64, the count with the
-    faces past stage_cap; slots (rows, stage_cap) int64 face ids, -1 where
-    empty).
+    then lane order (ascending face id). -> (staged (rows,) int64, the count
+    with the faces past stage_cap; slots (rows, stage_cap) int64 face ids,
+    -1 where empty).
 
     A dead face (behind the near plane or off screen) has the bbox word of
     lo 255 > hi 0 and is never staged: a face whose vertices all lie within
     1e-4 m in front of the camera is never swept by B or C, while A sweeps
     it whenever a chunkmate admits its chunk, so no kernel renders such
     faces dependably (as in the JAX package)."""
-    rows = ids.shape[0]
+    rows = counts.shape[0]
     dev = ids.device
     n1d = math.isqrt(tiles_per_view)
-    trip, chunk_of, fresh_of = chunk_schedule(ids, counts, n_chunks)
+    trip, chunk_of = chunk_schedule(ids, counts, n_chunks, offsets)
     row = torch.arange(rows, device=dev)
     view, tiv = row // tiles_per_view, row % tiles_per_view
     ty, tx = tiv // n1d, tiv % n1d
@@ -166,7 +159,6 @@ def stage_faces(ids, counts, bbox_words, n_chunks: int, chunk: int,
         bb = bbox_words[view[r, None], faces]
         m, _ = band_mask_and_flags(bb, tx[r, None], ty[r, None], tile,
                                    tile * tile, 1)
-        m &= fresh_of(i)[r, None]
         pos = staged[r, None] + torch.cumsum(m, 1) - 1
         keep = m & (pos < stage_cap)
         slots[r[:, None].expand_as(faces)[keep], pos[keep]] = faces[keep]
@@ -302,9 +294,10 @@ def _sweep(o, dir_planes, pack, n_units, faces_of):
     return best, win
 
 
-def _sweep_lists(ids, counts, o, pack, dir_planes, chunk):
+def _sweep_lists(ids, counts, offsets, o, pack, dir_planes, chunk):
     """Kernel A's sweep of each row's raw list -> (best, win)."""
-    trip, chunk_of, _ = chunk_schedule(ids, counts, pack.shape[1] // chunk)
+    trip, chunk_of = chunk_schedule(ids, counts, pack.shape[1] // chunk,
+                                    offsets)
     lane = torch.arange(chunk, device=pack.device)
     return _sweep(o, dir_planes, pack, trip,
                   lambda i, r: chunk_of(i)[r, None].long() * chunk + lane)
@@ -322,33 +315,35 @@ def _winner_columns(best, win, pack):
 
 def raster_tiles_chunklist_reference(ids, counts, origins, pack, dir_planes,
                                      chunk: int = 128,
-                                     tiles_per_view: int = 64):
+                                     tiles_per_view: int = 64, *, offsets):
     """Plain PyTorch version of kernel A: a loop over list positions, each
     step sweeping one chunk for every row whose list is that long. Same keys,
     same strict masked improvement. -> (packed (rows, P) int32, acc (rows,
     COLS, P) float32)."""
-    o = _row_origins(origins, ids.shape[0], tiles_per_view)
-    best, win = _sweep_lists(ids, counts, o, pack, dir_planes, chunk)
+    o = _row_origins(origins, counts.shape[0], tiles_per_view)
+    best, win = _sweep_lists(ids, counts, offsets, o, pack, dir_planes, chunk)
     return best, _winner_columns(best, win, pack)
 
 
 def raster_tiles_compact_reference(ids, counts, origins, pack, bbox_words,
                                    dir_planes, chunk: int = 128,
                                    tiles_per_view: int = 64,
-                                   stage_cap: int = STAGE_CAP):
+                                   stage_cap: int = STAGE_CAP, *, offsets):
     """Plain PyTorch version of kernel B: ``stage_faces``, then per row
     either the dense sweep of its staged faces or, past stage_cap, kernel
     A's sweep of its raw list. -> (packed, acc) as kernel A's."""
     rows, P = dir_planes[0].shape
     staged, slots = stage_faces(ids, counts, bbox_words, pack.shape[1] // chunk,
-                                chunk, tiles_per_view, math.isqrt(P), stage_cap)
+                                chunk, tiles_per_view, math.isqrt(P), stage_cap,
+                                offsets=offsets)
     o = _row_origins(origins, rows, tiles_per_view)
     best = torch.full((rows, P), BIG_PACKED, dtype=torch.int32, device=pack.device)
     win = torch.zeros((rows, P), dtype=torch.int64, device=pack.device)
     fb = staged > stage_cap
     if fb.any():
-        best[fb], win[fb] = _sweep_lists(ids[fb], counts[fb], o[fb], pack,
-                                         [d[fb] for d in dir_planes], chunk)
+        best[fb], win[fb] = _sweep_lists(ids, counts[fb], offsets[fb], o[fb],
+                                         pack, [d[fb] for d in dir_planes],
+                                         chunk)
     dn = ~fb
     if dn.any():
         dense = torch.nn.functional.pad(slots[dn], (0, -stage_cap % chunk),
@@ -364,22 +359,25 @@ def raster_tiles_streamed_reference(ids, counts, origins, pack, dir_planes,
                                     chunk: int = 128,
                                     tiles_per_view: int = 64,
                                     bbox_words=None,
-                                    stage_cap: int = STREAMED_STAGE_CAP):
+                                    stage_cap: int = STREAMED_STAGE_CAP, *,
+                                    offsets):
     """Plain PyTorch version of kernel C on the chunk-major pack (NC, COLS,
     chunk): kernel A's function without bbox_words, kernel B's with them."""
     flat = pack.permute(1, 0, 2).reshape(pack.shape[1], -1)
     if bbox_words is None:
         return raster_tiles_chunklist_reference(
-            ids, counts, origins, flat, dir_planes, chunk, tiles_per_view)
+            ids, counts, origins, flat, dir_planes, chunk, tiles_per_view,
+            offsets=offsets)
     return raster_tiles_compact_reference(
         ids, counts, origins, flat, bbox_words, dir_planes, chunk,
-        tiles_per_view, stage_cap)
+        tiles_per_view, stage_cap, offsets=offsets)
 
 
 def raster_tiles_split_reference(ids, counts, origins, pack, dir_planes,
                                  chunk: int = 128, tiles_per_view: int = 64,
                                  seg: int = SPLIT_SEG, bbox_words=None,
-                                 stage_cap: int = STREAMED_STAGE_CAP):
+                                 stage_cap: int = STREAMED_STAGE_CAP, *,
+                                 offsets):
     """Plain version of the work items of kernels A, B and C: the items of
     ``split_schedule`` (with ``stage_faces``' counts when bbox_words are
     given), each swept from scratch over its segment of the row's raw list
@@ -398,7 +396,8 @@ def raster_tiles_split_reference(ids, counts, origins, pack, dir_planes,
     staged = slots = None
     if bbox_words is not None:
         staged, slots = stage_faces(ids, counts, bbox_words, n_chunks, chunk,
-                                    tiles_per_view, math.isqrt(P), stage_cap)
+                                    tiles_per_view, math.isqrt(P), stage_cap,
+                                    offsets=offsets)
     sched = split_schedule(counts, staged, n_chunks, seg, chunk, stage_cap)
     item_row, item_seg = schedule_items(sched)
     best = torch.full((rows, P), BIG_PACKED, dtype=torch.int32, device=dev)
@@ -414,7 +413,7 @@ def raster_tiles_split_reference(ids, counts, origins, pack, dir_planes,
             lambda i, r: slots[r, i * chunk:(i + 1) * chunk])
     raw = ~dense[item_row]
     item_row, item_seg = item_row[raw], item_seg[raw]
-    trip, chunk_of, _ = chunk_schedule(ids, counts, n_chunks)
+    trip, chunk_of = chunk_schedule(ids, counts, n_chunks, offsets)
     lane = torch.arange(chunk, device=dev)
     for s in range(int(item_seg.max()) + 1 if item_seg.numel() else 0):
         r = item_row[item_seg == s]
@@ -428,18 +427,21 @@ def raster_tiles_split_reference(ids, counts, origins, pack, dir_planes,
     return best, _winner_columns(best, win, pack)
 
 
-def _check_inputs(name, ids, counts, origins, pack, cols, Fp, dir_planes,
-                  chunk, tiles_per_view, bbox_words=None, stage_cap=1,
-                  seg=None):
+def _check_inputs(name, ids, counts, offsets, origins, pack, cols, Fp,
+                  dir_planes, chunk, tiles_per_view, bbox_words=None,
+                  stage_cap=1, seg=None):
     """Raise ValueError on what no kernel takes (each message formed only
     on failure: the check runs on every launch)."""
     rows, P = dir_planes[0].shape
     dev = pack.device
-    tensors = (ids, counts, origins, pack, *dir_planes)
+    tensors = (ids, counts, offsets, origins, pack, *dir_planes)
     checks = [
-        (ids.dtype == torch.int32 and ids.dim() == 2 and ids.shape[0] == rows,
-         lambda: f"ids must be int32 (rows={rows}, ccap), got {ids.dtype} "
+        (ids.dtype == torch.int32 and ids.dim() == 1 and ids.numel() > 0,
+         lambda: f"ids must be flat non-empty int32, got {ids.dtype} "
          f"{tuple(ids.shape)}"),
+        (offsets.dtype == torch.int32 and offsets.shape == (rows,),
+         lambda: f"offsets must be int32 ({rows},), got {offsets.dtype} "
+         f"{tuple(offsets.shape)}"),
         (counts.dtype == torch.int32 and counts.shape == (rows,),
          lambda: f"counts must be int32 ({rows},), got {counts.dtype} "
          f"{tuple(counts.shape)}"),
@@ -472,7 +474,7 @@ def _check_inputs(name, ids, counts, origins, pack, cols, Fp, dir_planes,
             (stage_cap >= 1, lambda: f"stage_cap must be >= 1, got {stage_cap}"),
         ]
     if seg is not None:
-        longest = max(ids.shape[1], Fp // chunk + 7)
+        longest = Fp // chunk  # every chunk
         checks.append((seg >= 1 and -(-longest // seg) <= _MAX_SEGMENTS,
                        lambda: f"seg {seg} must be >= 1 and cut a list of "
                        f"{longest} positions into at most {_MAX_SEGMENTS} "
@@ -548,12 +550,11 @@ def _ptrs(*tensors) -> list:
 
 def raster_tiles_chunklist(ids, counts, origins, pack, dir_planes,
                            chunk: int = 128, tiles_per_view: int = 64, *,
-                           seg: int = SPLIT_SEG):
+                           offsets, seg: int = SPLIT_SEG):
     """Kernel A over all (view, tile) rows.
 
-    ids (rows, ccap) int32, non-negative chunk (or block) ids as
-    ``raster.admission_lists`` makes them · counts (rows,) int32 (see
-    chunk_schedule) ·
+    ids (flat) int32, counts (rows,) int32 and offsets (rows,) int32: the
+    lists (module docstring, ``chunk_schedule``) ·
     origins (K, 3) float32 with K * tiles_per_view == rows · pack (COLS, Fp)
     float32, geometry in rows 0-8 · dir_planes 3 x (rows, P) float32.
     -> (packed (rows, P) int32, acc (rows, COLS, P) float32).
@@ -565,20 +566,20 @@ def raster_tiles_chunklist(ids, counts, origins, pack, dir_planes,
     Each launch adds one to ``raster_tiles_chunklist.launches`` and leaves
     its schedule in ``raster_tiles_chunklist.last_schedule``."""
     cols, Fp = pack.shape
-    _check_inputs("raster_tiles_chunklist", ids, counts, origins, pack, cols,
-                  Fp, dir_planes, chunk, tiles_per_view, seg=seg)
+    _check_inputs("raster_tiles_chunklist", ids, counts, offsets, origins,
+                  pack, cols, Fp, dir_planes, chunk, tiles_per_view, seg=seg)
     if pack.device.type == "cpu":
         return raster_tiles_chunklist_reference(
-            ids, counts, origins, pack, dir_planes, chunk, tiles_per_view)
+            ids, counts, origins, pack, dir_planes, chunk, tiles_per_view,
+            offsets=offsets)
     rows, P = dir_planes[0].shape
     with torch.cuda.device(pack.device):
         items = _Items.new(rows, P, pack.device)
         out = _launch(
             "raster_chunklist", "raster_chunklist_launch",
-            [*_ptrs(ids, counts, origins, pack, *dir_planes), *items.ptrs(),
-             items.merge.data_ptr()],
-            [rows, P, cols, Fp, chunk, ids.shape[1], tiles_per_view, Fp // chunk,
-             seg],
+            [*_ptrs(ids, offsets, counts, origins, pack, *dir_planes),
+             *items.ptrs(), items.merge.data_ptr()],
+            [rows, P, cols, Fp, chunk, tiles_per_view, Fp // chunk, seg],
             rows, P, cols, pack.device)
     raster_tiles_chunklist.launches += 1
     raster_tiles_chunklist.last_schedule = items.schedule()
@@ -589,8 +590,9 @@ raster_tiles_chunklist.launches = 0
 raster_tiles_chunklist.last_schedule = None
 
 
-def _sweep_launch(wrapper, symbol, ids, counts, origins, pack, bbox_words,
-                  dir_planes, cols, Fp, chunk, tiles_per_view, stage_cap, seg):
+def _sweep_launch(wrapper, symbol, ids, counts, offsets, origins, pack,
+                  bbox_words, dir_planes, cols, Fp, chunk, tiles_per_view,
+                  stage_cap, seg):
     """Kernel B or C on CUDA tensors (``symbol``: its sweep's entry point).
     With bbox_words, first the count pass (its own launch, over items of
     ``seg`` list positions: each row's staged faces), then the sweep of
@@ -603,19 +605,19 @@ def _sweep_launch(wrapper, symbol, ids, counts, origins, pack, bbox_words,
     rows, P = dir_planes[0].shape
     dev = pack.device
     nc = Fp // chunk
-    shape = [Fp, chunk, ids.shape[1], tiles_per_view, nc, math.isqrt(P),
+    shape = [Fp, chunk, tiles_per_view, nc, math.isqrt(P),
              math.isqrt(tiles_per_view)]
     with torch.cuda.device(dev):
         items = _Items.new(rows, P, dev)
         order, ends, n_items, done, next_item = items.ptrs()
         staged = seg_counts = None
         if bbox_words is not None:
-            max_seg = -(-max(ids.shape[1], nc + 7) // seg)  # the longest list's
+            max_seg = -(-nc // seg)  # the longest list's
             counted = torch.empty(rows * (1 + max_seg), dtype=torch.int32, device=dev)
             staged, seg_counts = counted[:rows], counted[rows:]
             _call("raster_compact", "raster_count_launch",
-                  [*_ptrs(ids, counts, bbox_words), order, ends, n_items,
-                   next_item, staged.data_ptr(), seg_counts.data_ptr()],
+                  [*_ptrs(ids, offsets, counts, bbox_words), order, ends,
+                   n_items, next_item, staged.data_ptr(), seg_counts.data_ptr()],
                   [rows, P, *shape, seg])
             wrapper.count_launches += 1
             if profiler.recording():
@@ -623,7 +625,8 @@ def _sweep_launch(wrapper, symbol, ids, counts, origins, pack, bbox_words,
                                (staged > stage_cap).sum())
         out = _launch(
             "raster_compact", symbol,
-            [*_ptrs(ids, counts, origins, pack, bbox_words, *dir_planes),
+            [*_ptrs(ids, offsets, counts, origins, pack, bbox_words,
+                    *dir_planes),
              order, ends, n_items, done, next_item, items.merge.data_ptr(),
              *_ptrs(staged, seg_counts)],
             [rows, P, cols, *shape, stage_cap, seg],
@@ -635,7 +638,8 @@ def _sweep_launch(wrapper, symbol, ids, counts, origins, pack, bbox_words,
 
 def raster_tiles_compact(ids, counts, origins, pack, bbox_words, dir_planes,
                          chunk: int = 128, tiles_per_view: int = 64,
-                         stage_cap: int = STAGE_CAP, *, seg: int = SPLIT_SEG):
+                         stage_cap: int = STAGE_CAP, *, offsets,
+                         seg: int = SPLIT_SEG):
     """Kernel B: kernel A's inputs plus bbox_words (K, Fp) int32
     (``raster.bbox_words``); tiles square (P = tile², tiles_per_view =
     n1d²). Same outputs and dispatch as ``raster_tiles_chunklist``. A CUDA
@@ -646,16 +650,17 @@ def raster_tiles_compact(ids, counts, origins, pack, bbox_words, dir_planes,
     pass one to ``raster_tiles_compact.count_launches``; the sweep's
     schedule is left in ``raster_tiles_compact.last_schedule``."""
     cols, Fp = pack.shape
-    _check_inputs("raster_tiles_compact", ids, counts, origins, pack, cols,
-                  Fp, dir_planes, chunk, tiles_per_view, bbox_words, stage_cap,
-                  seg=seg)
+    _check_inputs("raster_tiles_compact", ids, counts, offsets, origins, pack,
+                  cols, Fp, dir_planes, chunk, tiles_per_view, bbox_words,
+                  stage_cap, seg=seg)
     if pack.device.type == "cpu":
         return raster_tiles_compact_reference(
             ids, counts, origins, pack, bbox_words, dir_planes, chunk,
-            tiles_per_view, stage_cap)
+            tiles_per_view, stage_cap, offsets=offsets)
     return _sweep_launch(raster_tiles_compact, "raster_compact_launch", ids,
-                         counts, origins, pack, bbox_words, dir_planes, cols,
-                         Fp, chunk, tiles_per_view, stage_cap, seg)
+                         counts, offsets, origins, pack, bbox_words,
+                         dir_planes, cols, Fp, chunk, tiles_per_view,
+                         stage_cap, seg)
 
 
 raster_tiles_compact.launches = 0
@@ -667,7 +672,7 @@ def raster_tiles_streamed(ids, counts, origins, pack, dir_planes,
                           chunk: int = 128, tiles_per_view: int = 64,
                           bbox_words=None,
                           stage_cap: int = STREAMED_STAGE_CAP, *,
-                          seg: int = SPLIT_SEG):
+                          offsets, seg: int = SPLIT_SEG):
     """Kernel C: kernel A's inputs with the pack chunk-major (NC, COLS,
     chunk); with bbox_words (K, Fp) int32 the compacting body, without them
     the plain body. Same outputs and dispatch as ``raster_tiles_chunklist``.
@@ -684,16 +689,17 @@ def raster_tiles_streamed(ids, counts, origins, pack, dir_planes,
                          f"(NC, COLS, {chunk}), got {tuple(pack.shape)}")
     nc, cols, _ = pack.shape
     Fp = nc * chunk
-    _check_inputs("raster_tiles_streamed", ids, counts, origins, pack, cols,
-                  Fp, dir_planes, chunk, tiles_per_view, bbox_words, stage_cap,
-                  seg=seg)
+    _check_inputs("raster_tiles_streamed", ids, counts, offsets, origins,
+                  pack, cols, Fp, dir_planes, chunk, tiles_per_view, bbox_words,
+                  stage_cap, seg=seg)
     if pack.device.type == "cpu":
         return raster_tiles_streamed_reference(
             ids, counts, origins, pack, dir_planes, chunk, tiles_per_view,
-            bbox_words, stage_cap)
+            bbox_words, stage_cap, offsets=offsets)
     return _sweep_launch(raster_tiles_streamed, "raster_streamed_launch", ids,
-                         counts, origins, pack, bbox_words, dir_planes, cols,
-                         Fp, chunk, tiles_per_view, stage_cap, seg)
+                         counts, offsets, origins, pack, bbox_words,
+                         dir_planes, cols, Fp, chunk, tiles_per_view,
+                         stage_cap, seg)
 
 
 raster_tiles_streamed.launches = 0

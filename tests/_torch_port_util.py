@@ -72,28 +72,79 @@ def room_sphere_views(res):
     return jmesh, port_mesh(jmesh), jcam, tcam
 
 
-def mixed_inputs(mesh, cams, tile, chunk):
-    """Raster kernel inputs whose admission lists hold exact, scan-all and
-    block-mode rows (ccap 4), with the vertex normals as attributes:
-    ((ids, counts, origins, pack, bbox_words, dir_planes), tiles_per_view)."""
+def mixed_lists(mesh, cams, tile, chunk):
+    """Raster kernel inputs whose admission lists, in the capped form
+    (``raster.admission_reference``, on any device), hold exact, scan-all
+    and block-mode rows (ccap 4), with the vertex normals as attributes:
+    ((ids, counts, origins, pack, bbox_words, dir_planes), tiles_per_view).
+    The JAX package's kernels take these lists; the port's take them
+    through ``as_exact``."""
     import torch
 
     from omnidata_tpu_torch.mesh import raster as traster
 
-    flat, blk = (traster.prepare_raster(cams, mesh, tile, chunk,
-                                        mesh.vertex_normals, ccap=4,
-                                        hier_min_chunks=h, compact=True)
+    inp = traster.prepare_raster(cams, mesh, tile, chunk, mesh.vertex_normals,
+                                 compact=True)
+    flat, blk = (traster.admission_reference(cams, mesh, tile, chunk, 4, h)
                  for h in (10**9, 1))
     use_blk = blk.counts <= -2
     ids = torch.where(use_blk[:, None], blk.ids, flat.ids).contiguous()
     counts = torch.where(use_blk, blk.counts, flat.counts).contiguous()
-    return ((ids, counts, flat.origins, flat.pack, flat.bbox_words,
-             flat.dir_planes), flat.tiles_per_view)
+    return ((ids, counts, inp.origins, inp.pack, inp.bbox_words,
+             inp.dir_planes), inp.tiles_per_view)
+
+
+def as_exact(args, chunk):
+    """Kernel inputs with capped lists (``mixed_lists``) given as the exact
+    lists the port's kernels read (``raster.capped_as_exact``) -> (args,
+    offsets)."""
+    from omnidata_tpu_torch.mesh import raster as traster
+
+    ids, counts, origins, pack, *rest = args
+    n_chunks = pack.shape[0] if pack.dim() == 3 else pack.shape[1] // chunk
+    ids, counts, offsets = traster.capped_as_exact(ids, counts, n_chunks)
+    return (ids, counts, origins, pack, *rest), offsets
+
+
+def mixed_inputs(mesh, cams, tile, chunk):
+    """``mixed_lists`` as exact lists: ((ids, counts, origins, pack,
+    bbox_words, dir_planes), offsets, tiles_per_view)."""
+    args, T = mixed_lists(mesh, cams, tile, chunk)
+    return (*as_exact(args, chunk), T)
+
+
+def exact_inputs(mesh, cams, tile, chunk, ccap=None):
+    """Raster kernel inputs with the card's exact lists
+    (``raster.exact_lists``, on any device) in a buffer of ``ccap`` slots a
+    row (default: every list fits), with the vertex normals as attributes:
+    ((ids, counts, origins, pack, bbox_words, dir_planes), offsets,
+    tiles_per_view)."""
+    from omnidata_tpu_torch.mesh import raster as traster
+
+    inp = traster.prepare_raster(cams, mesh, tile, chunk, mesh.vertex_normals,
+                                 compact=True)
+    lo, hi = traster.padded_bboxes(cams, mesh, chunk)
+    overlap = traster.tile_overlap(lo, hi, cams.resolution, tile, chunk)
+    ids, counts, offsets = traster.exact_lists(
+        overlap, ccap or max(int(overlap.sum(1).max()), 1))
+    return ((ids, counts, inp.origins, inp.pack, inp.bbox_words,
+             inp.dir_planes), offsets, inp.tiles_per_view)
+
+
+def two_pass_fits(n, ccap):
+    """Which rows of set counts n (rows,) a buffer of rows * ccap slots
+    lists (``raster.exact_lists``): every row of at most ccap chunks, then
+    the longer rows in row order while they fit."""
+    import torch
+
+    short = n <= ccap
+    long_ends = torch.where(short, 0, n).cumsum(0) + torch.where(short, n, 0).sum()
+    return short | (long_ends <= n.numel() * ccap)
 
 
 def pack_bits(overlap):
     """(rows, n_chunks) bool -> (rows, ceil(n_chunks / 32)) int32, chunk c at
-    bit c % 32 of word c // 32: the admission rows kernel's bit matrix
+    bit c % 32 of word c // 32: the admission kernels' bit matrix
     (``raster.admission_rows_reference``)."""
     import torch
 
@@ -131,7 +182,8 @@ def with_block_tail(args, tiles_per_view, chunk):
     """Cut the scene to its first n chunks, the most with n % 8 != 0 (so the
     last 8-chunk block runs past the last chunk) and a last chunk that some
     tile overlaps, and turn the row whose tile overlaps most of its faces
-    into a block-mode row listing that block alone. -> (args, row, n)."""
+    into a block-mode row listing that block alone. Capped lists
+    (``mixed_lists``) in and out. -> (args, row, n)."""
     import math
 
     import torch

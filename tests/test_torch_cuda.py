@@ -1,8 +1,12 @@
 """Card-only tests of the CUDA raster kernels: each bit-exact against its
-plain PyTorch version on the same CUDA tensors, for every list encoding and
-for the pixel-per-thread layouts of tiles 8 to 64; the compacting bodies
-also at a stage cap small enough to force the raw-list fallback and with a
-block-mode row whose tail runs past the last chunk; kernels A, B and C
+plain PyTorch version on the same CUDA tensors, on the card's exact lists
+(at row offsets; scan-all rows past the buffer) and on the CPU's capped
+lists given as exact ones (``raster.capped_as_exact``), and for the
+pixel-per-thread layouts of tiles 8 to 64; the admission kernels against
+the plain version of the card's admission, also past 2^31 rows x chunks;
+the compacting bodies also at a stage cap small enough to force the
+raw-list fallback and with a block-mode row whose tail runs past the last
+chunk; kernels A, B and C
 also with their work items cut to 1 and 3 list positions, so that every
 multi-chunk row is split across CTAs and merged. A refused launch raises.
 Then plain-PyTorch paths of the port on the card against the CPU: the host
@@ -28,7 +32,9 @@ from omnidata_tpu_torch.mesh import from_arrays, room, uv_sphere
 from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
 
-from _torch_port_util import chunk_major, mixed_inputs, with_block_tail
+from _torch_port_util import (as_exact, chunk_major, exact_inputs,
+                              mixed_inputs, mixed_lists, two_pass_fits,
+                              with_block_tail)
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +60,15 @@ def cuda_scene():
     return mesh, cams
 
 
+def _tail_inputs(mesh, cams, tile):
+    """``mixed_lists`` with a block-mode row whose last block runs past the
+    last chunk (the scene cut to end in it), as exact lists -> (args,
+    offsets, tiles_per_view, n_chunks)."""
+    args, T = mixed_lists(mesh, cams, tile, CHUNK)
+    args, _, n_chunks = with_block_tail(args, T, CHUNK)
+    return (*as_exact(args, CHUNK), T, n_chunks)
+
+
 def _assert_bitwise(got, want):
     packed, acc = got
     want_packed, want_acc = want
@@ -64,25 +79,26 @@ def _assert_bitwise(got, want):
 @pytest.mark.parametrize("tile", [8, 16, 32, 64])  # 1, 1, 4, 16 px/thread
 def test_kernel_matches_plain_version_bitwise(cuda_scene, tile):
     mesh, cams = cuda_scene
-    (ids, counts, origins, pack, _, dirs), T = mixed_inputs(mesh, cams, tile, CHUNK)
+    (ids, counts, origins, pack, _, dirs), offsets, T = mixed_inputs(
+        mesh, cams, tile, CHUNK)
     args = (ids, counts, origins, pack, dirs)
     if tile == 16:
-        c = args[1].cpu()
+        c = mixed_lists(mesh, cams, tile, CHUNK)[0][1].cpu()
         assert (c >= 0).any() and (c == -1).any() and (c <= -2).any(), c
+    kw = dict(chunk=CHUNK, tiles_per_view=T, offsets=offsets)
     before = tk.raster_tiles_chunklist.launches
-    got = tk.raster_tiles_chunklist(*args, chunk=CHUNK, tiles_per_view=T)
+    got = tk.raster_tiles_chunklist(*args, **kw)
     torch.cuda.synchronize()
     assert tk.raster_tiles_chunklist.launches == before + 1
-    _assert_bitwise(got, tk.raster_tiles_chunklist_reference(
-        *args, chunk=CHUNK, tiles_per_view=T))
+    _assert_bitwise(got, tk.raster_tiles_chunklist_reference(*args, **kw))
     assert (got[0] < tk.BIG_PACKED).float().mean() > 0.9
 
 
-def _staged(body: str, plain: bool, args, T):
+def _staged(body: str, plain: bool, args, offsets, T):
     """Kernel B or C (plain body, compacting body, or compacting at stage
     cap 64) on mixed-list inputs, or its plain version."""
     ids, counts, origins, pack, words, dirs = args
-    kw = dict(chunk=CHUNK, tiles_per_view=T)
+    kw = dict(chunk=CHUNK, tiles_per_view=T, offsets=offsets)
     if body.startswith("compact"):
         fn = tk.raster_tiles_compact_reference if plain else tk.raster_tiles_compact
         cap = 64 if body.endswith("64") else tk.STAGE_CAP
@@ -102,21 +118,20 @@ STAGED_BODIES = ["compact", "compact_cap64", "streamed", "streamed_compact",
 @pytest.mark.parametrize("tile", [8, 16, 32, 64])
 def test_staged_kernels_match_plain_versions_bitwise(cuda_scene, tile, body):
     """Kernels B and C with a block-mode row whose last block runs past the
-    last chunk (its clamped duplicates are staged once)."""
+    last chunk (given as exact lists, its chunks below the last one)."""
     mesh, cams = cuda_scene
-    args, T = mixed_inputs(mesh, cams, tile, CHUNK)
-    args, _, n_chunks = with_block_tail(args, T, CHUNK)
+    args, offsets, T, n_chunks = _tail_inputs(mesh, cams, tile)
     wrapper = tk.raster_tiles_compact if body.startswith("compact") \
         else tk.raster_tiles_streamed
     before = wrapper.launches
-    got = _staged(body, False, args, T)
+    got = _staged(body, False, args, offsets, T)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    _assert_bitwise(got, _staged(body, True, args, T))
+    _assert_bitwise(got, _staged(body, True, args, offsets, T))
     assert (got[0] < tk.BIG_PACKED).float().mean() > 0.4  # cut scene
     if body.endswith("64") and tile >= 16:  # some rows take the fallback
         staged, _ = tk.stage_faces(args[0], args[1], args[4], n_chunks, CHUNK, T,
-                                   tile, 64)
+                                   tile, 64, offsets=offsets)
         assert bool((staged > 64).any()) and bool((staged <= 64).any())
 
 
@@ -135,10 +150,9 @@ def test_split_items_match_plain_versions_bitwise(cuda_scene, tile, body, seg):
     pass's staged faces) equal split_schedule's (and stage_faces') bit for
     bit."""
     mesh, cams = cuda_scene
-    args, T = mixed_inputs(mesh, cams, tile, CHUNK)
-    args, _, n_chunks = with_block_tail(args, T, CHUNK)
+    args, offsets, T, n_chunks = _tail_inputs(mesh, cams, tile)
     ids, counts, origins, pack, words, dirs = args
-    kw = dict(chunk=CHUNK, tiles_per_view=T)
+    kw = dict(chunk=CHUNK, tiles_per_view=T, offsets=offsets)
     if body == "chunklist":
         wrapper = tk.raster_tiles_chunklist
         got = wrapper(ids, counts, origins, pack, dirs, seg=seg, **kw)
@@ -154,7 +168,7 @@ def test_split_items_match_plain_versions_bitwise(cuda_scene, tile, body, seg):
                                                  words, dirs, stage_cap=cap,
                                                  **kw)
         staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, tile,
-                                cap)[0]
+                                cap, offsets=offsets)[0]
     else:
         wrapper = tk.raster_tiles_streamed
         cap = 64 if body.endswith("64") else tk.STREAMED_STAGE_CAP
@@ -166,7 +180,8 @@ def test_split_items_match_plain_versions_bitwise(cuda_scene, tile, body, seg):
                                                   dirs, bbox_words=w,
                                                   stage_cap=cap, **kw)
         staged = None if w is None else tk.stage_faces(
-            ids, counts, words, n_chunks, CHUNK, T, tile, cap)[0]
+            ids, counts, words, n_chunks, CHUNK, T, tile, cap,
+            offsets=offsets)[0]
     torch.cuda.synchronize()
     _assert_bitwise(got, want)
     sched = wrapper.last_schedule
@@ -186,13 +201,12 @@ def test_schedule_of_many_rows_matches_split_schedule(cuda_scene, body):
     CTA walks 5 tiles of 1,024 rows; its item list equals split_schedule's
     and the result the plain version's, bit for bit."""
     mesh, cams = cuda_scene
-    args, T = mixed_inputs(mesh, cams, 8, CHUNK)
-    args, _, n_chunks = with_block_tail(args, T, CHUNK)
+    args, offsets, T, n_chunks = _tail_inputs(mesh, cams, 8)
     ids, counts, origins, pack, words, dirs = args
-    ids, counts, origins, words = (x.repeat((40,) + (1,) * (x.dim() - 1))
-                                   for x in (ids, counts, origins, words))
+    counts, offsets, origins, words = (x.repeat((40,) + (1,) * (x.dim() - 1))
+                                       for x in (counts, offsets, origins, words))
     dirs = tuple(d.repeat(40, 1) for d in dirs)
-    kw = dict(chunk=CHUNK, tiles_per_view=T)
+    kw = dict(chunk=CHUNK, tiles_per_view=T, offsets=offsets)
     seg = 8
     staged = None
     if body == "chunklist":
@@ -207,7 +221,8 @@ def test_schedule_of_many_rows_matches_split_schedule(cuda_scene, body):
         want = tk.raster_tiles_compact_reference(ids, counts, origins, pack,
                                                  words, dirs, stage_cap=64,
                                                  **kw)
-        staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, 8, 64)[0]
+        staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, 8, 64,
+                                offsets=offsets)[0]
     else:
         wrapper = tk.raster_tiles_streamed
         cm = chunk_major(pack, CHUNK)
@@ -216,7 +231,8 @@ def test_schedule_of_many_rows_matches_split_schedule(cuda_scene, body):
         want = tk.raster_tiles_streamed_reference(ids, counts, origins, cm, dirs,
                                                   bbox_words=words, stage_cap=64,
                                                   **kw)
-        staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, 8, 64)[0]
+        staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, 8, 64,
+                                offsets=offsets)[0]
     torch.cuda.synchronize()
     assert counts.shape[0] == 5120
     _assert_bitwise(got, want)
@@ -236,12 +252,14 @@ def test_seg_below_one_is_refused(cuda_scene):
     """A split below one list position a segment is refused before any
     launch."""
     mesh, cams = cuda_scene
-    (ids, counts, origins, pack, _, dirs), T = mixed_inputs(mesh, cams, 32, CHUNK)
+    (ids, counts, origins, pack, _, dirs), offsets, T = mixed_inputs(
+        mesh, cams, 32, CHUNK)
     before = tk.raster_tiles_chunklist.launches
     for seg in (0, -1):
         with pytest.raises(ValueError, match="seg"):
             tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs,
-                                      chunk=CHUNK, tiles_per_view=T, seg=seg)
+                                      chunk=CHUNK, tiles_per_view=T, seg=seg,
+                                      offsets=offsets)
     assert tk.raster_tiles_chunklist.launches == before
 
 
@@ -249,11 +267,12 @@ def test_refused_launch_raises(cuda_scene):
     """3 pixels per thread is no kernel instantiation: the C side refuses
     the launch and the wrapper raises."""
     mesh, cams = cuda_scene
-    (ids, counts, origins, pack, _, dirs), T = mixed_inputs(mesh, cams, 32, CHUNK)
+    (ids, counts, origins, pack, _, dirs), offsets, T = mixed_inputs(
+        mesh, cams, 32, CHUNK)
     dirs = tuple(d[:, :768].contiguous() for d in dirs)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs,
-                                  chunk=CHUNK, tiles_per_view=T)
+                                  chunk=CHUNK, tiles_per_view=T, offsets=offsets)
 
 
 @pytest.mark.parametrize("body", STAGED_BODIES)
@@ -261,24 +280,25 @@ def test_staged_refused_launch_raises(cuda_scene, body):
     """Tile 4 gives 16 threads, not whole warps: the C side refuses every
     body (pass 1 ballots with whole warps) and the wrapper raises."""
     mesh, cams = cuda_scene
-    args, T = mixed_inputs(mesh, cams, 4, CHUNK)
+    args, offsets, T = mixed_inputs(mesh, cams, 4, CHUNK)
     wrapper = tk.raster_tiles_compact if body.startswith("compact") \
         else tk.raster_tiles_streamed
     before = wrapper.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
-        _staged(body, False, args, T)
+        _staged(body, False, args, offsets, T)
     assert wrapper.launches == before
 
 
 def test_stage_cap_past_shared_memory_raises(cuda_scene):
     mesh, cams = cuda_scene
-    (ids, counts, origins, pack, words, dirs), T = mixed_inputs(mesh, cams, 32, CHUNK)
+    (ids, counts, origins, pack, words, dirs), offsets, T = mixed_inputs(
+        mesh, cams, 32, CHUNK)
+    kw = dict(chunk=CHUNK, tiles_per_view=T, offsets=offsets)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs,
-                                chunk=CHUNK, tiles_per_view=T, stage_cap=1 << 17)
+                                stage_cap=1 << 17, **kw)
     # the refusal leaves no error behind for the next launch
-    tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs,
-                            chunk=CHUNK, tiles_per_view=T)
+    tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs, **kw)
     torch.cuda.synchronize()
 
 
@@ -338,17 +358,22 @@ def _assert_admission_equal(got, want):
 
 
 ADMISSION_SETTINGS = [(hier_min, ccap, eb) for hier_min in (1, 10**9)
-                      for ccap in (8, 48, 192) for eb in (1, 32)]
+                      for ccap in (1, 8, 48, 192) for eb in (1, 32)]
 
 
 @pytest.mark.parametrize("K", [1, 3, 32])
 @pytest.mark.parametrize("tile", [8, 16, 32, 64])
 def test_admission_kernels_match_plain_path_bitwise(admission_scene, tile, K):
-    """The two admission kernels against padded_bboxes, tile_admission and
-    bbox_words on the same CUDA tensors at 128², hierarchical and flat, at
-    ccap 8, 48 and 192 and expand_bcap 1 and 32: every slot of ids, the
-    counts and the bbox words equal; faces straddle the near plane, lie
-    behind it and off screen; rows end exact, in block mode and scan-all."""
+    """The admission kernels against the plain version of the card's
+    admission (padded_bboxes, tile_overlap, exact_lists, bbox_words) on the
+    same CUDA tensors at 128², at ccap 1, 8, 48 and 192 (buffers of 8, 8,
+    48 and 192 slots a row: ``list_slots``, at least the bit matrix's 8
+    words; hier_min_chunks and expand_bcap, which a card does not use,
+    varied too): every slot of the flat ids, the counts, the offsets and
+    the bbox words equal; faces straddle the near plane, lie behind it and
+    off screen; rows end exact and, past the buffer (32 views in tiles of
+    64), scan-all, only rows longer than the slots a row; none in block
+    mode."""
     mesh = admission_scene
     cams = _admission_views(K, 128, "cuda")
     assert mesh.faces.shape[0] % 128 and all(_face_kinds(mesh, cams))
@@ -359,13 +384,21 @@ def test_admission_kernels_match_plain_path_bitwise(admission_scene, tile, K):
                                 compact=True)
         torch.cuda.synchronize()
         assert traster.admission.launches == before + 1
-        want = traster.admission_reference(cams, mesh, tile, 128, ccap, hier_min,
-                                           eb, compact=True)
+        want = traster.admission_exact_reference(cams, mesh, tile, 128, ccap,
+                                                 compact=True)
         _assert_admission_equal(got, want)
-        c = got[1]
+        c = got.counts
         kinds |= {k for k, m in (("exact", c >= 0), ("scan_all", c == -1),
                                  ("block", c <= -2)) if bool(m.any())}
-    assert kinds == {"exact", "scan_all", "block"}
+        n_chunks = -(-mesh.faces.shape[0] // 128)
+        slots = traster.list_slots(ccap, n_chunks)
+        n = traster.admission_exact_reference(cams, mesh, tile, 128,
+                                              n_chunks).counts  # all fit
+        assert bool((n[c == -1] > slots).all())  # only longer rows fall back
+        assert bool((c[n <= slots] >= 0).all())
+    assert "exact" in kinds and kinds <= {"exact", "scan_all"}
+    if (tile, K) == (64, 32):
+        assert "scan_all" in kinds
 
 
 @pytest.mark.parametrize("res, tile, K, chunk", [
@@ -380,8 +413,8 @@ def test_admission_kernels_match_plain_path_at_other_shapes(admission_scene, res
     cams = _admission_views(K, res, "cuda", seed=res + K)
     for hier_min, compact in ((1, True), (10**9, False)):
         got = traster.admission(cams, mesh, tile, chunk, 48, hier_min, 32, compact)
-        want = traster.admission_reference(cams, mesh, tile, chunk, 48, hier_min,
-                                           32, compact)
+        want = traster.admission_exact_reference(cams, mesh, tile, chunk, 48,
+                                                 compact)
         _assert_admission_equal(got, want)
 
 
@@ -397,10 +430,49 @@ def test_admission_refuses_what_the_kernels_do_not_take(admission_scene):
     assert traster.admission.launches == before
     buf = torch.zeros(64, dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA error"):
-        tk._call("raster_admission", "admission_launch", [buf.data_ptr()] * 8,
-                 [100, 100, 1, 128, 32, 128, 2, 8, 0, 1])  # 100 faces: 1 chunk
+        tk._call("raster_admission", "admission_launch", [buf.data_ptr()] * 9,
+                 [100, 100, 1, 128, 32, 128, 2, 8])  # 100 faces: 1 chunk
+    with pytest.raises(RuntimeError, match="CUDA error"):  # ids past an int
+        tk._call("raster_admission", "admission_launch", [buf.data_ptr()] * 9,
+                 [100, 100, 2, 2048, 8, 128, 1, 2**15])
     traster.admission(cams, mesh, 32, 128, 48)  # no error left behind
     torch.cuda.synchronize()
+
+
+def test_admission_past_two_to_the_31_rows_times_chunks(admission_scene):
+    """17 views at 1024² in tiles of 4 and chunks of 16: 1,114,112 rows x
+    2,031 chunks, past 2^31, which the offsets' 64-bit scan takes. Against
+    the plain version view by view: every row's count, its offset in the
+    two passes (the rows of at most the buffer's slots a row, then the
+    longer ones) and every listed row's chunks."""
+    mesh = admission_scene
+    K, res, tile, chunk, ccap = 17, 1024, 4, 16, 8
+    cams = _admission_views(K, res, "cuda", seed=7)
+    n_chunks = -(-mesh.faces.shape[0] // chunk)
+    slots = traster.list_slots(ccap, n_chunks)
+    T = (res // tile) ** 2
+    assert K * T * n_chunks > 2**31
+    got = traster.admission(cams, mesh, tile, chunk, ccap)
+    torch.cuda.synchronize()
+    refs = [traster.admission_exact_reference(
+        Camera(cams.location[k:k + 1], cams.R[k:k + 1], cams.fov[k:k + 1], res),
+        mesh, tile, chunk, n_chunks) for k in range(K)]
+    n = torch.cat([r.counts for r in refs]).long()  # every list fits there
+    fits = two_pass_fits(n, slots)
+    assert torch.equal(got.counts.long(), torch.where(fits, n, -1))
+    short = n <= slots
+    ns, nl = torch.where(short, n, 0), torch.where(short, 0, n)
+    starts = torch.where(short, ns.cumsum(0) - ns, ns.sum() + nl.cumsum(0) - nl)
+    assert torch.equal(got.offsets.long(), starts.clamp(max=K * T * slots))
+    for k in (0, K - 1):
+        rows = torch.arange(k * T, (k + 1) * T, device="cuda")[fits[k * T:(k + 1) * T]]
+        lens = n[rows]
+        first = torch.repeat_interleave(lens.cumsum(0) - lens, lens)
+        j = torch.arange(int(lens.sum()), device="cuda") - first
+        at = torch.repeat_interleave(got.offsets[rows].long(), lens) + j
+        ref_at = torch.repeat_interleave(refs[k].offsets[rows - k * T].long(),
+                                         lens) + j
+        assert torch.equal(got.ids[at], refs[k].ids[ref_at])
 
 
 def test_prepare_raster_on_the_card_admits_through_the_kernels(admission_scene):
@@ -410,8 +482,95 @@ def test_prepare_raster_on_the_card_admits_through_the_kernels(admission_scene):
     inp = traster.prepare_raster(cams, mesh, 32, 128, ccap=8, hier_min_chunks=1,
                                  compact=True, streamed=True)
     assert traster.admission.launches == before + 1
-    want = traster.admission_reference(cams, mesh, 32, 128, 8, 1, None, True)
-    _assert_admission_equal((inp.ids, inp.counts, inp.bbox_words), want)
+    want = traster.admission_exact_reference(cams, mesh, 32, 128, 8, True)
+    _assert_admission_equal((inp.ids, inp.counts, inp.bbox_words, inp.offsets),
+                            want)
+
+
+def test_prepare_raster_on_the_card_has_no_stand_in_rows(admission_scene):
+    """Tile 8, ccap 2, hierarchical with expand_bcap 1: the capped encoding
+    (admission_reference, on the same CUDA tensors) puts rows in block mode
+    and scan-all; on the card prepare_raster lists every row exactly, its
+    counters record no stand-in row, and the list positions are the sum of
+    the exact counts."""
+    from omnidata_tpu_torch.utils import profiler
+
+    mesh = admission_scene
+    cams = _admission_views(3, 128, "cuda")
+    capped = traster.admission_reference(cams, mesh, 8, 128, 2, 1, 1).counts
+    assert bool((capped == -1).any()) and bool((capped <= -2).any())
+    profiler.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        inp = traster.prepare_raster(cams, mesh, 8, 128, ccap=2,
+                                     hier_min_chunks=1, expand_bcap=1,
+                                     streamed=True)
+    got = {k: v["total"] for k, v in profiler.summary()["counters"].items()}
+    profiler.reset()
+    assert bool((inp.counts >= 0).all())
+    assert int(got["raster.rows_block"]) == int(got["raster.rows_scan_all"]) == 0
+    assert int(got["raster.list_positions"]) == int(inp.counts.sum())
+    assert int(got["raster.rows"]) == int(got["raster.rows_fused"]) == capped.numel()
+
+
+EXACT_BODIES = ["chunklist", "streamed", "streamed_compact",
+                "streamed_compact_cap64", "compact", "compact_cap64"]
+
+
+@pytest.mark.parametrize("seg", [1, tk.SPLIT_SEG])
+@pytest.mark.parametrize("body", EXACT_BODIES)
+@pytest.mark.parametrize("tile", [8, 32])
+def test_kernels_on_exact_lists_match_plain_versions_bitwise(cuda_scene, tile,
+                                                              body, seg):
+    """Kernels A, B and C on the card's exact lists (flat, at row offsets,
+    in a buffer of two slots a row, past which longer rows scan every
+    chunk) against their plain versions on the same lists, bit for bit,
+    and their item lists against split_schedule's."""
+    mesh, cams = cuda_scene
+    args, offsets, T = exact_inputs(mesh, cams, tile, CHUNK, 2)
+    ids, counts, origins, pack, words, dirs = args
+    assert ids.dim() == 1 and bool((counts == -1).any())
+    assert bool((counts > 2).any())
+    n_chunks = pack.shape[1] // CHUNK
+    kw = dict(chunk=CHUNK, tiles_per_view=T, offsets=offsets)
+    staged = None
+    if body == "chunklist":
+        wrapper = tk.raster_tiles_chunklist
+        got = wrapper(ids, counts, origins, pack, dirs, seg=seg, **kw)
+        want = tk.raster_tiles_chunklist_reference(ids, counts, origins, pack,
+                                                   dirs, **kw)
+        cap = tk.STREAMED_STAGE_CAP
+    elif body.startswith("compact"):
+        wrapper = tk.raster_tiles_compact
+        cap = 64 if body.endswith("64") else tk.STAGE_CAP
+        got = wrapper(ids, counts, origins, pack, words, dirs, stage_cap=cap,
+                      seg=seg, **kw)
+        want = tk.raster_tiles_compact_reference(ids, counts, origins, pack,
+                                                 words, dirs, stage_cap=cap,
+                                                 **kw)
+        staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T, tile,
+                                cap, offsets=offsets)[0]
+    else:
+        wrapper = tk.raster_tiles_streamed
+        cap = 64 if body.endswith("64") else tk.STREAMED_STAGE_CAP
+        w = None if body == "streamed" else words
+        cm = chunk_major(pack, CHUNK)
+        got = wrapper(ids, counts, origins, cm, dirs, bbox_words=w,
+                      stage_cap=cap, seg=seg, **kw)
+        want = tk.raster_tiles_streamed_reference(ids, counts, origins, cm,
+                                                  dirs, bbox_words=w,
+                                                  stage_cap=cap, **kw)
+        if w is not None:
+            staged = tk.stage_faces(ids, counts, words, n_chunks, CHUNK, T,
+                                    tile, cap, offsets=offsets)[0]
+    torch.cuda.synchronize()
+    _assert_bitwise(got, want)
+    ref = tk.split_schedule(counts, staged, n_chunks, seg, CHUNK, cap)
+    for name in ("order", "ends", "n_items"):
+        assert torch.equal(getattr(wrapper.last_schedule, name),
+                           getattr(ref, name)), name
+    if staged is not None:
+        assert torch.equal(wrapper.last_schedule.staged.long(), staged)
+    assert (got[0] < tk.BIG_PACKED).float().mean() > 0.9
 
 
 @pytest.mark.parametrize("kw", [{}, dict(compact=True), dict(streamed=True),

@@ -21,9 +21,10 @@ from omnidata_tpu.mesh import raster as jraster
 from omnidata_tpu.mesh.pallas_raster import raster_tiles_pallas_chunklist
 from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
+from omnidata_tpu_torch.utils import profiler
 
-from _torch_port_util import (clustered_overlap, mixed_inputs, pack_bits,
-                              room_sphere_views)
+from _torch_port_util import (as_exact, clustered_overlap, mixed_lists,
+                              pack_bits, room_sphere_views, two_pass_fits)
 
 torch.set_num_threads(1)
 
@@ -87,21 +88,81 @@ ADMISSION_GRID = [(hier, ccap, eb) for hier in (False, True)
 
 @pytest.mark.parametrize("hier, ccap, expand_bcap", ADMISSION_GRID)
 def test_admission_rows_reference_matches_admission_lists(hier, ccap, expand_bcap):
-    """The rows kernel's algorithm in plain PyTorch, on the overlap matrix
-    packed as bits (ranks by prefix sums of chunks and 8-chunk blocks),
-    gives admission_lists' ids and counts, every don't-care slot included;
-    n_chunks 4,001 (not a multiple of 8 or 32) with exact, scan-all and
-    (hierarchical) block-mode rows."""
+    """The rows kernels' algorithm in plain PyTorch, on the overlap matrix
+    packed as bits, gives every row that admission_lists lists exactly
+    (count >= 0) the same ascending list at its offset, and every row, the
+    block-mode and scan-all ones too, its exact list; n_chunks 4,001 (not a
+    multiple of 8 or 32) in a buffer of rows * ccap slots, past which only
+    rows longer than ccap scan every chunk."""
     overlap = clustered_overlap(np.random.RandomState(11), 140, 4001)
     want_ids, want_counts = traster.admission_lists(
         overlap, overlap.sum(-1), ccap, hier, expand_bcap=expand_bcap)
-    bits = pack_bits(overlap)
-    ids, counts = traster.admission_rows_reference(bits, 4001, ccap, hier,
-                                                   expand_bcap)
-    assert ids.dtype == torch.int32 and counts.dtype == torch.int32
-    assert torch.equal(counts, want_counts) and torch.equal(ids, want_ids)
-    c = counts.numpy()
+    ids, counts, offsets = traster.admission_rows_reference(
+        pack_bits(overlap), 4001, ccap)
+    assert ids.dtype == counts.dtype == offsets.dtype == torch.int32
+    assert ids.shape == (140 * ccap,)
+    n = overlap.sum(1)
+    fits = two_pass_fits(n, ccap)
+    assert torch.equal(counts, torch.where(fits, n, -1).int())
+    for r in range(140):
+        got = ids[offsets[r]:offsets[r] + counts[r]]
+        if counts[r] >= 0:
+            assert torch.equal(got, torch.nonzero(overlap[r])[:, 0].int()), r
+        if want_counts[r] >= 0 and counts[r] >= 0:
+            assert torch.equal(got, want_ids[r, :want_counts[r]]), r
+    c = want_counts.numpy()
     assert (c >= 0).any() and (c == -1).any() and ((c <= -2).any() == hier)
+    overflowing = (want_counts < 0) & (counts >= 0)  # capped: stand-ins
+    assert bool(overflowing.any())
+
+
+def test_exact_lists_list_every_set_chunk_in_order():
+    """The card's encoding, plainly, in a buffer of rows * ccap slots: the
+    rows of at most ccap chunks first, at the exclusive prefix sums of
+    their counts, then the longer rows; each row's list exactly its set
+    chunks ascending; the slots past the last list zero; the longer rows
+    that do not fit (and every later longer row) scan all chunks and list
+    nothing."""
+    overlap = clustered_overlap(np.random.RandomState(5), 70, 1000)
+    n = overlap.sum(1)
+    for ccap in (int(n.max()), 16, 8):
+        ids, counts, offsets = traster.exact_lists(overlap, ccap)
+        short = n <= ccap
+        fits = two_pass_fits(n, ccap)
+        assert torch.equal(counts.long(), torch.where(fits, n, -1))
+        assert bool(fits.all()) == (ccap == int(n.max()))
+        ns, nl = torch.where(short, n, 0), torch.where(short, 0, n)
+        starts = torch.where(short, ns.cumsum(0) - ns,
+                             ns.sum() + nl.cumsum(0) - nl)
+        assert torch.equal(offsets.long(), torch.clamp(starts, max=70 * ccap))
+        used = int(torch.where(fits, n, 0).sum())
+        assert not ids[used:].any()
+        trip, chunk_of = tk.chunk_schedule(ids, counts, 1000, offsets)
+        for r in range(70):  # rows decoded at their offsets
+            seq = [int(chunk_of(i)[r]) for i in range(int(trip[r]))]
+            want = (torch.nonzero(overlap[r])[:, 0].tolist() if fits[r]
+                    else list(range(1000)))
+            assert seq == want, r
+
+
+def test_exact_lists_keep_short_rows_past_a_full_buffer():
+    """A buffer that the longer rows overflow: every row of at most ccap
+    chunks, those after the first refused row too, keeps its exact list,
+    and only longer rows scan all chunks."""
+    overlap = clustered_overlap(np.random.RandomState(5), 70, 1000)
+    n = overlap.sum(1)
+    ids, counts, offsets = traster.exact_lists(overlap, 8)
+    refused = torch.nonzero(counts == -1)[:, 0]
+    assert refused.numel() > 0 and bool((n[refused] > 8).all())
+    later_short = torch.nonzero((n <= 8) & (torch.arange(70) > refused[0]))[:, 0]
+    assert later_short.numel() > 0 and bool((n[later_short] > 0).any())
+    for r in later_short.tolist():
+        got = ids[offsets[r]:offsets[r] + counts[r]]
+        assert torch.equal(got, torch.nonzero(overlap[r])[:, 0].int()), r
+    # the rows kernels' plain version on the same overlap agrees
+    again = traster.admission_rows_reference(pack_bits(overlap), 1000, 8)
+    for g, w in zip(again, (ids, counts, offsets)):
+        assert torch.equal(g, w)
 
 
 def test_admission_refuses_what_no_kernel_takes(scene):
@@ -116,8 +177,8 @@ def test_admission_refuses_what_no_kernel_takes(scene):
     before = traster.admission.launches
     with pytest.raises(ValueError, match="no kernel for meta"):
         traster.admission(mcam, mmesh, 16, 64, 8)
-    with pytest.raises(ValueError, match="expand_bcap"):
-        traster.admission(mcam, mmesh, 16, 64, 8, 1, expand_bcap=0)
+    with pytest.raises(ValueError, match="expand_bcap"):  # the CPU's option
+        traster.admission(tcam, tmesh, 16, 64, 8, 1, expand_bcap=0)
     with pytest.raises(ValueError, match="raise the tile size"):
         traster.admission(dataclasses.replace(mcam, resolution=4096), mmesh, 8, 64,
                           8, compact=True)
@@ -153,9 +214,10 @@ def _jax_admission(lo, hi, res, tile, chunk, ccap, hier, expand_bcap):
 def test_prepare_raster_admission_matches_plain_and_jax(
         scene, tile, chunk, ccap, hier_min, expand_bcap, compact):
     """prepare_raster on CPU tensors admits through the plain functions
-    (padded_bboxes, tile_admission, bbox_words) exactly, and its lists and
-    words equal the JAX package's admission and word formula on the same
-    bboxes; chunk 48 leaves padding past the mesh's faces."""
+    (padded_bboxes, tile_admission, bbox_words) exactly, given as exact
+    lists (capped_as_exact), and the capped lists and the words equal the
+    JAX package's admission and word formula on the same bboxes; chunk 48
+    leaves padding past the mesh's faces."""
     jmesh, tmesh, _, tcam = scene
     inp = traster.prepare_raster(tcam, tmesh, tile, chunk, ccap=ccap,
                                  hier_min_chunks=hier_min,
@@ -165,7 +227,9 @@ def test_prepare_raster_admission_matches_plain_and_jax(
     lo, hi = traster.padded_bboxes(tcam, tmesh, chunk)
     ids, counts = traster.tile_admission(lo, hi, RES, tile, chunk, ccap,
                                          hier_min, expand_bcap)
-    assert torch.equal(inp.ids, ids) and torch.equal(inp.counts, counts)
+    for g, w in zip((inp.ids, inp.counts, inp.offsets),
+                    traster.capped_as_exact(ids, counts, n_chunks)):
+        assert torch.equal(g, w)
     assert (inp.bbox_words is None) != compact
     if compact:
         assert torch.equal(inp.bbox_words, traster.bbox_words(lo, hi, RES, tile))
@@ -191,17 +255,22 @@ def test_admission_on_cpu_is_the_plain_version(scene):
     before = traster.admission.launches
     got = traster.admission(tcam, tmesh, 16, 64, 8, 1, 1, compact=True)
     want = traster.admission_reference(tcam, tmesh, 16, 64, 8, 1, 1, compact=True)
-    for g, w in zip(got, want):
+    assert want.offsets is None  # the capped form
+    n_chunks = -(-tmesh.faces.shape[0] // 64)
+    ids, counts, offsets = traster.capped_as_exact(want.ids, want.counts, n_chunks)
+    for g, w in zip(got, (ids, counts, want.bbox_words, offsets)):
         assert torch.equal(g, w)
     assert traster.admission.launches == before
 
 
 def _kernel_inputs(tmesh, tcam, tile):
     """Mixed admission lists (exact, scan-all and block-mode rows, ccap 4)
-    plus rays and the scene pack with the vertex normals as attributes."""
-    (ids, counts, origins, pack, _, dirs), T = mixed_inputs(tmesh, tcam, tile,
-                                                           CHUNK)
-    return ids, counts, origins, pack, dirs, T
+    plus rays and the scene pack with the vertex normals as attributes:
+    the capped lists (for the JAX package), then the same as exact lists
+    with their offsets (for the port)."""
+    args, T = mixed_lists(tmesh, tcam, tile, CHUNK)
+    (ids, counts, origins, pack, _, dirs), offsets = as_exact(args, CHUNK)
+    return args[0], args[1], ids, counts, offsets, origins, pack, dirs, T
 
 
 def test_kernel_reference_matches_pallas_interpret(scene):
@@ -209,17 +278,19 @@ def test_kernel_reference_matches_pallas_interpret(scene):
     chunk-list kernel (interpret mode) on identical lists and inputs."""
     _, tmesh, _, tcam = scene
     tile = 16
-    ids, counts, origins, pack, dirs, T = _kernel_inputs(tmesh, tcam, tile)
-    c = counts.numpy()
+    capped, c_counts, ids, counts, offsets, origins, pack, dirs, T = (
+        _kernel_inputs(tmesh, tcam, tile))
+    c = c_counts.numpy()
     assert (c >= 0).any() and (c == -1).any() and (c <= -2).any(), c
 
     packed, acc = tk.raster_tiles_chunklist_reference(
-        ids, counts, origins, pack, dirs, chunk=CHUNK, tiles_per_view=T)
+        ids, counts, origins, pack, dirs, chunk=CHUNK, tiles_per_view=T,
+        offsets=offsets)
     assert packed.dtype == torch.int32 and acc.dtype == torch.float32
-    assert acc.shape == (ids.shape[0], pack.shape[0], tile * tile)
+    assert acc.shape == (counts.shape[0], pack.shape[0], tile * tile)
     tv, tt, tu, tvv, tf, ta = tk.decode_winners(packed, acc, origins, dirs, T)
 
-    pairs = ids.numpy().reshape(ids.shape[0], -1, 2)
+    pairs = capped.numpy().reshape(capped.shape[0], -1, 2)
     clist = (pairs[..., 0] | (pairs[..., 1] << 16)).reshape(-1)
     jv, jt, ju, jvv, jf, ja = raster_tiles_pallas_chunklist(
         jnp.asarray(clist), jnp.asarray(c), jnp.asarray(origins.numpy()),
@@ -236,18 +307,21 @@ def test_kernel_reference_matches_pallas_interpret(scene):
 
 
 def test_chunk_schedule_decodes_every_encoding():
+    """Each capped encoding given as exact lists (capped_as_exact), then
+    decoded: a listed row keeps its chunks, a block-mode row lists its
+    blocks' chunks below n_chunks (the tail of the last block dropped), a
+    scan-all row sweeps every chunk."""
     ids = torch.tensor([[3, 5, 9, 0], [1, 2, 0, 0], [0, 0, 0, 0]],
                        dtype=torch.int32)
     counts = torch.tensor([3, -4, -1], dtype=torch.int32)  # exact, 2 blocks, all
-    trip, chunk_of, fresh_of = tk.chunk_schedule(ids, counts, n_chunks=20)
-    assert trip.tolist() == [3, 16, 20]
+    flat, counts, offsets = traster.capped_as_exact(ids, counts, 20)
+    assert counts.tolist() == [3, 12, -1] and offsets.tolist() == [0, 3, 15]
+    trip, chunk_of = tk.chunk_schedule(flat, counts, 20, offsets)
+    assert trip.tolist() == [3, 12, 20]
     seq = torch.stack([chunk_of(i) for i in range(20)], 1)
     assert seq[0, :3].tolist() == [3, 5, 9]
-    assert seq[1, :16].tolist() == list(range(8, 24))[:12] + [19] * 4  # clamped
+    assert seq[1, :12].tolist() == list(range(8, 20))
     assert seq[2].tolist() == list(range(20))
-    fresh = torch.stack([fresh_of(i) for i in range(20)], 1)
-    assert fresh[1, :16].tolist() == [True] * 12 + [False] * 4  # tail dups
-    assert fresh[0, :3].all() and fresh[2].all()
 
 
 @pytest.mark.parametrize("hier_min_chunks, ccap", [(None, None), (1, 4)])
@@ -275,19 +349,97 @@ def test_render_views_fused_matches_jax(scene, hier_min_chunks, ccap):
 
 def test_wrapper_takes_plain_version_only_for_cpu_tensors(scene):
     _, tmesh, _, tcam = scene
-    ids, counts, origins, pack, dirs, T = _kernel_inputs(tmesh, tcam, 32)
+    _, _, ids, counts, offsets, origins, pack, dirs, T = _kernel_inputs(
+        tmesh, tcam, 32)
+    kw = dict(chunk=CHUNK, tiles_per_view=T, offsets=offsets)
     before = tk.raster_tiles_chunklist.launches
-    got = tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs,
-                                    chunk=CHUNK, tiles_per_view=T)
+    got = tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs, **kw)
     want = tk.raster_tiles_chunklist_reference(ids, counts, origins, pack, dirs,
-                                               chunk=CHUNK, tiles_per_view=T)
+                                               **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert tk.raster_tiles_chunklist.launches == before  # no kernel launched
     meta = [t.to("meta") for t in (ids, counts, origins, pack)]
     with pytest.raises(ValueError, match="no kernel"):
         tk.raster_tiles_chunklist(*meta, tuple(d.to("meta") for d in dirs),
-                                  chunk=CHUNK, tiles_per_view=T)
+                                  chunk=CHUNK, tiles_per_view=T,
+                                  offsets=offsets.to("meta"))
     with pytest.raises(ValueError, match="int32"):
-        tk.raster_tiles_chunklist(ids.long(), counts, origins, pack, dirs,
-                                  chunk=CHUNK, tiles_per_view=T)
+        tk.raster_tiles_chunklist(ids.long(), counts, origins, pack, dirs, **kw)
+
+
+def _exact_admission(ccap_of):
+    """``raster.admission`` as a card admits (``exact_lists``, and no
+    block-mode rows to count), plainly, in a buffer of ccap_of(the ccap
+    asked for, the longest list) slots a row."""
+    def admit(cameras, mesh, tile, chunk, ccap, hier_min_chunks=None,
+              expand_bcap=None, compact=False):
+        if profiler.recording():
+            profiler.count("raster.rows_block", 0)
+        lo, hi = traster.padded_bboxes(cameras, mesh, chunk)
+        overlap = traster.tile_overlap(lo, hi, cameras.resolution, tile, chunk)
+        ids, counts, offsets = traster.exact_lists(
+            overlap, ccap_of(ccap, int(overlap.sum(1).max())))
+        words = (traster.bbox_words(lo, hi, cameras.resolution, tile)
+                 if compact else None)
+        return traster.Admission(ids, counts, words, offsets)
+    return admit
+
+
+KERNEL_ROUTES = [{}, dict(compact=True), dict(streamed=True)]
+ROUTE_IDS = ["chunklist", "compact", "streamed_compact"]
+
+
+def _render_both(scene, monkeypatch, kw, ccap_of):
+    """render_views_fused at tile 8, ccap 4, hierarchical (the capped
+    encoding's block-mode and scan-all rows), on the capped lists and on
+    exact ones; -> (capped, exact, recorder counters of the exact run,
+    exact counts, the rows' set counts)."""
+    _, tmesh, _, tcam = scene
+    args = (tcam, tmesh, 8, CHUNK, tmesh.vertex_normals)
+    opts = dict(ccap=4, hier_min_chunks=1, **kw)
+    c = traster.admission_reference(tcam, tmesh, 8, CHUNK, 4, 1).counts
+    assert bool((c == -1).any()) and bool((c <= -2).any())
+    want = traster.render_views_fused(*args, **opts)
+    admit = _exact_admission(ccap_of)
+    monkeypatch.setattr(traster, "admission", admit)
+    profiler.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = traster.render_views_fused(*args, **opts)
+    counters = {k: v["total"] for k, v in profiler.summary()["counters"].items()}
+    profiler.reset()
+    lo, hi = traster.padded_bboxes(tcam, tmesh, CHUNK)
+    n = traster.tile_overlap(lo, hi, tcam.resolution, 8, CHUNK).sum(1)
+    return want, got, counters, admit(tcam, tmesh, 8, CHUNK, 4).counts, n
+
+
+@pytest.mark.parametrize("kw", KERNEL_ROUTES, ids=ROUTE_IDS)
+def test_render_views_fused_exact_lists_equal_capped(scene, monkeypatch, kw):
+    """Every row's exact list (all fit) in place of the capped encoding's
+    block-mode and scan-all stand-ins: the decoded outputs equal bit for
+    bit, and no row is counted on a stand-in encoding."""
+    want, got, counters, counts, _ = _render_both(
+        scene, monkeypatch, kw, lambda ccap, longest: longest)
+    assert bool((counts >= 0).all())
+    for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
+        assert torch.equal(g, w)
+    assert counters["raster.rows_block"] == counters["raster.rows_scan_all"] == 0
+    assert counters["raster.list_positions"] == int(counts.sum())
+
+
+@pytest.mark.parametrize("kw", KERNEL_ROUTES, ids=ROUTE_IDS)
+def test_exact_lists_past_the_capacity_scan_all(scene, monkeypatch, kw):
+    """A buffer of one slot a row, which the longer rows overflow: the rows
+    past it, longer rows only, scan every chunk, are counted in
+    raster.rows_scan_all, and the outputs still equal the capped
+    encoding's."""
+    want, got, counters, counts, n = _render_both(
+        scene, monkeypatch, kw, lambda ccap, longest: 1)
+    n_scan = int((counts == -1).sum())
+    assert 0 < n_scan < counts.numel()
+    assert bool((n[counts == -1] > 1).all())  # longer rows alone
+    assert bool((counts[n <= 1] >= 0).all())
+    assert counters["raster.rows_scan_all"] == n_scan
+    assert counters["raster.rows_block"] == 0
+    for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
+        assert torch.equal(g, w)

@@ -27,11 +27,12 @@ from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
 
 from _torch_port_util import (
+    as_exact,
     both_cameras,
     chunk_major,
     int_label_ok,
     look_at_np,
-    mixed_inputs,
+    mixed_lists,
     port_mesh,
     room_sphere_views,
     with_block_tail,
@@ -51,23 +52,26 @@ def scene():
 
 @pytest.fixture(scope="module")
 def kernel_inputs(scene):
-    """Mixed exact / scan-all / block-mode lists at tile 16, the JAX side's
+    """Mixed exact / scan-all / block-mode lists at tile 16: as exact lists
+    with their offsets (the port's), the capped lists as the JAX side's
     16-bit id pairs, and kernel A's decoded result (the port's plain
     version), which B and C must equal bit for bit."""
     _, tmesh, _, tcam = scene
-    args, T = mixed_inputs(tmesh, tcam, TILE, CHUNK)
-    ids, counts, origins, pack, words, dirs = args
-    c = counts.numpy()
+    capped, T = mixed_lists(tmesh, tcam, TILE, CHUNK)
+    c = capped[1].numpy()
     assert (c >= 0).any() and (c == -1).any() and (c <= -2).any(), c
-    pairs = ids.numpy().reshape(ids.shape[0], -1, 2)
+    args, offsets = as_exact(capped, CHUNK)
+    ids, counts, origins, pack, words, dirs = args
+    pairs = capped[0].numpy().reshape(capped[0].shape[0], -1, 2)
     jargs = (jnp.asarray((pairs[..., 0] | (pairs[..., 1] << 16)).reshape(-1)),
              jnp.asarray(c), jnp.asarray(origins.numpy()),
              jnp.asarray(pack.numpy()))
     jdirs = tuple(jnp.asarray(d.numpy()) for d in dirs)
     want = tk.decode_winners(
         *tk.raster_tiles_chunklist_reference(ids, counts, origins, pack, dirs,
-                                             CHUNK, T), origins, dirs, T)
-    return args, T, jargs, jdirs, want
+                                             CHUNK, T, offsets=offsets),
+        origins, dirs, T)
+    return args, offsets, T, jargs, jdirs, want, capped
 
 
 def _agreement(tv, tf, jv, jf):
@@ -148,14 +152,15 @@ def test_compact_reference_matches_pallas(kernel_inputs, stage_cap):
     """Kernel B's plain version + decode against raster_tiles_pallas_compact
     (interpret) on identical lists and bbox words; cap 64 sends rows to the
     raw-list fallback."""
-    args, T, jargs, jdirs, want = kernel_inputs
+    args, offsets, T, jargs, jdirs, want, _ = kernel_inputs
     ids, counts, origins, pack, words, dirs = args
     cap = stage_cap or tk.STAGE_CAP
     staged, _ = tk.stage_faces(ids, counts, words, pack.shape[1] // CHUNK,
-                               CHUNK, T, TILE, cap)
+                               CHUNK, T, TILE, cap, offsets=offsets)
     assert bool((staged > cap).any()) and bool((staged <= cap).any())
     out = tk.raster_tiles_compact_reference(*args, chunk=CHUNK,
-                                            tiles_per_view=T, stage_cap=cap)
+                                            tiles_per_view=T, stage_cap=cap,
+                                            offsets=offsets)
     got = _decode(out, args, T)
     _assert_equal(got, want)  # within the port: A's decoded outputs
     jout = pallas_raster.raster_tiles_pallas_compact(
@@ -172,18 +177,18 @@ def test_streamed_reference_matches_pallas(kernel_inputs, compact, stage_cap):
     """Kernel C's plain version on the chunk-major pack against
     raster_tiles_pallas_streamed (interpret), plain and compacting bodies.
     The plain body's packed keys equal kernel A's."""
-    args, T, jargs, jdirs, want = kernel_inputs
+    args, offsets, T, jargs, jdirs, want, _ = kernel_inputs
     ids, counts, origins, pack, words, dirs = args
     cap = stage_cap or tk.STREAMED_STAGE_CAP
     out = tk.raster_tiles_streamed_reference(
         ids, counts, origins, chunk_major(pack, CHUNK), dirs, chunk=CHUNK,
         tiles_per_view=T, bbox_words=words if compact else None,
-        stage_cap=cap)
+        stage_cap=cap, offsets=offsets)
     got = _decode(out, args, T)
     _assert_equal(got, want)
     if not compact:
         a_packed, _ = tk.raster_tiles_chunklist_reference(
-            ids, counts, origins, pack, dirs, CHUNK, T)
+            ids, counts, origins, pack, dirs, CHUNK, T, offsets=offsets)
         assert torch.equal(out[0], a_packed)
     jout = pallas_raster.raster_tiles_pallas_streamed(
         *jargs, jdirs, chunk=CHUNK, interpret=True, tiles_per_view=T, ccap=4,
@@ -193,12 +198,18 @@ def test_streamed_reference_matches_pallas(kernel_inputs, compact, stage_cap):
 
 
 def test_block_mode_tail_is_staged_once(kernel_inputs):
-    """A block-mode row whose last block runs past the last chunk stages
-    each admitted overlapping face once: the clamped duplicates of the last
-    chunk are not fresh. B and C still equal kernel A on that row."""
-    args, T, *_ = kernel_inputs
-    args, row, n = with_block_tail(args, T, CHUNK)
+    """A block-mode row whose last block runs past the last chunk, given as
+    exact lists, lists that block's chunks below the last one once, and
+    stages each admitted overlapping face once. B and C still equal kernel
+    A on that row."""
+    *_, capped = kernel_inputs
+    T = kernel_inputs[2]
+    capped, row, n = with_block_tail(capped, T, CHUNK)
+    args, offsets = as_exact(capped, CHUNK)
     ids, counts, origins, pack, words, dirs = args
+    assert int(counts[row]) == n - ((n - 1) // 8) * 8
+    assert ids[offsets[row]:offsets[row] + counts[row]].tolist() == list(
+        range(((n - 1) // 8) * 8, n))
     tx, ty = (row % T) % (RES // TILE), (row % T) // (RES // TILE)
     faces = torch.arange(((n - 1) // 8) * 8 * CHUNK, n * CHUNK)
     m, _ = tk.band_mask_and_flags(words[row // T, faces], tx, ty, TILE,
@@ -207,14 +218,15 @@ def test_block_mode_tail_is_staged_once(kernel_inputs):
                                      TILE, TILE * TILE, 1)
     n_dups = 8 - n % 8
     assert int(last.sum()) > 0 and n_dups > 0
-    staged, slots = tk.stage_faces(ids, counts, words, n, CHUNK, T, TILE, 10**4)
+    staged, slots = tk.stage_faces(ids, counts, words, n, CHUNK, T, TILE, 10**4,
+                                   offsets=offsets)
     assert int(staged[row]) == int(m.sum())  # not + n_dups * last.sum()
     s = slots[row, : int(staged[row])]
     assert torch.equal(s, faces[m])  # ascending, each face once
     want = _decode(tk.raster_tiles_chunklist_reference(
-        ids, counts, origins, pack, dirs, CHUNK, T), args, T)
+        ids, counts, origins, pack, dirs, CHUNK, T, offsets=offsets), args, T)
     _assert_equal(_decode(tk.raster_tiles_compact_reference(
-        *args, chunk=CHUNK, tiles_per_view=T), args, T), want)
+        *args, chunk=CHUNK, tiles_per_view=T, offsets=offsets), args, T), want)
 
 
 def test_near_plane_face_is_never_staged():
@@ -242,9 +254,11 @@ def test_near_plane_face_is_never_staged():
     assert int(inp.bbox_words[0, near]) == 255 | (255 << 16)
     n_chunks = inp.pack.shape[1] // 16
     staged, slots = tk.stage_faces(inp.ids, inp.counts, inp.bbox_words,
-                                   n_chunks, 16, inp.tiles_per_view, 16, 10**4)
+                                   n_chunks, 16, inp.tiles_per_view, 16, 10**4,
+                                   offsets=inp.offsets)
     assert int(staged.sum()) > 0 and not bool((slots == near).any())
-    trip, chunk_of, _ = tk.chunk_schedule(inp.ids, inp.counts, n_chunks)
+    trip, chunk_of = tk.chunk_schedule(inp.ids, inp.counts, n_chunks,
+                                       inp.offsets)
     listed = torch.stack([torch.where(trip > i, chunk_of(i), -1)
                           for i in range(int(trip.max()))], 1)
     assert bool((listed == near // 16).any())  # kernel A sweeps it
@@ -363,24 +377,26 @@ def test_annotate_views_streamed_matches_jax():
 
 @pytest.mark.parametrize("name", ["compact", "streamed"])
 def test_wrapper_takes_plain_version_only_for_cpu_tensors(kernel_inputs, name):
-    args, T, *_ = kernel_inputs
+    args, offsets, T, *_ = kernel_inputs
     ids, counts, origins, pack, words, dirs = args
     wrapper = getattr(tk, f"raster_tiles_{name}")
     plain = getattr(tk, f"raster_tiles_{name}_reference")
 
-    def call(fn, ids, counts, origins, pack, words, dirs):
+    def call(fn, ids, counts, origins, pack, words, dirs, offsets=offsets):
         if name == "compact":
             return fn(ids, counts, origins, pack, words, dirs, chunk=CHUNK,
-                      tiles_per_view=T)
+                      tiles_per_view=T, offsets=offsets)
         return fn(ids, counts, origins, chunk_major(pack, CHUNK), dirs,
-                  chunk=CHUNK, tiles_per_view=T, bbox_words=words)
+                  chunk=CHUNK, tiles_per_view=T, bbox_words=words,
+                  offsets=offsets)
 
     before = wrapper.launches
     _assert_equal(call(wrapper, *args), call(plain, *args))
     assert wrapper.launches == before  # no kernel launched
     meta = [t.to("meta") for t in (ids, counts, origins, pack, words)]
     with pytest.raises(ValueError, match="no kernel"):
-        call(wrapper, *meta, tuple(d.to("meta") for d in dirs))
+        call(wrapper, *meta, tuple(d.to("meta") for d in dirs),
+             offsets.to("meta"))
     with pytest.raises(ValueError, match="int32"):
         call(wrapper, ids, counts, origins, pack, words.long(), dirs)
     assert wrapper.launches == before

@@ -10,9 +10,11 @@ B's compacting kernel on the scenes of tests/test_mesh.py:554,590.
 
 Inputs: the scenes of tests/test_mesh.py's kernel tests (:523 room, :554
 room and sphere, :590 horizontal strips) and the port's room-and-sphere
-views, with exact, scan-all (ccap 4) and block-mode rows, a block-mode row
-whose last block runs past the last chunk (clamped tail duplicates), and
-rows past a stage cap of 64.
+views, with exact, scan-all (ccap 4) and block-mode rows given as exact
+lists (``raster.capped_as_exact``), a block-mode row whose last block runs
+past the last chunk, and rows past a stage cap of 64; and the card's exact
+lists (flat, at row offsets) of the room-and-sphere views, some longer rows
+past their buffer.
 
 Tolerances: within the port, bitwise; against JAX, `valid` equal and
 `face` equal where both are valid on >= 99.9% of pixels, t within 1e-4
@@ -28,10 +30,13 @@ from omnidata_tpu.mesh import from_arrays, pallas_raster, room, uv_sphere
 from omnidata_tpu_torch.mesh import raster_kernels as tk
 
 from _torch_port_util import (
+    as_exact,
     both_cameras,
     chunk_major,
+    exact_inputs,
     look_at_np,
     mixed_inputs,
+    mixed_lists,
     port_mesh,
     room_sphere_views,
     with_block_tail,
@@ -96,14 +101,15 @@ SCENES = {
 
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def inputs(request):
-    """((ids, counts, origins, pack, bbox_words, dir_planes), tiles_per_view,
-    tile, chunk) of one scene, with exact, scan-all and block-mode rows."""
+    """((ids, counts, origins, pack, bbox_words, dir_planes), offsets,
+    tiles_per_view, tile, chunk) of one scene, with exact, scan-all and
+    block-mode rows given as exact lists."""
     build, tile, chunk, tail = SCENES[request.param]
     mesh, cams = build()
-    args, T = mixed_inputs(mesh, cams, tile, chunk)
+    args, T = mixed_lists(mesh, cams, tile, chunk)
     if tail:
         args, _, _ = with_block_tail(args, T, chunk)
-    return args, T, tile, chunk
+    return (*as_exact(args, chunk), T, tile, chunk)
 
 
 def _cap(body):
@@ -112,10 +118,10 @@ def _cap(body):
     return tk.STAGE_CAP if body == "compact" else tk.STREAMED_STAGE_CAP
 
 
-def _staged(args, T, tile, chunk, cap):
+def _staged(args, offsets, T, tile, chunk, cap):
     ids, counts, _, pack, words, _ = args
     return tk.stage_faces(ids, counts, words, pack.shape[1] // chunk, chunk, T,
-                          tile, cap)[0]
+                          tile, cap, offsets=offsets)[0]
 
 
 def _assert_bitwise(got, want):
@@ -126,11 +132,11 @@ def _assert_bitwise(got, want):
 @pytest.mark.parametrize("seg", SEGS)
 @pytest.mark.parametrize("body", ["chunklist", *COMPACTING])
 def test_split_schedule_covers_every_position_once(inputs, body, seg):
-    args, T, tile, chunk = inputs
+    args, offsets, T, tile, chunk = inputs
     ids, counts, _, pack, _, _ = args
     n_chunks = pack.shape[1] // chunk
-    staged = None if body == "chunklist" else _staged(args, T, tile, chunk,
-                                                      _cap(body))
+    staged = None if body == "chunklist" else _staged(args, offsets, T, tile,
+                                                      chunk, _cap(body))
     sched = tk.split_schedule(counts, staged, n_chunks, seg, chunk, _cap(body))
     rows = counts.shape[0]
     assert torch.equal(torch.sort(sched.order.long()).values, torch.arange(rows))
@@ -139,7 +145,7 @@ def test_split_schedule_covers_every_position_once(inputs, body, seg):
     trip = tk.list_trips(counts, n_chunks).long()
     dense = (torch.zeros(rows, dtype=torch.bool) if staged is None
              else staged <= _cap(body))
-    covered = torch.zeros(rows, n_chunks + 8 + ids.shape[1], dtype=torch.int64)
+    covered = torch.zeros(rows, n_chunks + 1, dtype=torch.int64)
     for r, s in zip(item_row.tolist(), item_seg.tolist()):
         if dense[r]:
             assert s == 0 and int(sched.n_items[r]) == 1  # one dense item
@@ -180,9 +186,9 @@ def test_segmented_fold_equals_sequential_plain_versions(inputs, body, seg):
     """Each segment swept from scratch and the segments folded in order
     give the sequential sweep's packed keys and acc columns, bit for bit,
     for kernel A's function, both bodies of kernel C and kernel B."""
-    args, T, tile, chunk = inputs
+    args, offsets, T, tile, chunk = inputs
     ids, counts, origins, pack, words, dirs = args
-    kw = dict(chunk=chunk, tiles_per_view=T)
+    kw = dict(chunk=chunk, tiles_per_view=T, offsets=offsets)
     if body == "chunklist":
         want = tk.raster_tiles_chunklist_reference(ids, counts, origins, pack,
                                                    dirs, **kw)
@@ -212,21 +218,24 @@ def test_segmented_fold_matches_pallas_streamed_interpret():
     raster_tiles_pallas_streamed in interpret mode on the same lists."""
     _, tmesh, _, tcam = room_sphere_views(RES)
     tile, chunk = 16, 64
-    args, T = mixed_inputs(tmesh, tcam, tile, chunk)
+    capped, T = mixed_lists(tmesh, tcam, tile, chunk)
+    args, offsets = as_exact(capped, chunk)
     ids, counts, origins, pack, words, dirs = args
-    staged = _staged(args, T, tile, chunk, 64)
+    staged = _staged(args, offsets, T, tile, chunk, 64)
     assert bool((staged > 64).any()) and bool((counts == -1).any())
     out = tk.raster_tiles_split_reference(
         ids, counts, origins, chunk_major(pack, chunk), dirs, chunk=chunk,
-        tiles_per_view=T, seg=1, bbox_words=words, stage_cap=64)
+        tiles_per_view=T, seg=1, bbox_words=words, stage_cap=64,
+        offsets=offsets)
     tv, tt, _, _, tf, _ = (a.numpy() for a in tk.decode_winners(*out, origins,
                                                                  dirs, T))
-    pairs = ids.numpy().reshape(ids.shape[0], -1, 2)
+    c_ids, c_counts = capped[:2]
+    pairs = c_ids.numpy().reshape(c_ids.shape[0], -1, 2)
     jout = pallas_raster.raster_tiles_pallas_streamed(
         jnp.asarray((pairs[..., 0] | (pairs[..., 1] << 16)).reshape(-1)),
-        jnp.asarray(counts.numpy()), jnp.asarray(origins.numpy()),
+        jnp.asarray(c_counts.numpy()), jnp.asarray(origins.numpy()),
         jnp.asarray(pack.numpy()), tuple(jnp.asarray(d.numpy()) for d in dirs),
-        chunk=chunk, interpret=True, tiles_per_view=T, ccap=ids.shape[1],
+        chunk=chunk, interpret=True, tiles_per_view=T, ccap=c_ids.shape[1],
         bbox_words=jnp.asarray(words.numpy()), n1d=RES // tile, stage_cap=64)
     jv, jt, _, _, jf, _ = (np.asarray(a) for a in jout)
     same = (tv == jv) & (~jv | (tf == jf))
@@ -247,21 +256,23 @@ def test_compact_split_matches_pallas_compact_interpret(scene, cap):
     10 faces."""
     build, tile, chunk, _ = SCENES[scene]
     mesh, cams = build()
-    args, T = mixed_inputs(mesh, cams, tile, chunk)
+    capped, T = mixed_lists(mesh, cams, tile, chunk)
+    args, offsets = as_exact(capped, chunk)
     ids, counts, origins, pack, words, dirs = args
-    assert bool((_staged(args, T, tile, chunk, cap) > cap).any())
+    assert bool((_staged(args, offsets, T, tile, chunk, cap) > cap).any())
     out = tk.raster_tiles_split_reference(
         ids, counts, origins, pack, dirs, chunk=chunk, tiles_per_view=T,
-        seg=1, bbox_words=words, stage_cap=cap)
+        seg=1, bbox_words=words, stage_cap=cap, offsets=offsets)
     tv, tt, _, _, tf, _ = (a.numpy() for a in tk.decode_winners(*out, origins,
                                                                  dirs, T))
-    pairs = ids.numpy().reshape(ids.shape[0], -1, 2)
+    c_ids, c_counts = capped[:2]
+    pairs = c_ids.numpy().reshape(c_ids.shape[0], -1, 2)
     jout = pallas_raster.raster_tiles_pallas_compact(
         jnp.asarray((pairs[..., 0] | (pairs[..., 1] << 16)).reshape(-1)),
-        jnp.asarray(counts.numpy()), jnp.asarray(origins.numpy()),
+        jnp.asarray(c_counts.numpy()), jnp.asarray(origins.numpy()),
         jnp.asarray(pack.numpy()), jnp.asarray(words.numpy()),
         tuple(jnp.asarray(d.numpy()) for d in dirs), chunk=chunk,
-        interpret=True, tiles_per_view=T, n1d=RES // tile, ccap=ids.shape[1],
+        interpret=True, tiles_per_view=T, n1d=RES // tile, ccap=c_ids.shape[1],
         stage_cap=cap)
     jv, jt, _, _, jf, _ = (np.asarray(a) for a in jout)
     same = (tv == jv) & (~jv | (tf == jf))
@@ -275,14 +286,57 @@ def test_compact_split_matches_pallas_compact_interpret(scene, cap):
 def test_wrappers_refuse_a_seg_below_one(seg):
     """seg is checked before any dispatch, so also for CPU tensors."""
     _, tmesh, _, tcam = room_sphere_views(RES)
-    (ids, counts, origins, pack, words, dirs), T = mixed_inputs(tmesh, tcam, 32, 64)
+    (ids, counts, origins, pack, words, dirs), offsets, T = mixed_inputs(
+        tmesh, tcam, 32, 64)
+    kw = dict(chunk=64, tiles_per_view=T, offsets=offsets, seg=seg)
     with pytest.raises(ValueError, match="seg"):
-        tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs, chunk=64,
-                                  tiles_per_view=T, seg=seg)
+        tk.raster_tiles_chunklist(ids, counts, origins, pack, dirs, **kw)
     with pytest.raises(ValueError, match="seg"):
         tk.raster_tiles_streamed(ids, counts, origins, chunk_major(pack, 64),
-                                 dirs, chunk=64, tiles_per_view=T,
-                                 bbox_words=words, seg=seg)
+                                 dirs, bbox_words=words, **kw)
     with pytest.raises(ValueError, match="seg"):
-        tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs,
-                                chunk=64, tiles_per_view=T, seg=seg)
+        tk.raster_tiles_compact(ids, counts, origins, pack, words, dirs, **kw)
+
+
+@pytest.mark.parametrize("seg", [1, 16])
+@pytest.mark.parametrize("body", BODIES)
+def test_segmented_fold_on_exact_lists_equals_sequential(body, seg):
+    """On the card's exact lists (flat at row offsets, in a buffer of two
+    slots a row that some longer rows overflow, so scanning every chunk)
+    the segmented fold equals the sequential plain versions bit for bit,
+    and the decoded outputs equal those from the capped encoding's
+    lists."""
+    _, tmesh, _, tcam = room_sphere_views(RES)
+    tile, chunk = 16, 64
+    args, offsets, T = exact_inputs(tmesh, tcam, tile, chunk, 2)
+    ids, counts, origins, pack, words, dirs = args
+    assert ids.dim() == 1 and bool((counts == -1).any()) and bool((counts > 2).any())
+    capped, c_offsets, _ = mixed_inputs(tmesh, tcam, tile, chunk)
+    kw = dict(chunk=chunk, tiles_per_view=T)
+    cap = _cap(body)
+    w = None if body in ("chunklist", "streamed") else words
+    p = chunk_major(pack, chunk) if body.startswith("streamed") else pack
+
+    def sequential(ids, counts, offsets):
+        if body == "chunklist":
+            return tk.raster_tiles_chunklist_reference(
+                ids, counts, origins, pack, dirs, offsets=offsets, **kw)
+        if body.startswith("compact"):
+            return tk.raster_tiles_compact_reference(
+                ids, counts, origins, pack, words, dirs, stage_cap=cap,
+                offsets=offsets, **kw)
+        return tk.raster_tiles_streamed_reference(
+            ids, counts, origins, p, dirs, bbox_words=w, stage_cap=cap,
+            offsets=offsets, **kw)
+
+    want = sequential(ids, counts, offsets)
+    got = tk.raster_tiles_split_reference(ids, counts, origins, p, dirs,
+                                          seg=seg, bbox_words=w, stage_cap=cap,
+                                          offsets=offsets, **kw)
+    _assert_bitwise(got, want)
+    dec = tk.decode_winners(*want, origins, dirs, T)
+    dec_capped = tk.decode_winners(*sequential(capped[0], capped[1], c_offsets),
+                                   origins, dirs, T)
+    for g, c in zip(dec, dec_capped):
+        assert torch.equal(g, c)
+    assert bool((want[0] < tk.BIG_PACKED).any())

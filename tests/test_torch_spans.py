@@ -23,6 +23,7 @@ import torch
 from omnidata_tpu_torch.annotator import cli
 from omnidata_tpu_torch.core.cameras import Camera, look_at_rotation
 from omnidata_tpu_torch.mesh import from_arrays, raster, room, uv_sphere
+from omnidata_tpu_torch.mesh.raster_kernels import list_trips
 from omnidata_tpu_torch.utils import DeviceTrace, profiler
 
 torch.set_num_threads(1)
@@ -181,9 +182,12 @@ def test_row_counters_equal_a_direct_count(scene, hier_min):
     c = profiler.summary()["counters"]
     counts = raster.prepare_raster(*args).counts
     assert torch.equal(inp.counts, counts)
+    n_chunks = -(-mesh.faces.shape[0] // 16)
+    capped = raster.admission_reference(cams, mesh, 16, 16, 4, hier_min, 1).counts
     want = {"raster.rows": counts.numel(), "raster.rows_fused": 0,  # no kernel
-            "raster.rows_block": int((counts <= -2).sum()),
-            "raster.rows_scan_all": int((counts == -1).sum())}
+            "raster.rows_block": int((capped <= -2).sum()),
+            "raster.rows_scan_all": int((counts == -1).sum()),
+            "raster.list_positions": int(list_trips(counts, n_chunks).sum())}
     assert {k: v["total"] for k, v in c.items()} == want
     assert want["raster.rows_scan_all"] > 0
     assert (want["raster.rows_block"] > 0) == (hier_min == 0)

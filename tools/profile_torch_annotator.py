@@ -14,9 +14,10 @@ and ``render_views_fused(compact=True)`` against A's render, admission
 included; ``annotate_views`` has no compact route, so its numbers stay
 kernel A's. Prints:
 - admission statistics per timed batch: rows per list encoding (exact,
-  scan-all, block mode) and the trip counts the raster kernel will sweep;
-  the faces per row whose bbox overlaps the tile, and the rows past the
-  stage cap (8,192; 512 with ``--compact``);
+  scan-all, block mode; on a card no block mode, and scan-all only for
+  longer rows past the list buffer) and the trip counts the raster kernel
+  will sweep; the faces per row whose bbox overlaps the tile, and the rows
+  past the stage cap (8,192; 512 with ``--compact``);
 - the raster kernel's time (CUDA events, median of 5 runs of 5 launches)
   beside its pixel-face pairs and bound (``raster_measure.raster_work``)
   and, where the checkout's wrapper records them, its work items and split
@@ -120,9 +121,14 @@ def main() -> int:
         """The raster kernel on the batch's first views, as a call."""
         T = inp.tiles_per_view
         r = slice(0, views * T)
-        args = (inp.ids[r], counts[r], inp.origins[:views], inp.pack,
-                tuple(d[r] for d in inp.dir_planes))
         kw = dict(chunk=CHUNK, tiles_per_view=T)
+        offsets = getattr(inp, "offsets", None)  # exact lists (not in older checkouts)
+        if offsets is None:
+            ids = inp.ids[r]
+        else:
+            ids, kw["offsets"] = inp.ids, offsets[r]
+        args = (ids, counts[r], inp.origins[:views], inp.pack,
+                tuple(d[r] for d in inp.dir_planes))
         if a.streamed:
             words = inp.bbox_words[:views]
             return lambda: wrapper(*args, bbox_words=words, **kw)

@@ -64,8 +64,10 @@ def overlap_counts(inp, chunk: int):
     streamed = inp.pack.dim() == 3
     n_chunks = inp.pack.shape[0] if streamed else inp.pack.shape[1] // chunk
     tile = int(round(inp.dir_planes[0].shape[1] ** 0.5))
+    offsets = getattr(inp, "offsets", None)  # exact lists (not in older checkouts)
+    kw = {} if offsets is None else {"offsets": offsets}
     return rk.stage_faces(inp.ids, inp.counts, inp.bbox_words, n_chunks, chunk,
-                          inp.tiles_per_view, tile, 1)[0]
+                          inp.tiles_per_view, tile, 1, **kw)[0]
 
 
 def raster_work(inp, overlaps, reads_bbox_words: bool = False) -> dict:
@@ -81,6 +83,8 @@ def raster_work(inp, overlaps, reads_bbox_words: bool = False) -> dict:
     cols = inp.pack.shape[1] if inp.pack.dim() == 3 else inp.pack.shape[0]
     pairs = int(overlaps.sum()) * P
     ins = [inp.ids, inp.counts, inp.origins, inp.pack, *inp.dir_planes]
+    if getattr(inp, "offsets", None) is not None:
+        ins.append(inp.offsets)
     if reads_bbox_words:
         ins.append(inp.bbox_words)
     n_bytes = sum(t.numel() * t.element_size() for t in ins) + rows * P * 4 * (1 + cols)
