@@ -102,7 +102,7 @@ Phases, each of which fails the run on error:
     the admission kernels and kernel C launched, kernel A not; viewpoints/s with the PNG writes,
     and of the same batches rendered and fetched without them. Then the
     CLI batch with the most rows longer than the CLI's own ``ccap`` (the
-    capped encoding's block-mode and scan-all rows; on the card exact
+    JAX package's capped encoding's block-mode and scan-all rows; here exact
     lists): kernel C bit for bit against its plain version on its 2
     hardest views, and the written outputs of its 2 hardest views equal to
     ``annotate_views`` on the plain admission and rasters with the CLI's
@@ -520,10 +520,7 @@ def plain_raster():
     saved = {n: getattr(raster, n) for n in names}
     for n in names[:3]:
         setattr(raster, n, by_views(getattr(raster_kernels, f"{n}_reference")))
-    raster.admission = (
-        lambda cams, mesh, tile, chunk, ccap, hier_min_chunks=None,
-        expand_bcap=None, compact=False: raster.admission_exact_reference(
-            cams, mesh, tile, chunk, ccap, compact))
+    raster.admission = raster.admission_exact_reference
     try:
         yield
     finally:
@@ -611,8 +608,8 @@ def check_cli_streamed(cli, d: str, batches, mesh, curv, settings, mods,
                        dev) -> dict:
     """The CLI's own kernel-C inputs (its default ccap) against the plain
     versions, on the CLI batch with the most rows past the capped
-    encoding's ccap (lists longer than ccap, which the CPU's encoding puts
-    in block mode or scan-all; on the card every row's exact list), then
+    encoding's ccap (lists longer than ccap, which the JAX package's
+    encoding puts in block mode or scan-all; here every row's exact list), then
     scan-all rows: kernel C's compacting body bit for bit on the batch's
     K_CHECK views with the most such rows, and every written output of its
     CLI_PLAIN_VIEWS hardest views equal to annotate_views on the plain
@@ -2969,8 +2966,7 @@ def check_admission(what: str, mesh, curv, cams, card: str, compact: bool,
     (CHUNK_LIST_CAP: a buffer of ``list_slots`` slots a row), with bbox
     words when compact: bit for bit against the plain version of the card's
     admission (``admission_exact_reference``) on the same CUDA tensors, and
-    the rows the capped encoding (``admission_reference``) would have put
-    in block mode or scan-all counted; then the kernels and the plain path
+    the rows of each kind counted; then the kernels and the plain path
     timed in turns (plain, kernels, kernels, plain) and ``prepare_raster``
     (as ``annotate_views`` calls it) with CUDA events, beside the bound:
     ADMISSION_OPS a (view, face) at FP32_PEAK / 2 (``-fmad=false``), and the
@@ -2997,11 +2993,8 @@ def check_admission(what: str, mesh, curv, cams, card: str, compact: bool,
     want = raster_mod.admission_exact_reference(*args, compact=compact)
     equal = [g is None and w is None or torch.equal(g, w) for g, w in zip(got, want)]
     c = got.counts
-    capped = raster_mod.admission_reference(*args, compact=False).counts
     kinds = {"exact": int((c >= 0).sum()), "scan_all": int((c == -1).sum()),
              "block": int((c <= -2).sum()),
-             "capped_scan_all": int((capped == -1).sum()),
-             "capped_block": int((capped <= -2).sum()),
              "positions": int(c.clamp(min=0).sum()), "longest": int(c.max())}
     log(f"admission kernels vs plain ({what}, {K} views, {F} faces, ccap {ccap}): "
         f"ids, counts, bbox words, offsets equal {equal}; rows {kinds}; launches "
@@ -3009,7 +3002,7 @@ def check_admission(what: str, mesh, curv, cams, card: str, compact: bool,
     if not all(equal) or launched != 1:
         raise AssertionError(f"the admission kernels disagree with the plain path "
                              f"({what})")
-    del got, want, capped
+    del got, want
     attrs, _ = _gather_attrs(mesh, curv, DEVICE_MODALITIES)
     plain, ms = in_turns(
         lambda: raster_mod.admission_exact_reference(*args, compact=compact),

@@ -35,9 +35,9 @@
 // every row's exact list, each chunk whose bits are set for the row, in
 // ascending order and uncapped, in one flat int32 buffer at the row's
 // offset (a CSR layout: flat lists plus row offsets; raster_common.cuh's
-// Schedule reads it). This is the card's form; the JAX package's, which
-// the CPU keeps (raster.admission_lists: at most ccap ids a row, else block
-// mode or a scan of every chunk), serves the TPU's static shapes only.
+// Schedule reads it). This is the port's form; the JAX package's capped
+// lists (at most ccap ids a row, else block mode or a scan of every chunk)
+// serve the TPU's static shapes only.
 //   admission_rows_kernel, one warp a row: the row's count, the popcount
 //     of its words;
 //   admission_scan_kernel, one CTA: offsets, exclusive prefix sums of the
@@ -176,7 +176,7 @@ __device__ __forceinline__ int bbox_word(const Box& b, float inv_tile) {
                (quantize((b.hiy + 1.0f) * inv_band) << 24));
 }
 
-// tile_admission's test: tile t overlaps [lo, hi] when hi >= t * tile and
+// tile_overlap's test: tile t overlaps [lo, hi] when hi >= t * tile and
 // lo <= t * tile + tile. first_tile: the least t in [0, n) with the second
 // (n if none); last_tile: the greatest with the first (-1 if none). The
 // estimate from the quotient is corrected by the exact comparisons.

@@ -63,9 +63,9 @@ __device__ __forceinline__ int big_packed() {
 // (raster_admission.cu): counts[row] >= 0 ascending chunk ids at
 // ids[offsets[row] ...], every chunk that holds a face whose bbox overlaps
 // the tile, uncapped (CSR: a flat list plus row offsets); or count -1, a
-// row past the buffer, which scans every chunk in order. The capped form of
-// the CPU and the JAX package (raster.admission_lists: block mode, at most
-// ccap ids a row) reaches no kernel. A list has at most n_chunks positions.
+// row past the buffer, which scans every chunk in order. The JAX package's
+// capped form (block mode, at most ccap ids a row) reaches no kernel. A
+// list has at most n_chunks positions.
 __host__ __device__ __forceinline__ int list_trip(int count, int n_chunks) {
   return count == -1 ? n_chunks : count;
 }

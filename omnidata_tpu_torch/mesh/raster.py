@@ -4,7 +4,8 @@ raster kernel, winner decode.
 ``render_views_fused`` is the annotator's render stage:
 1. per view and face, conservative near-plane-aware screen bboxes;
 2. per (view, tile), the ascending list of 128-face Morton chunks that hold
-   at least one face whose bbox overlaps the tile (``admission_lists``);
+   at least one face whose bbox overlaps the tile, every row's exact list,
+   uncapped, in one flat buffer at the row's offset (``exact_lists``);
 3. a raster kernel (``raster_kernels``) sweeps the listed chunks and keeps,
    per pixel, the winner's packed key and its scene-pack columns: kernel A
    (chunk list), B (compacting: only the faces whose ``bbox_words`` overlap
@@ -12,17 +13,14 @@ raster kernel, winner decode.
 4. ``raster_kernels.decode_winners`` recomputes the winner's exact t/u/v and
    interpolates vertex attributes; tiles are put back into images.
 On a card steps 1 and 2 (and the bbox words) are CUDA kernels (``admission``,
-``csrc/raster_admission.cu``) that write every row's exact list, uncapped,
-into one flat buffer at the row's offset (``exact_lists``; the plain version
-of the whole is ``admission_exact_reference``). On the CPU admission is the
-JAX package's capped encoding (``admission_reference``: at most ``ccap``
-chunks a row, else block mode or a scan of every chunk), which the tests
-hold against the JAX package, given to the kernels as exact lists
-(``capped_as_exact``). Both give the same winners.
+``csrc/raster_admission.cu``); on the CPU they are their plain version
+(``admission_exact_reference``). Both write the same lists.
 
-Tie semantics, admission encoding and outputs are those of
-``omnidata_tpu.mesh.raster.render_views_fused``; ``render_view_fused`` is
-its one-view form.
+Tie semantics and outputs are those of
+``omnidata_tpu.mesh.raster.render_views_fused``, whose capped lists (at most
+``ccap`` chunks a row, else block mode or a scan of every chunk) sweep the
+same candidates, so the winners are the same; ``render_view_fused`` is its
+one-view form.
 
 ``render_view`` is the other renderer, the JAX package's XLA path in plain
 PyTorch on any device: per-tile face lists of at most ``cap`` faces
@@ -50,7 +48,6 @@ from .raster_kernels import (
     _mt_packed_keys,
     _mt_precompute,
     decode_winners,
-    list_trips,
     raster_tiles_chunklist,
     raster_tiles_compact,
     raster_tiles_streamed,
@@ -58,11 +55,6 @@ from .raster_kernels import (
 
 _NEAR = 1e-4
 _BIGF = 1e9  # bbox value of dead faces: any overlap test fails
-
-# meshes with more chunks than this use two-stage (block -> chunk)
-# admission lists; below it the flat per-chunk top-k is cheap enough
-HIER_ADMISSION_MIN_CHUNKS = 1024
-EXPAND_BCAP = 32  # hier stage-2 sort width = 8*EXPAND_BCAP candidate chunks
 
 # render_views_fused(streamed=None) takes the streamed kernel (C) for scene
 # packs larger than this. The bound is the JAX package's TPU one (its
@@ -187,89 +179,6 @@ def _ascending_first(mask: torch.Tensor, k: int):
     return vals, idx.to(torch.int32)
 
 
-def admission_lists(overlap: torch.Tensor, true_counts: torch.Tensor,
-                    ccap: int, hier: bool, expand_bcap: int | None = None):
-    """Per-tile ascending chunk-id lists from the (rows, n_chunks) overlap
-    matrix -> (ids (rows, ccap) int32, counts (rows,) int32).
-
-    counts encoding (read by the kernel's chunk selector):
-      >= 0  exact list of that many chunk ids;
-      == -1 scan all chunks (the list overflowed ccap);
-      <= -2 block mode: ids hold bcount = -count-2 ascending 8-chunk Morton
-            BLOCK ids, each expanded to its 8 chunks. Winner-exact: a face
-            that hits a tile pixel has a bbox overlapping the tile, so extra
-            chunks riding in an admitted block only add misses.
-
-    hier=False: one top-k over all chunks. hier=True: top-k over 8-chunk
-    blocks, then an exact per-chunk top-k over the first expand_bcap
-    admitted blocks' chunks; rows with more admitted blocks take block mode
-    when their block list fits ccap, else scan-all. Both paths give the same
-    ids/counts on rows where the hier path returns an exact list."""
-    rows, n_chunks = overlap.shape
-    true_counts = true_counts.to(torch.int32)
-    counts = torch.where(true_counts > ccap, -1, true_counts)
-    if not hier:
-        vals, idx = _ascending_first(overlap, min(ccap, n_chunks))
-        ids = torch.where(vals > n_chunks, idx, 0)
-        if n_chunks < ccap:
-            ids = torch.nn.functional.pad(ids, (0, ccap - n_chunks))
-        return ids, counts
-    ab = 8
-    ncb = -(-n_chunks // ab)
-    pad = torch.nn.functional.pad
-    ovb_any = pad(overlap, (0, ncb * ab - n_chunks)).reshape(rows, ncb, ab).any(-1)
-    bcount = ovb_any.sum(-1).to(torch.int32)
-    bcap = min(ccap, ncb)
-    bvals, bidx = _ascending_first(ovb_any, bcap)
-    blist = torch.where(bvals > ncb, bidx, ncb)  # pad -> all-zero sentinel block
-    bcap2 = min(bcap, _expand_bcap(expand_bcap))
-    lanes = torch.arange(ab, dtype=torch.int32, device=overlap.device)
-    cand = (blist[:, :bcap2, None] * ab + lanes).reshape(rows, bcap2 * ab)
-    ov2p = pad(overlap, (0, (ncb + 1) * ab - n_chunks))
-    ovc = torch.gather(ov2p, 1, cand.long())  # (rows, bcap2*ab)
-    ca = bcap2 * ab
-    k2 = min(ccap, ca)
-    vals2, idx2 = _ascending_first(ovc, k2)
-    ids = torch.where(vals2 > ca, torch.gather(cand, 1, idx2.long()), 0)
-    if k2 < ccap:
-        ids = pad(ids, (0, ccap - k2))
-    ids_block = torch.where(bvals > ncb, bidx, 0)
-    if bcap < ccap:
-        ids_block = pad(ids_block, (0, ccap - bcap))
-    exact = (true_counts <= k2) & (bcount <= bcap2)
-    block_mode = ~exact & (bcount <= bcap)
-    ids = torch.where(block_mode[:, None], ids_block, ids)
-    counts = torch.where(exact, true_counts,
-                         torch.where(bcount <= bcap, -bcount - 2, -1))
-    return ids.contiguous(), counts.to(torch.int32)
-
-
-def capped_as_exact(ids: torch.Tensor, counts: torch.Tensor, n_chunks: int):
-    """The capped encoding (``admission_lists``: ids (rows, ccap)) in the
-    exact form that the raster kernels read (``raster_kernels``' module
-    docstring) -> (ids (max(slots, 1),), counts (rows,), offsets (rows,)),
-    int32. A listed row keeps its chunks; a block-mode row lists the chunks
-    of its 8-chunk blocks below n_chunks, ascending; a scan-all row keeps
-    count -1 and no slots. The kernels sweep the same chunks in the same
-    order, less the re-sweeps of the last chunk that a block past it made,
-    which change no winner."""
-    rows, ccap = ids.shape
-    block = counts <= -2
-    j = torch.arange(8 * ccap, device=ids.device)
-    by_block = ids.repeat_interleave(8, 1) * 8 + j % 8
-    listed = torch.nn.functional.pad(ids, (0, 7 * ccap))
-    chunk_ids = torch.where(block[:, None], by_block, listed)
-    take = torch.where(block[:, None],
-                       (j // 8 < (-counts - 2)[:, None]) & (by_block < n_chunks),
-                       j < counts[:, None])
-    n = take.sum(1)
-    flat = chunk_ids[take].to(torch.int32)  # row-major, so at the offsets
-    if flat.numel() == 0:
-        flat = torch.zeros(1, dtype=torch.int32, device=ids.device)
-    return (flat, torch.where(counts == -1, -1, n).to(torch.int32),
-            (torch.cumsum(n, 0) - n).to(torch.int32))
-
-
 def padded_bboxes(cameras: Camera, mesh: TriangleMesh, chunk: int):
     """``face_screen_bboxes`` padded to whole chunks: lo, hi (K, Fp, 2), the
     padding dead (lo = +BIG, hi = -BIG)."""
@@ -302,19 +211,6 @@ def tile_overlap(lo: torch.Tensor, hi: torch.Tensor, res: int, tile: int,
     cnt = torch.bmm(ovy_f.transpose(1, 2), ovx_f)  # (K*NC, Ty, Tx)
     overlap = (cnt > 0).reshape(K, n_chunks, T).transpose(1, 2)  # (K,T,NC)
     return overlap.reshape(K * T, n_chunks)
-
-
-def tile_admission(lo: torch.Tensor, hi: torch.Tensor, res: int, tile: int,
-                   chunk: int, ccap: int, hier_min_chunks: int | None = None,
-                   expand_bcap: int | None = None):
-    """The capped encoding (``admission_lists``) of ``tile_overlap``:
-    -> (ids (K*T, ccap), counts (K*T,))."""
-    overlap = tile_overlap(lo, hi, res, tile, chunk)
-    hier_min = (HIER_ADMISSION_MIN_CHUNKS if hier_min_chunks is None
-                else hier_min_chunks)
-    return admission_lists(overlap, overlap.sum(-1), ccap,
-                           hier=overlap.shape[1] > hier_min,
-                           expand_bcap=expand_bcap)
 
 
 def exact_lists(overlap: torch.Tensor, slots: int):
@@ -373,13 +269,6 @@ def bbox_words(lo: torch.Tensor, hi: torch.Tensor, res: int,
             | (lo_b[..., 1] << 16) | (hi_b[..., 1] << 24)).contiguous()
 
 
-def _expand_bcap(expand_bcap: int | None) -> int:
-    expand_bcap = EXPAND_BCAP if expand_bcap is None else expand_bcap
-    if expand_bcap < 1:
-        raise ValueError(f"expand_bcap must be >= 1, got {expand_bcap}")
-    return expand_bcap
-
-
 def admission_rows_reference(bits: torch.Tensor, n_chunks: int, slots: int):
     """The algorithm of the rows kernels (``csrc/raster_admission.cu``) in
     plain PyTorch: ``exact_lists`` of the overlap matrix packed as bits
@@ -392,33 +281,15 @@ def admission_rows_reference(bits: torch.Tensor, n_chunks: int, slots: int):
 
 
 class Admission(NamedTuple):
-    """The lists of K views' (view, tile) rows and, when compacting, the
-    bbox words (K, Fp) (else None). The exact form (``exact_lists``,
-    ``capped_as_exact``): ``ids`` flat, counts and ``offsets`` (rows,);
-    ``admission_reference`` alone gives the capped form, ``ids`` (rows,
-    ccap) and ``offsets`` None (``admission_lists``)."""
+    """The exact lists of K views' (view, tile) rows (``exact_lists``):
+    ``ids`` flat, ``counts`` and ``offsets`` (rows,), count -1 for a row
+    past the buffer; and, when compacting, the bbox words (K, Fp) (else
+    None)."""
 
     ids: torch.Tensor
     counts: torch.Tensor
     bbox_words: torch.Tensor | None
-    offsets: torch.Tensor | None
-
-
-def admission_reference(cameras: Camera, mesh: TriangleMesh, tile: int,
-                        chunk: int, ccap: int,
-                        hier_min_chunks: int | None = None,
-                        expand_bcap: int | None = None,
-                        compact: bool = False) -> Admission:
-    """The CPU's admission, the JAX package's capped encoding:
-    ``padded_bboxes``, ``tile_admission`` and, when compact, ``bbox_words``,
-    on the mesh's device. -> Admission(ids (K*T, ccap), counts (K*T,), bbox
-    words (K, Fp) or None, None)."""
-    res = cameras.resolution
-    lo, hi = padded_bboxes(cameras, mesh, chunk)
-    ids, counts = tile_admission(lo, hi, res, tile, chunk, ccap,
-                                 hier_min_chunks, expand_bcap)
-    words = bbox_words(lo, hi, res, tile) if compact else None
-    return Admission(ids, counts, words, None)
+    offsets: torch.Tensor
 
 
 def list_slots(ccap: int, n_chunks: int) -> int:
@@ -447,30 +318,18 @@ def admission_exact_reference(cameras: Camera, mesh: TriangleMesh, tile: int,
 
 
 def admission(cameras: Camera, mesh: TriangleMesh, tile: int, chunk: int,
-              ccap: int, hier_min_chunks: int | None = None,
-              expand_bcap: int | None = None,
-              compact: bool = False) -> Admission:
-    """Chunk admission of K views and, when compact, their bbox words, in
-    the exact form (``Admission``). CPU tensors take the JAX package's
-    capped encoding (``admission_reference``: hierarchical past
-    ``hier_min_chunks`` chunks, ``expand_bcap``, the two used only here)
-    through ``capped_as_exact``; CUDA tensors launch the kernels
-    (``_admission_kernels``). While the recorder records, counter
+              ccap: int, compact: bool = False) -> Admission:
+    """Chunk admission of K views and, when compact, their bbox words, in a
+    buffer of ``list_slots`` slots a row: CUDA tensors launch the kernels
+    (``_admission_kernels``), CPU tensors take their plain version
+    (``admission_exact_reference``). While the recorder records, counter
     ``raster.rows_fused`` gains the rows the kernels admitted (none on the
-    plain path) and ``raster.rows_block`` the rows in block mode (none on a
-    card)."""
+    CPU)."""
     if mesh.vertices.device.type != "cpu":
-        if profiler.recording():
-            profiler.count("raster.rows_block", 0)
         return _admission_kernels(cameras, mesh, tile, chunk, ccap, compact)
-    capped = admission_reference(cameras, mesh, tile, chunk, ccap,
-                                 hier_min_chunks, expand_bcap, compact)
     if profiler.recording():
-        profiler.count("raster.rows_fused", 0)  # all admitted by the plain path
-        profiler.count("raster.rows_block", (capped.counts <= -2).sum())
-    n_chunks = -(-mesh.faces.shape[0] // chunk)
-    ids, counts, offsets = capped_as_exact(capped.ids, capped.counts, n_chunks)
-    return Admission(ids, counts, capped.bbox_words, offsets)
+        profiler.count("raster.rows_fused", 0)
+    return admission_exact_reference(cameras, mesh, tile, chunk, ccap, compact)
 
 
 def _admission_kernels(cameras: Camera, mesh: TriangleMesh, tile: int,
@@ -573,19 +432,15 @@ class RasterInputs(NamedTuple):
 
 def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
                    chunk: int = 128, vertex_attrs: torch.Tensor | None = None,
-                   ccap: int | None = None, hier_min_chunks: int | None = None,
-                   expand_bcap: int | None = None, compact: bool = False,
+                   ccap: int | None = None, compact: bool = False,
                    streamed: bool = False) -> RasterInputs:
-    """Admission (``admission``: exact lists from the kernels on a card, the
-    capped encoding as exact lists on the CPU), rays and scene pack for one
-    raster launch over K views; the bbox words when compact, the pack
-    chunk-major when streamed. While the recorder records
-    (``utils.profiler``), the admission rows go to counters ``raster.rows``
-    and ``raster.rows_scan_all`` (the rows that scan every chunk: on a card
-    only longer rows past the list buffer), and the list positions the
-    raster kernel walks (``list_trips``, summed) to
-    ``raster.list_positions``; ``admission`` counts ``raster.rows_fused``,
-    the rows its kernels admitted, and ``raster.rows_block``."""
+    """Admission (``admission``: exact lists, from the kernels on a card),
+    rays and scene pack for one raster launch over K views; the bbox words
+    when compact, the pack chunk-major when streamed. While the recorder
+    records (``utils.profiler``), the admission rows go to counters
+    ``raster.rows`` and ``raster.rows_scan_all`` (the rows that scan every
+    chunk: longer rows past the list buffer); ``admission`` counts
+    ``raster.rows_fused``, the rows its kernels admitted."""
     res = cameras.resolution
     if res % tile:
         raise ValueError(f"resolution {res} is not a multiple of tile {tile}")
@@ -595,13 +450,12 @@ def prepare_raster(cameras: Camera, mesh: TriangleMesh, tile: int = 64,
     n_chunks = -(-F // chunk)
     ccap = min(ccap or CHUNK_LIST_CAP, n_chunks)
     ids, counts, words, offsets = admission(cameras, mesh, tile, chunk, ccap,
-                                            hier_min_chunks, expand_bcap,
                                             compact)
     if profiler.recording():
         profiler.count("raster.rows", counts.numel())
         profiler.count("raster.rows_scan_all", (counts == -1).sum())
-        profiler.count("raster.list_positions",
-                       list_trips(counts, n_chunks).sum())
+        # no block mode; benchmark/metrics/rows_over_ccap_pct.py reads it
+        profiler.count("raster.rows_block", 0)
     origins, dirs = camera_rays(cameras)  # (K,3), (K,H,W,3)
     tile_dirs = _tiles(dirs, K, n1d, tile)  # (K*T, P, 3)
     dir_planes = tuple(tile_dirs[..., i].contiguous() for i in range(3))
@@ -623,8 +477,6 @@ def render_views_fused(
     chunk: int = 128,
     vertex_attrs: torch.Tensor | None = None,
     ccap: int | None = None,
-    hier_min_chunks: int | None = None,
-    expand_bcap: int | None = None,
     streamed: bool | None = None,
     compact: bool | None = None,
     stage_cap: int | None = None,
@@ -635,12 +487,10 @@ def render_views_fused(
 
     Returns batched Fragments (K,H,W,...), and (Fragments, attr_img
     (K,H,W,C)) when vertex_attrs is given. Candidate admission is by
-    128-face chunk: on a card every tile's exact list, in a buffer of
-    ``list_slots`` slots a tile (at least ``ccap``, default CHUNK_LIST_CAP),
-    where only tiles of more chunks than that can fall back to a full scan;
-    on the CPU at most
-    ``ccap`` per tile, tiles that need more taking block mode or a full
-    scan. No candidate is ever dropped.
+    128-face chunk: every tile's exact list, in a buffer of ``list_slots``
+    slots a tile (at least ``ccap``, default CHUNK_LIST_CAP), where only
+    tiles of more chunks than that can fall back to a full scan. No
+    candidate is ever dropped.
 
     The kernel: streamed=True takes kernel C (the pack chunk-major),
     compacting unless compact=False; otherwise compact=True takes kernel B
@@ -660,7 +510,7 @@ def render_views_fused(
         compact = streamed
     with profiler.span("raster.prepare"):
         inp = prepare_raster(cameras, mesh, tile, chunk, vertex_attrs, ccap,
-                             hier_min_chunks, expand_bcap, compact, streamed)
+                             compact, streamed)
     with profiler.span("raster.render"):
         args = (inp.ids, inp.counts, inp.origins, inp.pack)
         kw = dict(chunk=chunk, tiles_per_view=inp.tiles_per_view,

@@ -8,9 +8,7 @@ writes (``raster.admission``): ``ids`` one flat int32 buffer, ``offsets``
 chunks ``ids[offsets[r]:offsets[r] + counts[r]]``, every chunk that holds a
 face whose bbox overlaps the tile, uncapped (a CSR layout: a flat list plus
 row offsets). A row whose list would have run past the buffer has count
--1: scan every chunk. The capped form of the CPU and the JAX package
-(``raster.admission_lists``: block mode, at most ccap ids a row) reaches
-these functions only through ``raster.capped_as_exact``.
+-1: scan every chunk.
 
 For every pixel ray and every swept face, Möller–Trumbore runs in the
 factored form det = -D·n, u·det = D·r, v·det = D·q, t·det = e2·q, with n =
@@ -72,7 +70,7 @@ LANE_MASK = (1 << _IDX_BITS) - 1
 BIG_PACKED = int(np.float32(_BIG).view(np.int32)) & TIE_MASK
 _INT32_MAX = 2**31 - 1
 
-CHUNK_LIST_CAP = 48  # default chunks listed per tile (raster.admission_lists)
+CHUNK_LIST_CAP = 48  # default floor of a row's list slots (raster.list_slots)
 STAGE_CAP = 512  # compacting kernel B: staged faces per row before fallback
 STREAMED_STAGE_CAP = 8192  # kernel C's compacting body
 # list positions per work item of kernels A, B and C (about 2.1 M pixel-face

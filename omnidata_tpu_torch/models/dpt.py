@@ -25,8 +25,7 @@ antialiased when the grid shrinks).
 The forward pass records three spans (``utils.profiler``, only while a
 profiler runs): ``dpt.backbone`` (the ResNet stem and stages),
 ``dpt.encoder`` (the patch projection, position embedding and
-transformer blocks) and ``dpt.decoder`` (reassemble, fusion and head),
-and the counter ``dpt.tokens`` (tokens entering the blocks, cls included).
+transformer blocks) and ``dpt.decoder`` (reassemble, fusion and head).
 """
 from __future__ import annotations
 
@@ -237,8 +236,6 @@ class DPTHybrid(nn.Module):
         tokens = m.patch_embed.proj(feat).flatten(2).transpose(1, 2)  # (B, N, C)
         seq = torch.cat([m.cls_token.expand(B, -1, -1).to(tokens.dtype), tokens], 1)
         seq = seq + self._pos_embed(gh, gw).to(tokens.dtype)
-        if profiler.recording():
-            profiler.count("dpt.tokens", B * seq.shape[1])
         hooked = {}
         for i, block in enumerate(m.blocks):
             seq = block(seq)

@@ -16,13 +16,11 @@ memory by one fetch thread on a side stream (``utils.fetch.fetch_to_host``)
 and yielded once batch b+1's forward pass is enqueued, as
 ``annotator.cli.render_batches`` does with its labels.
 
-Spans and counters (``utils.profiler``, recorded only while a profiler
-runs): ``predict.upload`` (the copy to the device and the normalisation),
+Spans (``utils.profiler``, recorded only while a profiler runs):
+``predict.upload`` (the copy to the device and the normalisation),
 ``predict.model`` (the forward pass and the clamp; inside it a DPT's
-``dpt.*`` spans, around each stage's replay on a card, the counter
-``dpt.tokens`` only where the forward runs eagerly),
-``pipeline.fetch`` and ``pipeline.wait`` as in the CLI's pipeline; counters
-``predict.images`` and ``predict.upload_bytes``.
+``dpt.*`` spans, around each stage's replay on a card), ``pipeline.fetch``
+and ``pipeline.wait`` as in the CLI's pipeline.
 """
 from __future__ import annotations
 
@@ -70,9 +68,6 @@ def predict_batches(model, batches, task: str = "depth"):
             with profiler.in_batch(batch), torch.inference_mode():
                 with profiler.span("predict.upload"):
                     x = _upload(crops, device, task)
-                if profiler.recording():
-                    profiler.count("predict.images", int(crops.shape[0]))
-                    profiler.count("predict.upload_bytes", int(crops.nbytes))
                 with profiler.span("predict.model"):
                     pred = (model(x) if side is None else model.graphed(x)).clamp_(0.0, 1.0)
             ready = None

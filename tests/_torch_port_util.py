@@ -72,10 +72,112 @@ def room_sphere_views(res):
     return jmesh, port_mesh(jmesh), jcam, tcam
 
 
+def admission_lists(overlap, true_counts, ccap, hier, expand_bcap=None):
+    """The JAX package's capped encoding
+    (``omnidata_tpu.mesh.raster.admission_lists``) in plain PyTorch, on any
+    device: per-tile ascending chunk-id lists from the (rows, n_chunks)
+    overlap matrix -> (ids (rows, ccap) int32, counts (rows,) int32).
+
+    counts encoding:
+      >= 0  exact list of that many chunk ids;
+      == -1 scan all chunks (the list overflowed ccap);
+      <= -2 block mode: ids hold bcount = -count-2 ascending 8-chunk Morton
+            BLOCK ids, each expanded to its 8 chunks.
+
+    hier=False: one top-k over all chunks. hier=True: top-k over 8-chunk
+    blocks, then an exact per-chunk top-k over the first expand_bcap
+    (default 32) admitted blocks' chunks; rows with more admitted blocks
+    take block mode when their block list fits ccap, else scan-all."""
+    import torch
+
+    from omnidata_tpu_torch.mesh.raster import _ascending_first
+
+    rows, n_chunks = overlap.shape
+    true_counts = true_counts.to(torch.int32)
+    counts = torch.where(true_counts > ccap, -1, true_counts)
+    pad = torch.nn.functional.pad
+    if not hier:
+        vals, idx = _ascending_first(overlap, min(ccap, n_chunks))
+        ids = torch.where(vals > n_chunks, idx, 0)
+        if n_chunks < ccap:
+            ids = pad(ids, (0, ccap - n_chunks))
+        return ids, counts
+    ab = 8
+    ncb = -(-n_chunks // ab)
+    ovb_any = pad(overlap, (0, ncb * ab - n_chunks)).reshape(rows, ncb, ab).any(-1)
+    bcount = ovb_any.sum(-1).to(torch.int32)
+    bcap = min(ccap, ncb)
+    bvals, bidx = _ascending_first(ovb_any, bcap)
+    blist = torch.where(bvals > ncb, bidx, ncb)  # pad -> all-zero sentinel block
+    bcap2 = min(bcap, 32 if expand_bcap is None else expand_bcap)
+    lanes = torch.arange(ab, dtype=torch.int32, device=overlap.device)
+    cand = (blist[:, :bcap2, None] * ab + lanes).reshape(rows, bcap2 * ab)
+    ov2p = pad(overlap, (0, (ncb + 1) * ab - n_chunks))
+    ovc = torch.gather(ov2p, 1, cand.long())  # (rows, bcap2*ab)
+    ca = bcap2 * ab
+    k2 = min(ccap, ca)
+    vals2, idx2 = _ascending_first(ovc, k2)
+    ids = torch.where(vals2 > ca, torch.gather(cand, 1, idx2.long()), 0)
+    if k2 < ccap:
+        ids = pad(ids, (0, ccap - k2))
+    ids_block = torch.where(bvals > ncb, bidx, 0)
+    if bcap < ccap:
+        ids_block = pad(ids_block, (0, ccap - bcap))
+    exact = (true_counts <= k2) & (bcount <= bcap2)
+    block_mode = ~exact & (bcount <= bcap)
+    ids = torch.where(block_mode[:, None], ids_block, ids)
+    counts = torch.where(exact, true_counts,
+                         torch.where(bcount <= bcap, -bcount - 2, -1))
+    return ids.contiguous(), counts.to(torch.int32)
+
+
+def tile_admission(cams, mesh, tile, chunk, ccap, hier_min_chunks=1024,
+                   expand_bcap=None):
+    """The capped encoding (``admission_lists``) of K views' (view, tile)
+    rows, as the JAX package admits: ``raster.tile_overlap`` of the padded
+    bboxes, hierarchical past hier_min_chunks chunks (the JAX package's
+    default 1024), on the mesh's device -> (ids (K*T, ccap), counts
+    (K*T,))."""
+    from omnidata_tpu_torch.mesh import raster as traster
+
+    lo, hi = traster.padded_bboxes(cams, mesh, chunk)
+    overlap = traster.tile_overlap(lo, hi, cams.resolution, tile, chunk)
+    return admission_lists(overlap, overlap.sum(-1), ccap,
+                           overlap.shape[1] > hier_min_chunks, expand_bcap)
+
+
+def capped_as_exact(ids, counts, n_chunks):
+    """The capped encoding (``admission_lists``: ids (rows, ccap)) in the
+    exact form that the port's raster kernels read (``raster_kernels``'
+    module docstring) -> (ids (max(slots, 1),), counts (rows,), offsets
+    (rows,)), int32. A listed row keeps its chunks; a block-mode row lists
+    the chunks of its 8-chunk blocks below n_chunks, ascending; a scan-all
+    row keeps count -1 and no slots. The kernels sweep the same chunks in
+    the same order, less the re-sweeps of the last chunk that a block past
+    it made, which change no winner."""
+    import torch
+
+    rows, ccap = ids.shape
+    block = counts <= -2
+    j = torch.arange(8 * ccap, device=ids.device)
+    by_block = ids.repeat_interleave(8, 1) * 8 + j % 8
+    listed = torch.nn.functional.pad(ids, (0, 7 * ccap))
+    chunk_ids = torch.where(block[:, None], by_block, listed)
+    take = torch.where(block[:, None],
+                       (j // 8 < (-counts - 2)[:, None]) & (by_block < n_chunks),
+                       j < counts[:, None])
+    n = take.sum(1)
+    flat = chunk_ids[take].to(torch.int32)  # row-major, so at the offsets
+    if flat.numel() == 0:
+        flat = torch.zeros(1, dtype=torch.int32, device=ids.device)
+    return (flat, torch.where(counts == -1, -1, n).to(torch.int32),
+            (torch.cumsum(n, 0) - n).to(torch.int32))
+
+
 def mixed_lists(mesh, cams, tile, chunk):
     """Raster kernel inputs whose admission lists, in the capped form
-    (``raster.admission_reference``, on any device), hold exact, scan-all
-    and block-mode rows (ccap 4), with the vertex normals as attributes:
+    (``tile_admission``, on any device), hold exact, scan-all and
+    block-mode rows (ccap 4), with the vertex normals as attributes:
     ((ids, counts, origins, pack, bbox_words, dir_planes), tiles_per_view).
     The JAX package's kernels take these lists; the port's take them
     through ``as_exact``."""
@@ -85,24 +187,22 @@ def mixed_lists(mesh, cams, tile, chunk):
 
     inp = traster.prepare_raster(cams, mesh, tile, chunk, mesh.vertex_normals,
                                  compact=True)
-    flat, blk = (traster.admission_reference(cams, mesh, tile, chunk, 4, h)
-                 for h in (10**9, 1))
-    use_blk = blk.counts <= -2
-    ids = torch.where(use_blk[:, None], blk.ids, flat.ids).contiguous()
-    counts = torch.where(use_blk, blk.counts, flat.counts).contiguous()
+    (f_ids, f_counts), (b_ids, b_counts) = (
+        tile_admission(cams, mesh, tile, chunk, 4, h) for h in (10**9, 1))
+    use_blk = b_counts <= -2
+    ids = torch.where(use_blk[:, None], b_ids, f_ids).contiguous()
+    counts = torch.where(use_blk, b_counts, f_counts).contiguous()
     return ((ids, counts, inp.origins, inp.pack, inp.bbox_words,
              inp.dir_planes), inp.tiles_per_view)
 
 
 def as_exact(args, chunk):
     """Kernel inputs with capped lists (``mixed_lists``) given as the exact
-    lists the port's kernels read (``raster.capped_as_exact``) -> (args,
+    lists the port's kernels read (``capped_as_exact``) -> (args,
     offsets)."""
-    from omnidata_tpu_torch.mesh import raster as traster
-
     ids, counts, origins, pack, *rest = args
     n_chunks = pack.shape[0] if pack.dim() == 3 else pack.shape[1] // chunk
-    ids, counts, offsets = traster.capped_as_exact(ids, counts, n_chunks)
+    ids, counts, offsets = capped_as_exact(ids, counts, n_chunks)
     return (ids, counts, origins, pack, *rest), offsets
 
 

@@ -1,7 +1,8 @@
 """Card-only tests of the CUDA raster kernels: each bit-exact against its
 plain PyTorch version on the same CUDA tensors, on the card's exact lists
-(at row offsets; scan-all rows past the buffer) and on the CPU's capped
-lists given as exact ones (``raster.capped_as_exact``), and for the
+(at row offsets; scan-all rows past the buffer) and on the JAX package's
+capped lists given as exact ones (``_torch_port_util.capped_as_exact``),
+and for the
 pixel-per-thread layouts of tiles 8 to 64; the admission kernels against
 the plain version of the card's admission, also past 2^31 rows x chunks;
 the compacting bodies also at a stage cap small enough to force the
@@ -33,8 +34,8 @@ from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
 
 from _torch_port_util import (as_exact, chunk_major, exact_inputs,
-                              mixed_inputs, mixed_lists, two_pass_fits,
-                              with_block_tail)
+                              mixed_inputs, mixed_lists, tile_admission,
+                              two_pass_fits, with_block_tail)
 
 pytestmark = pytest.mark.cuda
 
@@ -357,8 +358,7 @@ def _assert_admission_equal(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-ADMISSION_SETTINGS = [(hier_min, ccap, eb) for hier_min in (1, 10**9)
-                      for ccap in (1, 8, 48, 192) for eb in (1, 32)]
+ADMISSION_CCAPS = (1, 8, 48, 192)
 
 
 @pytest.mark.parametrize("K", [1, 3, 32])
@@ -368,8 +368,7 @@ def test_admission_kernels_match_plain_path_bitwise(admission_scene, tile, K):
     admission (padded_bboxes, tile_overlap, exact_lists, bbox_words) on the
     same CUDA tensors at 128², at ccap 1, 8, 48 and 192 (buffers of 8, 8,
     48 and 192 slots a row: ``list_slots``, at least the bit matrix's 8
-    words; hier_min_chunks and expand_bcap, which a card does not use,
-    varied too): every slot of the flat ids, the counts, the offsets and
+    words): every slot of the flat ids, the counts, the offsets and
     the bbox words equal; faces straddle the near plane, lie behind it and
     off screen; rows end exact and, past the buffer (32 views in tiles of
     64), scan-all, only rows longer than the slots a row; none in block
@@ -378,10 +377,9 @@ def test_admission_kernels_match_plain_path_bitwise(admission_scene, tile, K):
     cams = _admission_views(K, 128, "cuda")
     assert mesh.faces.shape[0] % 128 and all(_face_kinds(mesh, cams))
     kinds = set()
-    for hier_min, ccap, eb in ADMISSION_SETTINGS:
+    for ccap in ADMISSION_CCAPS:
         before = traster.admission.launches
-        got = traster.admission(cams, mesh, tile, 128, ccap, hier_min, eb,
-                                compact=True)
+        got = traster.admission(cams, mesh, tile, 128, ccap, compact=True)
         torch.cuda.synchronize()
         assert traster.admission.launches == before + 1
         want = traster.admission_exact_reference(cams, mesh, tile, 128, ccap,
@@ -411,8 +409,8 @@ def test_admission_kernels_match_plain_path_at_other_shapes(admission_scene, res
                                                             tile, K, chunk):
     mesh = admission_scene
     cams = _admission_views(K, res, "cuda", seed=res + K)
-    for hier_min, compact in ((1, True), (10**9, False)):
-        got = traster.admission(cams, mesh, tile, chunk, 48, hier_min, 32, compact)
+    for compact in (True, False):
+        got = traster.admission(cams, mesh, tile, chunk, 48, compact)
         want = traster.admission_exact_reference(cams, mesh, tile, chunk, 48,
                                                  compact)
         _assert_admission_equal(got, want)
@@ -479,8 +477,8 @@ def test_prepare_raster_on_the_card_admits_through_the_kernels(admission_scene):
     mesh = admission_scene
     cams = _admission_views(3, 128, "cuda")
     before = traster.admission.launches
-    inp = traster.prepare_raster(cams, mesh, 32, 128, ccap=8, hier_min_chunks=1,
-                                 compact=True, streamed=True)
+    inp = traster.prepare_raster(cams, mesh, 32, 128, ccap=8, compact=True,
+                                 streamed=True)
     assert traster.admission.launches == before + 1
     want = traster.admission_exact_reference(cams, mesh, 32, 128, 8, True)
     _assert_admission_equal((inp.ids, inp.counts, inp.bbox_words, inp.offsets),
@@ -488,27 +486,24 @@ def test_prepare_raster_on_the_card_admits_through_the_kernels(admission_scene):
 
 
 def test_prepare_raster_on_the_card_has_no_stand_in_rows(admission_scene):
-    """Tile 8, ccap 2, hierarchical with expand_bcap 1: the capped encoding
-    (admission_reference, on the same CUDA tensors) puts rows in block mode
-    and scan-all; on the card prepare_raster lists every row exactly, its
-    counters record no stand-in row, and the list positions are the sum of
-    the exact counts."""
+    """Tile 8, ccap 2: the JAX package's capped encoding, hierarchical with
+    expand_bcap 1 (``tile_admission``, on the same CUDA tensors), puts rows
+    in block mode and scan-all; on the card prepare_raster lists every row
+    exactly, and its counters record no stand-in row and every row admitted
+    by the kernels."""
     from omnidata_tpu_torch.utils import profiler
 
     mesh = admission_scene
     cams = _admission_views(3, 128, "cuda")
-    capped = traster.admission_reference(cams, mesh, 8, 128, 2, 1, 1).counts
+    capped = tile_admission(cams, mesh, 8, 128, 2, 1, 1)[1]
     assert bool((capped == -1).any()) and bool((capped <= -2).any())
     profiler.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        inp = traster.prepare_raster(cams, mesh, 8, 128, ccap=2,
-                                     hier_min_chunks=1, expand_bcap=1,
-                                     streamed=True)
+        inp = traster.prepare_raster(cams, mesh, 8, 128, ccap=2, streamed=True)
     got = {k: v["total"] for k, v in profiler.summary()["counters"].items()}
     profiler.reset()
     assert bool((inp.counts >= 0).all())
     assert int(got["raster.rows_block"]) == int(got["raster.rows_scan_all"]) == 0
-    assert int(got["raster.list_positions"]) == int(inp.counts.sum())
     assert int(got["raster.rows"]) == int(got["raster.rows_fused"]) == capped.numel()
 
 

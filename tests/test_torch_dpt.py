@@ -187,9 +187,6 @@ def test_predict_records_spans_and_counters_only_while_profiling():
     for name in DPT_SPANS:
         assert got["spans"][name]["parents"] == ["predict.model"]
     c = got["counters"]
-    assert c["predict.images"] == {"total": 4, "batches": ids}
-    assert c["predict.upload_bytes"]["total"] == sum(b.nbytes for b in batches)
-    assert c["dpt.tokens"]["total"] == 2 * 2 * (4 * 4 + 1)  # (64 / 16)^2 + cls a view
     assert c["fetch.bytes"]["total"] == 4 * 64 * 64 * 4
 
 

@@ -23,8 +23,9 @@ from omnidata_tpu_torch.mesh import raster as traster
 from omnidata_tpu_torch.mesh import raster_kernels as tk
 from omnidata_tpu_torch.utils import profiler
 
-from _torch_port_util import (as_exact, clustered_overlap, mixed_lists,
-                              pack_bits, room_sphere_views, two_pass_fits)
+from _torch_port_util import (admission_lists, as_exact, capped_as_exact,
+                              clustered_overlap, mixed_lists, pack_bits,
+                              room_sphere_views, tile_admission, two_pass_fits)
 
 torch.set_num_threads(1)
 
@@ -63,8 +64,9 @@ def test_face_screen_bboxes_match_jax(scene):
     (False, 48, None), (False, 4, None), (True, 4, None), (True, 48, 1),
 ])
 def test_admission_lists_match_jax(hier, ccap, expand_bcap):
-    """Same overlap matrix -> identical ids and counts, in every encoding
-    (exact, scan-all, block mode)."""
+    """The tests' capped encoding in plain PyTorch: the same overlap matrix
+    -> identical ids and counts, in every encoding (exact, scan-all, block
+    mode)."""
     rng = np.random.RandomState(7)
     rows, n_chunks = 40, 70
     dens = rng.uniform(0.0, 0.3, (rows, 1))
@@ -74,7 +76,7 @@ def test_admission_lists_match_jax(hier, ccap, expand_bcap):
     want_ids, want_counts = jraster.admission_lists(
         jnp.asarray(overlap), jnp.asarray(counts_true), ccap, hier,
         expand_bcap=expand_bcap)
-    ids, counts = traster.admission_lists(
+    ids, counts = admission_lists(
         torch.as_tensor(overlap), torch.as_tensor(counts_true), ccap, hier,
         expand_bcap=expand_bcap)
     assert ids.dtype == torch.int32 and counts.dtype == torch.int32
@@ -95,7 +97,7 @@ def test_admission_rows_reference_matches_admission_lists(hier, ccap, expand_bca
     multiple of 8 or 32) in a buffer of rows * ccap slots, past which only
     rows longer than ccap scan every chunk."""
     overlap = clustered_overlap(np.random.RandomState(11), 140, 4001)
-    want_ids, want_counts = traster.admission_lists(
+    want_ids, want_counts = admission_lists(
         overlap, overlap.sum(-1), ccap, hier, expand_bcap=expand_bcap)
     ids, counts, offsets = traster.admission_rows_reference(
         pack_bits(overlap), 4001, ccap)
@@ -167,8 +169,8 @@ def test_exact_lists_keep_short_rows_past_a_full_buffer():
 
 def test_admission_refuses_what_no_kernel_takes(scene):
     """A device with no kernels (meta) raises rather than take the plain
-    path, as do an expand_bcap below 1 and a resolution whose tiles the
-    bbox words cannot hold; nothing is launched."""
+    path, as does a resolution whose tiles the bbox words cannot hold;
+    nothing is launched."""
     _, tmesh, _, tcam = scene
     meta = dict(vertices=tmesh.vertices.to("meta"), faces=tmesh.faces.to("meta"))
     mmesh = tmesh._replace(**meta)
@@ -177,8 +179,6 @@ def test_admission_refuses_what_no_kernel_takes(scene):
     before = traster.admission.launches
     with pytest.raises(ValueError, match="no kernel for meta"):
         traster.admission(mcam, mmesh, 16, 64, 8)
-    with pytest.raises(ValueError, match="expand_bcap"):  # the CPU's option
-        traster.admission(tcam, tmesh, 16, 64, 8, 1, expand_bcap=0)
     with pytest.raises(ValueError, match="raise the tile size"):
         traster.admission(dataclasses.replace(mcam, resolution=4096), mmesh, 8, 64,
                           8, compact=True)
@@ -213,52 +213,63 @@ def _jax_admission(lo, hi, res, tile, chunk, ccap, hier, expand_bcap):
 ])
 def test_prepare_raster_admission_matches_plain_and_jax(
         scene, tile, chunk, ccap, hier_min, expand_bcap, compact):
-    """prepare_raster on CPU tensors admits through the plain functions
-    (padded_bboxes, tile_admission, bbox_words) exactly, given as exact
-    lists (capped_as_exact), and the capped lists and the words equal the
-    JAX package's admission and word formula on the same bboxes; chunk 48
+    """prepare_raster on CPU tensors admits through the plain version of
+    the card's admission (admission_exact_reference) exactly; every row that
+    the JAX package's capped admission (hier_min and expand_bcap on its
+    side only) lists exactly has the same chunks in the port's exact list,
+    each of its block-mode rows lists the blocks of the port's list, and
+    each of its scan-all rows is longer than its cap in the port's; the
+    words equal the JAX package's word formula on the same bboxes; chunk 48
     leaves padding past the mesh's faces."""
     jmesh, tmesh, _, tcam = scene
     inp = traster.prepare_raster(tcam, tmesh, tile, chunk, ccap=ccap,
-                                 hier_min_chunks=hier_min,
-                                 expand_bcap=expand_bcap, compact=compact)
+                                 compact=compact)
     n_chunks = -(-tmesh.faces.shape[0] // chunk)
     ccap = min(ccap, n_chunks)
+    want = traster.admission_exact_reference(tcam, tmesh, tile, chunk, ccap,
+                                             compact)
+    for g, w in zip((inp.ids, inp.counts, inp.bbox_words, inp.offsets), want):
+        assert (g is None and w is None) or torch.equal(g, w)
     lo, hi = traster.padded_bboxes(tcam, tmesh, chunk)
-    ids, counts = traster.tile_admission(lo, hi, RES, tile, chunk, ccap,
-                                         hier_min, expand_bcap)
-    for g, w in zip((inp.ids, inp.counts, inp.offsets),
-                    traster.capped_as_exact(ids, counts, n_chunks)):
-        assert torch.equal(g, w)
     assert (inp.bbox_words is None) != compact
     if compact:
-        assert torch.equal(inp.bbox_words, traster.bbox_words(lo, hi, RES, tile))
         jlo, jhi = jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy())
 
         def q(x, step):
             return jnp.clip(jnp.floor(x / step), 0, 255).astype(jnp.int32)
 
-        want = (q(jlo - 1.0, tile)[..., 0] | (q(jhi + 1.0, tile)[..., 0] << 8)
-                | (q(jlo - 1.0, 8.0)[..., 1] << 16) | (q(jhi + 1.0, 8.0)[..., 1] << 24))
-        np.testing.assert_array_equal(inp.bbox_words.numpy(), np.asarray(want))
-    hier = n_chunks > (traster.HIER_ADMISSION_MIN_CHUNKS if hier_min is None
+        words = (q(jlo - 1.0, tile)[..., 0] | (q(jhi + 1.0, tile)[..., 0] << 8)
+                 | (q(jlo - 1.0, 8.0)[..., 1] << 16) | (q(jhi + 1.0, 8.0)[..., 1] << 24))
+        np.testing.assert_array_equal(inp.bbox_words.numpy(), np.asarray(words))
+    hier = n_chunks > (jraster.HIER_ADMISSION_MIN_CHUNKS if hier_min is None
                        else hier_min)
-    want_ids, want_counts = _jax_admission(lo, hi, RES, tile, chunk, ccap, hier,
-                                           expand_bcap)
-    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
-    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
-    assert (counts != 0).any()
+    want_ids, want_counts = (np.asarray(a) for a in _jax_admission(
+        lo, hi, RES, tile, chunk, ccap, hier, expand_bcap))
+    assert (want_counts != 0).any()
+    cap = ccap  # the longest list JAX's admission holds exactly
+    if hier:  # its stage 2 sorts the chunks of at most bcap2 blocks
+        eb = jraster.EXPAND_BCAP if expand_bcap is None else expand_bcap
+        cap = min(ccap, min(ccap, -(-n_chunks // 8), eb) * 8)
+    ids, counts, offsets = (a.numpy() for a in (inp.ids, inp.counts, inp.offsets))
+    for r in range(counts.size):
+        mine = ids[offsets[r]:offsets[r] + counts[r]]
+        if want_counts[r] >= 0:  # listed exactly: the same list
+            assert counts[r] == want_counts[r], r
+            np.testing.assert_array_equal(mine, want_ids[r, :want_counts[r]])
+        elif want_counts[r] == -1:  # scan-all: longer than JAX's cap
+            assert counts[r] == -1 or counts[r] > cap, r
+        elif counts[r] >= 0:  # block mode: the same 8-chunk blocks
+            np.testing.assert_array_equal(np.unique(mine // 8),
+                                          want_ids[r, :-want_counts[r] - 2])
 
 
 def test_admission_on_cpu_is_the_plain_version(scene):
     _, tmesh, _, tcam = scene
     before = traster.admission.launches
-    got = traster.admission(tcam, tmesh, 16, 64, 8, 1, 1, compact=True)
-    want = traster.admission_reference(tcam, tmesh, 16, 64, 8, 1, 1, compact=True)
-    assert want.offsets is None  # the capped form
-    n_chunks = -(-tmesh.faces.shape[0] // 64)
-    ids, counts, offsets = traster.capped_as_exact(want.ids, want.counts, n_chunks)
-    for g, w in zip(got, (ids, counts, want.bbox_words, offsets)):
+    got = traster.admission(tcam, tmesh, 16, 64, 8, compact=True)
+    want = traster.admission_exact_reference(tcam, tmesh, 16, 64, 8,
+                                             compact=True)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert traster.admission.launches == before
 
@@ -314,7 +325,7 @@ def test_chunk_schedule_decodes_every_encoding():
     ids = torch.tensor([[3, 5, 9, 0], [1, 2, 0, 0], [0, 0, 0, 0]],
                        dtype=torch.int32)
     counts = torch.tensor([3, -4, -1], dtype=torch.int32)  # exact, 2 blocks, all
-    flat, counts, offsets = traster.capped_as_exact(ids, counts, 20)
+    flat, counts, offsets = capped_as_exact(ids, counts, 20)
     assert counts.tolist() == [3, 12, -1] and offsets.tolist() == [0, 3, 15]
     trip, chunk_of = tk.chunk_schedule(flat, counts, 20, offsets)
     assert trip.tolist() == [3, 12, 20]
@@ -327,11 +338,13 @@ def test_chunk_schedule_decodes_every_encoding():
 @pytest.mark.parametrize("hier_min_chunks, ccap", [(None, None), (1, 4)])
 def test_render_views_fused_matches_jax(scene, hier_min_chunks, ccap):
     """The render stage end to end (bboxes, admission, kernel, decode,
-    untile, z) against the JAX renderer with the Pallas kernel (interpret)."""
+    untile, z) against the JAX renderer with the Pallas kernel (interpret);
+    hier_min_chunks is the JAX side's option."""
     jmesh, tmesh, jcam, tcam = scene
-    kw = dict(tile=32, chunk=CHUNK, ccap=ccap, hier_min_chunks=hier_min_chunks)
+    kw = dict(tile=32, chunk=CHUNK, ccap=ccap)
     jf, ja = jraster.render_views_fused(
-        jcam, jmesh, interpret=True, vertex_attrs=jmesh.vertex_normals, **kw)
+        jcam, jmesh, interpret=True, vertex_attrs=jmesh.vertex_normals,
+        hier_min_chunks=hier_min_chunks, **kw)
     tf, ta = traster.render_views_fused(
         tcam, tmesh, vertex_attrs=tmesh.vertex_normals, **kw)
     assert tf.t.shape == (2, RES, RES) and ta.shape == (2, RES, RES, 3)
@@ -368,77 +381,75 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors(scene):
         tk.raster_tiles_chunklist(ids.long(), counts, origins, pack, dirs, **kw)
 
 
-def _exact_admission(ccap_of):
-    """``raster.admission`` as a card admits (``exact_lists``, and no
-    block-mode rows to count), plainly, in a buffer of ccap_of(the ccap
-    asked for, the longest list) slots a row."""
-    def admit(cameras, mesh, tile, chunk, ccap, hier_min_chunks=None,
-              expand_bcap=None, compact=False):
-        if profiler.recording():
-            profiler.count("raster.rows_block", 0)
-        lo, hi = traster.padded_bboxes(cameras, mesh, chunk)
-        overlap = traster.tile_overlap(lo, hi, cameras.resolution, tile, chunk)
-        ids, counts, offsets = traster.exact_lists(
-            overlap, ccap_of(ccap, int(overlap.sum(1).max())))
-        words = (traster.bbox_words(lo, hi, cameras.resolution, tile)
-                 if compact else None)
-        return traster.Admission(ids, counts, words, offsets)
-    return admit
+def _capped_admission(cameras, mesh, tile, chunk, ccap, compact=False):
+    """``raster.admission`` as the JAX package admits, hierarchical: the
+    capped encoding (``tile_admission``, with block-mode and scan-all rows)
+    given as exact lists, and the bbox words when compact."""
+    ids, counts = tile_admission(cameras, mesh, tile, chunk, ccap, 1)
+    n_chunks = -(-mesh.faces.shape[0] // chunk)
+    ids, counts, offsets = capped_as_exact(ids, counts, n_chunks)
+    lo, hi = traster.padded_bboxes(cameras, mesh, chunk)
+    words = (traster.bbox_words(lo, hi, cameras.resolution, tile)
+             if compact else None)
+    return traster.Admission(ids, counts, words, offsets)
 
 
 KERNEL_ROUTES = [{}, dict(compact=True), dict(streamed=True)]
 ROUTE_IDS = ["chunklist", "compact", "streamed_compact"]
 
 
-def _render_both(scene, monkeypatch, kw, ccap_of):
-    """render_views_fused at tile 8, ccap 4, hierarchical (the capped
-    encoding's block-mode and scan-all rows), on the capped lists and on
-    exact ones; -> (capped, exact, recorder counters of the exact run,
-    exact counts, the rows' set counts)."""
+def _render_both(scene, monkeypatch, kw, ccap):
+    """render_views_fused at tile 8 on the capped lists (ccap 4,
+    hierarchical: the capped encoding's block-mode and scan-all rows) and on
+    the port's own exact lists at ccap; -> (capped, exact, recorder counters
+    of the exact run, exact counts, the rows' set counts, list slots)."""
     _, tmesh, _, tcam = scene
     args = (tcam, tmesh, 8, CHUNK, tmesh.vertex_normals)
-    opts = dict(ccap=4, hier_min_chunks=1, **kw)
-    c = traster.admission_reference(tcam, tmesh, 8, CHUNK, 4, 1).counts
+    c = tile_admission(tcam, tmesh, 8, CHUNK, 4, 1)[1]
     assert bool((c == -1).any()) and bool((c <= -2).any())
-    want = traster.render_views_fused(*args, **opts)
-    admit = _exact_admission(ccap_of)
-    monkeypatch.setattr(traster, "admission", admit)
     profiler.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        got = traster.render_views_fused(*args, **opts)
+        got = traster.render_views_fused(*args, ccap=ccap, **kw)
     counters = {k: v["total"] for k, v in profiler.summary()["counters"].items()}
     profiler.reset()
+    with monkeypatch.context() as m:
+        m.setattr(traster, "admission", _capped_admission)
+        want = traster.render_views_fused(*args, ccap=4, **kw)
+    n_chunks = -(-tmesh.faces.shape[0] // CHUNK)
     lo, hi = traster.padded_bboxes(tcam, tmesh, CHUNK)
     n = traster.tile_overlap(lo, hi, tcam.resolution, 8, CHUNK).sum(1)
-    return want, got, counters, admit(tcam, tmesh, 8, CHUNK, 4).counts, n
+    counts = traster.prepare_raster(tcam, tmesh, 8, CHUNK, ccap=ccap).counts
+    slots = traster.list_slots(min(ccap, n_chunks), n_chunks)
+    return want, got, counters, counts, n, slots
 
 
 @pytest.mark.parametrize("kw", KERNEL_ROUTES, ids=ROUTE_IDS)
 def test_render_views_fused_exact_lists_equal_capped(scene, monkeypatch, kw):
-    """Every row's exact list (all fit) in place of the capped encoding's
-    block-mode and scan-all stand-ins: the decoded outputs equal bit for
-    bit, and no row is counted on a stand-in encoding."""
-    want, got, counters, counts, _ = _render_both(
-        scene, monkeypatch, kw, lambda ccap, longest: longest)
+    """The port's admission, every row's exact list (all fit at a ccap of
+    every chunk), in place of the capped encoding's block-mode and scan-all
+    stand-ins: the decoded outputs equal bit for bit, and no row is counted
+    on a stand-in encoding."""
+    want, got, counters, counts, _, _ = _render_both(scene, monkeypatch, kw, 64)
     assert bool((counts >= 0).all())
     for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
         assert torch.equal(g, w)
     assert counters["raster.rows_block"] == counters["raster.rows_scan_all"] == 0
-    assert counters["raster.list_positions"] == int(counts.sum())
+    assert counters["raster.rows_fused"] == 0  # no kernel on the CPU
 
 
 @pytest.mark.parametrize("kw", KERNEL_ROUTES, ids=ROUTE_IDS)
 def test_exact_lists_past_the_capacity_scan_all(scene, monkeypatch, kw):
-    """A buffer of one slot a row, which the longer rows overflow: the rows
-    past it, longer rows only, scan every chunk, are counted in
-    raster.rows_scan_all, and the outputs still equal the capped
-    encoding's."""
-    want, got, counters, counts, n = _render_both(
-        scene, monkeypatch, kw, lambda ccap, longest: 1)
+    """The port's admission at ccap 1, a buffer of list_slots(1, 63) = 2
+    slots a row, which the longer rows overflow: the rows past it, longer
+    rows only, scan every chunk, are counted in raster.rows_scan_all, and
+    the outputs still equal the capped encoding's."""
+    want, got, counters, counts, n, slots = _render_both(
+        scene, monkeypatch, kw, 1)
+    assert slots == 2
     n_scan = int((counts == -1).sum())
     assert 0 < n_scan < counts.numel()
-    assert bool((n[counts == -1] > 1).all())  # longer rows alone
-    assert bool((counts[n <= 1] >= 0).all())
+    assert bool((n[counts == -1] > slots).all())  # longer rows alone
+    assert bool((counts[n <= slots] >= 0).all())
     assert counters["raster.rows_scan_all"] == n_scan
     assert counters["raster.rows_block"] == 0
     for g, w in zip((*got[0], got[1]), (*want[0], want[1])):

@@ -11,7 +11,7 @@ B's compacting kernel on the scenes of tests/test_mesh.py:554,590.
 Inputs: the scenes of tests/test_mesh.py's kernel tests (:523 room, :554
 room and sphere, :590 horizontal strips) and the port's room-and-sphere
 views, with exact, scan-all (ccap 4) and block-mode rows given as exact
-lists (``raster.capped_as_exact``), a block-mode row whose last block runs
+lists (``_torch_port_util.capped_as_exact``), a block-mode row whose last block runs
 past the last chunk, and rows past a stage cap of 64; and the card's exact
 lists (flat, at row offsets) of the room-and-sphere views, some longer rows
 past their buffer.

@@ -3,8 +3,10 @@ package's brute-force raycaster (every ray against every face, no
 admission): small test meshes once hid a candidate-dropping bug, so the
 chunk admission is checked at bench geometry, for each raster kernel
 (chunk list, compacting, streamed, streamed + compacting; their plain
-versions here). Two views at 64², the bench's tile 32 and chunk 128, which
-puts a scan-all row in the lists. The raycast runs once per module.
+versions here). Two views at 64², the bench's tile 32 and chunk 128: at
+the default ccap, where every row is listed exactly, and at ccap 1, a buffer
+of list_slots(1, 312) = 10 slots a row, which the longest rows overflow, so
+that the lists hold scan-all rows too. The raycast runs once per module.
 
 Tolerance: `valid` equal everywhere; `face` equal on >= 99.9% of pixels;
 where faces differ (shared-edge or coplanar ties, which the raycaster's
@@ -36,7 +38,7 @@ def bench_views():
     cams = Camera(torch.as_tensor(locs), torch.as_tensor(Rs),
                   torch.as_tensor(fovs), RES)
     inp = traster.prepare_raster(cams, mesh, tile=32, chunk=128)
-    assert (inp.counts == -1).any() and (inp.counts >= 0).any()
+    assert (inp.counts >= 0).all()  # the main path lists every row
     jmesh = JaxMesh(num_faces=mesh.num_faces, **{
         k: None if getattr(mesh, k) is None else jnp.asarray(getattr(mesh, k).numpy())
         for k in MESH_FIELDS})
@@ -48,17 +50,33 @@ def bench_views():
     return mesh, cams, want
 
 
-@pytest.mark.parametrize("kw", [{}, dict(compact=True), dict(streamed=True,
-                                                             compact=False),
-                                dict(streamed=True)],
-                         ids=["chunklist", "compact", "streamed",
-                              "streamed_compact"])
-def test_bench_scene_render_matches_brute_raycaster(bench_views, kw):
+KERNELS = pytest.mark.parametrize(
+    "kw", [{}, dict(compact=True), dict(streamed=True, compact=False),
+           dict(streamed=True)],
+    ids=["chunklist", "compact", "streamed", "streamed_compact"])
+
+
+def _check_render(bench_views, kw, **opts):
     mesh, cams, (jv, jf, jt) = bench_views
-    frag = traster.render_views_fused(cams, mesh, tile=32, chunk=128, **kw)
+    frag = traster.render_views_fused(cams, mesh, tile=32, chunk=128,
+                                      **opts, **kw)
     tv, tf, tt = frag.valid.numpy(), frag.face.numpy(), frag.t.numpy()
     np.testing.assert_array_equal(tv, jv)
     assert tv.mean() > 0.99  # inside a closed room
     assert (tf == jf).mean() >= 0.999, (tf != jf).sum()
     differ = (tf != jf) & tv
     np.testing.assert_allclose(tt[differ], jt[differ], rtol=1e-4)
+
+
+@KERNELS
+def test_bench_scene_render_matches_brute_raycaster(bench_views, kw):
+    _check_render(bench_views, kw)
+
+
+@KERNELS
+def test_bench_scene_scan_all_rows_match_brute_raycaster(bench_views, kw):
+    mesh, cams, _ = bench_views
+    counts = traster.prepare_raster(cams, mesh, tile=32, chunk=128,
+                                    ccap=1).counts
+    assert (counts == -1).any() and (counts >= 0).any()
+    _check_render(bench_views, kw, ccap=1)
