@@ -92,14 +92,16 @@ Phases, each of which fails the run on error:
     ray-triangle tests per second.
 11. CLI on the bench scene: ``main(["--model_path", d, "--task", "all",
     "with", "NUM_POINTS=4", "STOP_VIEW_NUMBER=3"])``; every task's outputs
-    there and decoding, the admission kernels and kernel A launched
-    (counts reset just before, read just after), the device PNGs equal to
+    there and decoding, the admission kernels and kernel A launched, and
+    the keypoints2d kernel once a batch (counts reset just before, read
+    just after), the device PNGs equal to
     ``annotate_views`` on the plain admission and rasters for the same
     views and batches. The plain rasters run 2 views at a time, which gives
     the whole batch's rows.
 12. CLI on the large scene: ``--task points`` at the default settings
     (timed), then the 12 device tasks in one ``run_device_tasks`` call:
-    the admission kernels and kernel C launched, kernel A not; viewpoints/s with the PNG writes,
+    the admission kernels and kernel C launched, kernel A not, the
+    keypoints2d kernel once a batch; viewpoints/s with the PNG writes,
     and of the same batches rendered and fetched without them. Then the
     CLI batch with the most rows longer than the CLI's own ``ccap`` (the
     JAX package's capped encoding's block-mode and scan-all rows; here exact
@@ -279,8 +281,9 @@ Phases, each of which fails the run on error:
     torch's defaults: the xl scene (1,423,360 faces, an assumed room-scale
     scan's size) through ``bench_large_scene(build=build_xl_scene,
     prefix="xl")`` at 1 repetition: the admission kernels and kernel C's
-    count pass and sweep launched and kernel A not (counters reset just
-    before, read just after), the rows past C's
+    count pass and sweep launched and kernel A not, the keypoints2d kernel
+    once an ``annotate_views`` call (counters reset just before, read just
+    after), the rows past C's
     stage cap, split rows, ``prepare_raster``'s peak memory; every xl label
     present with face ids agreeing with ``mask_valid``; kernel C's
     compacting body alone at K = 32 on the xl batch (CUDA events) beside
@@ -292,6 +295,13 @@ Phases, each of which fails the run on error:
     batch of the bench scene (kernel A launched, the host-cue pool runs one
     job a view with finite seconds); the bench's headline line at 1
     repetition.
+23. ``keypoints2d`` at K = 32 and K = 1 on seeded 512² grey images: the
+    kernel (``csrc/keypoints2d.cu``) bit for bit against its plain version
+    on the same CUDA tensors, one launch a call; the plain version, the
+    whole call and the kernel alone timed in turns by CUDA events, beside
+    the kernel's bound (its float operations at the unfused FP32 rate) and
+    the floor of its design (its corner reads out of shared memory). The
+    main path's launches are counted in phases 11, 12 and 22.
 The CLI phases work in ``build/chip_smoke_cli/`` and log the CLI's own
 output to ``build/chip_smoke_cli/cli.log``; a failing CLI call prints the
 log's last lines to stderr.
@@ -342,6 +352,16 @@ TIMED_REPS = 5
 LARGE_CCAP = 192  # bench.py's large-scene call
 LARGE_BATCHES = 2
 PLAIN48_VIEWS = 4  # phase 9: C at ccap 48 against its plain version on these views' rows
+# phase 23, an H100 SXM's 132 SMs at the 1.98 GHz boost clock: shared memory
+# at 128 B a clock an SM; FP32 at 128 lanes an SM, one operation a lane and
+# clock (the FMA rate halved: the kernel fuses nothing); HBM3 at 3.35 TB/s
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
+FP32_OPS_PER_S = 128 * 132 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+KEYPOINT_CORNERS = 32  # corner reads a pixel and scale: 8 boxes x 4
+# float operations a pixel and scale: 8 boxes x 3, dxy 5, dxx and dyy 4
+# each, the determinant 4, the maximum 1
+KEYPOINT_OPS = 42
 
 EXPECTED = {  # modality -> (trailing shape, dtype name)
     "depth_zbuffer": ((), "uint16"),
@@ -356,7 +376,8 @@ EXPECTED = {  # modality -> (trailing shape, dtype name)
     "keypoints2d": ((), "uint16"),
     "fragments": ((), "int32"),
 }
-KERNEL_SOURCES = ("raster_chunklist", "raster_compact", "raster_admission")
+KERNEL_SOURCES = ("raster_chunklist", "raster_compact", "raster_admission",
+                  "keypoints2d")
 HOST_LIBRARIES = ("narf", "felzenszwalb")  # the host cues' native cores
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 CLI_LOG = CLI_DIR / "cli.log"
@@ -3028,6 +3049,64 @@ def check_admission(what: str, mesh, curv, cams, card: str, compact: bool,
             "bytes": n_bytes, "rows": kinds, "launches": launched}
 
 
+def phase_keypoints2d(card: str) -> dict:
+    """Phase 23: ``keypoints2d`` on seeded grey images at the cell's shape
+    (K = 32, 512²) and at K = 1: the kernel's result bit for bit against
+    ``keypoints2d_reference`` on the same CUDA tensors, one launch a call;
+    then the plain version, the whole call (cumsums and kernel) and the
+    kernel alone on the integral image timed in turns by CUDA events,
+    beside the kernel's bound, the larger of its float operations at
+    FP32_OPS_PER_S and its device-memory bytes (the integral image read,
+    the response written) at HBM_BYTES_PER_S, and the floor of this design,
+    its corner reads out of shared memory at SMEM_BYTES_PER_S. The launch
+    checked here is this phase's own; the main path's are phases 11, 12
+    and 22's. -> what was measured and checked, at each K."""
+    import importlib
+
+    import torch
+
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+    dev = torch.device("cuda", 0)
+    out = {}
+    for k in (K_MAIN, 1):
+        gen = torch.Generator(device=dev).manual_seed(k)
+        gray = torch.rand((k, RES, RES), generator=gen, device=dev)
+        before = kp.keypoints2d.launches
+        got = kp.keypoints2d(gray)
+        launched = kp.keypoints2d.launches - before
+        want = kp.keypoints2d_reference(gray)
+        equal = same_bits(got, want)
+        err = float((got - want).abs().max())
+        log(f"keypoints2d K={k}: bitwise equal {equal}, max |diff| {err}, "
+            f"launches {launched}")
+        if not equal or launched != 1:
+            raise AssertionError(f"keypoints2d K={k}: the kernel disagrees with "
+                                 f"its plain version")
+        del got, want
+        ii = kp.integral_image(gray)
+        plain, whole = in_turns(lambda: kp.keypoints2d_reference(gray),
+                                lambda: kp.keypoints2d(gray), 3, 20)
+        kernel = [cuda_ms(lambda: kp.keypoints2d_kernel(ii), 20) for _ in range(2)]
+        n_scales = len(kp._scale_rows(1.0, 30.0, 10))
+        ops = KEYPOINT_OPS * n_scales * gray.numel()
+        n_bytes = 2 * 4 * gray.numel()
+        reads = KEYPOINT_CORNERS * n_scales * gray.numel()
+        bound_ms = max(ops / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+        design_ms = 4 * reads / SMEM_BYTES_PER_S * 1e3
+        log(f"keypoints2d K={k}: kernel {kernel[0]:.4f}, {kernel[1]:.4f} ms; whole "
+            f"call {whole[0]:.4f}, {whole[1]:.4f} ms; plain {plain[0]:.3f}, "
+            f"{plain[1]:.3f} ms (plain, call, call, plain); bound {bound_ms:.4f} ms "
+            f"({ops:.3g} float operations, {n_bytes:.3g} device-memory bytes), "
+            f"{bound_ms / min(kernel):.3f} of the bound; this design's floor "
+            f"{design_ms:.4f} ms ({reads:.3g} shared-memory reads), "
+            f"{design_ms / min(kernel):.3f} of it; card {card}")
+        out[f"k{k}"] = {"ms": kernel, "call_ms": whole, "plain_ms": plain,
+                        "bound_ms": bound_ms, "ops": ops, "bytes": n_bytes,
+                        "design_floor_ms": design_ms, "reads": reads,
+                        "max_abs_err": err, "launches": launched}
+    return out
+
+
 def phase_bench(card: str, mesh, curv) -> dict:
     """Phase 22: ``omnidata_tpu_torch.bench`` in this process on the card
     in torch's defaults (see the module doc): the xl scene through
@@ -3048,6 +3127,7 @@ def phase_bench(card: str, mesh, curv) -> dict:
 
     from omnidata_tpu_torch import bench
     from omnidata_tpu_torch.annotator import DEVICE_MODALITIES, annotate_views
+    from omnidata_tpu_torch.cues.keypoints2d import keypoints2d as kp2d
     from omnidata_tpu_torch.mesh import raster as raster_mod
     from omnidata_tpu_torch.mesh import raster_kernels as rk
 
@@ -3056,7 +3136,11 @@ def phase_bench(card: str, mesh, curv) -> dict:
     counters = ((rk.raster_tiles_streamed, "launches"),
                 (rk.raster_tiles_streamed, "count_launches"),
                 (rk.raster_tiles_chunklist, "launches"),
-                (raster_mod.admission, "launches"))
+                (raster_mod.admission, "launches"),
+                (kp2d, "launches"))
+    # bench_large_scene's annotate_views calls: the warm one, then its
+    # n_batches = 2 a repetition
+    xl_calls = 1 + 2 * BENCH_XL_REPS
     cudnn_mode("defaults")  # as the bench runs alone
     try:
         # 22a. the xl scene on kernel C
@@ -3065,12 +3149,13 @@ def phase_bench(card: str, mesh, curv) -> dict:
         xl = bench.bench_large_scene(build=bench.build_xl_scene, prefix="xl",
                                      device=dev, reps=BENCH_XL_REPS)
         torch.cuda.synchronize()
-        launches_c, count_c, launches_a, launches_adm = (
+        launches_c, count_c, launches_a, launches_adm, launches_kp = (
             getattr(fn, attr) for fn, attr in counters)
         log(f"22 xl scene ({xl['xl_scene_tris']} faces, padded "
             f"{xl['xl_scene_faces_padded']}): bench_large_scene {xl['xl_scene_vps']} vps "
             f"({BENCH_XL_REPS} rep); kernel C launches {launches_c} (count passes "
-            f"{count_c}), A {launches_a}, admission {launches_adm}; last launch: {xl['xl_rows_past_stage_cap']} of "
+            f"{count_c}), A {launches_a}, admission {launches_adm}, keypoints2d "
+            f"{launches_kp} ({xl_calls} calls); last launch: {xl['xl_rows_past_stage_cap']} of "
             f"{xl['xl_rows']} rows past the {rk.STREAMED_STAGE_CAP} stage cap, max "
             f"{xl['xl_max_staged']} staged, {xl['xl_split_rows']} rows split, "
             f"{xl['xl_work_items']} work items; prepare_raster peak "
@@ -3079,6 +3164,9 @@ def phase_bench(card: str, mesh, curv) -> dict:
         if launches_c < 1 or count_c < 1 or launches_a or launches_adm < 1:
             raise AssertionError("the xl scene must launch the admission kernels and "
                                  "kernel C's count pass and sweep, and not kernel A")
+        if launches_kp < 1 or launches_kp != xl_calls:
+            raise AssertionError("the xl scene must launch the keypoints2d kernel "
+                                 "once an annotate_views call")
         if xl["xl_scene_faces_padded"] >= 2**24:
             raise AssertionError("xl face ids past 2^24 do not ride exactly as float32")
         xmesh, xcurv = bench.build_xl_scene(device=dev)  # the bench's cache
@@ -3142,6 +3230,7 @@ def phase_bench(card: str, mesh, curv) -> dict:
     log(f"phase 22: {s_phase:.1f} s; card {card}")
     return {"xl": xl, "launches_c": launches_c, "count_launches_c": count_c,
             "launches_a_xl": launches_a, "launches_admission_xl": launches_adm,
+            "launches_keypoints2d_xl": launches_kp, "annotate_calls_xl": xl_calls,
             "full13": full13, "headline": headline,
             "s_phase": s_phase}
 
@@ -3172,6 +3261,7 @@ def main() -> int:
     from omnidata_tpu_torch import _build, scenes
     from omnidata_tpu_torch.annotator import DEVICE_MODALITIES, annotate_views
     from omnidata_tpu_torch.annotator.pipeline import _gather_attrs
+    from omnidata_tpu_torch.cues.keypoints2d import keypoints2d as kp2d
     from omnidata_tpu_torch.mesh import raster as raster_mod
     from omnidata_tpu_torch.mesh import raster_kernels as rk
 
@@ -3642,6 +3732,7 @@ def main() -> int:
     rk.raster_tiles_chunklist.launches = 0
     rk.raster_tiles_streamed.launches = 0
     raster_mod.admission.launches = 0
+    kp2d.launches = 0
     device_cue_maps, route_calls = cli.device_cue_maps, []
 
     def counted_cue_maps(out, fov, settings, prefixes):
@@ -3661,8 +3752,10 @@ def main() -> int:
     cli_a_bench = rk.raster_tiles_chunklist.launches
     cli_c_bench = rk.raster_tiles_streamed.launches
     cli_adm_bench = raster_mod.admission.launches
+    cli_kp_bench = kp2d.launches
     bsettings = load_settings(CLI_BENCH_ARGS[1:])
     bviews = cli.device_views(bdir, bsettings)
+    n_bbatches = len(cli_batches(bviews, bsettings))
     n_files = check_cli_outputs(bdir, bviews, CLI_IMAGE_TASKS + ("fragments",))
     all_views = [v for views in load_point_info(bdir) for v in views]
     if not all("vanishing_points_image" in v for v in all_views):
@@ -3670,10 +3763,13 @@ def main() -> int:
     log(f"CLI --task all (bench scene, {len(all_views)} views in point_info, "
         f"{len(bviews)} rendered): {s_cli_bench:.1f} s; {n_files} outputs "
         f"decode; kernel A launches {cli_a_bench}, C {cli_c_bench}, admission "
-        f"{cli_adm_bench}")
+        f"{cli_adm_bench}, keypoints2d {cli_kp_bench} ({n_bbatches} batches)")
     if cli_a_bench < 1 or cli_c_bench or cli_adm_bench < 1:
         raise AssertionError("the bench CLI run must launch the admission kernels "
                              "and kernel A, not C")
+    if cli_kp_bench < 1 or cli_kp_bench != n_bbatches:
+        raise AssertionError("the bench CLI run must launch the keypoints2d kernel "
+                             "once a batch")
     mods = tuple(t for t in cli.TASKS_ALL if t in cli.DEVICE_TASKS)
     cmesh, ccurv = cli.prepare_device_mesh(bdir, mods, bsettings, device=dev)
     unequal = []
@@ -3698,6 +3794,7 @@ def main() -> int:
     rk.raster_tiles_chunklist.launches = 0
     rk.raster_tiles_streamed.launches = 0
     raster_mod.admission.launches = 0
+    kp2d.launches = 0
     t0 = time.perf_counter()
     run_cli(cli.run_device_tasks, ldir, list(mods), lsettings, device=dev)
     torch.cuda.synchronize()
@@ -3705,14 +3802,19 @@ def main() -> int:
     cli_a_large = rk.raster_tiles_chunklist.launches
     cli_c_large = rk.raster_tiles_streamed.launches
     cli_adm_large = raster_mod.admission.launches
+    cli_kp_large = kp2d.launches
+    n_lbatches = len(cli_batches(lviews, lsettings))
     n_lfiles = check_cli_outputs(ldir, lviews, CLI_IMAGE_TASKS[:10] + ("fragments",))
     log(f"CLI --task points (large scene, default settings): {s_points_large:.2f} s, "
         f"{len(lviews)} views; device pass: {s_pass:.2f} s, {n_lfiles} outputs "
         f"decode; kernel C launches {cli_c_large}, A {cli_a_large}, admission "
-        f"{cli_adm_large}")
+        f"{cli_adm_large}, keypoints2d {cli_kp_large} ({n_lbatches} batches)")
     if cli_c_large < 1 or cli_a_large or cli_adm_large < 1:
         raise AssertionError("the large CLI run must launch the admission kernels "
                              "and kernel C, not A")
+    if cli_kp_large < 1 or cli_kp_large != n_lbatches:
+        raise AssertionError("the large CLI run must launch the keypoints2d kernel "
+                             "once a batch")
     t0 = time.perf_counter()
     lm, lc = cli.prepare_device_mesh(ldir, mods, lsettings, device=dev)
     s_setup = time.perf_counter() - t0
@@ -3824,6 +3926,9 @@ def main() -> int:
     # 22. the port's bench -----------------------------------------------------
     bench_res = phase_bench(card, mesh, curv)
 
+    # 23. keypoints2d ----------------------------------------------------------
+    keypoints = phase_keypoints2d(card)
+
     src = "omnidata_tpu_torch/csrc/"
     replaces = "omnidata_tpu/mesh/pallas_raster.py:"
     no_library = ("none: no PyTorch call computes a winner-key sweep over "
@@ -3903,6 +4008,27 @@ def main() -> int:
          **bench_res["xl"]["admission"], "bench_scene": adm_bench,
          "launches_xl": bench_res["launches_admission_xl"],
          "launches_cli_bench": cli_adm_bench, "launches_cli_large": cli_adm_large},
+        {"name": "keypoints2d", "route": "cuda", "source": src + "keypoints2d.cu",
+         "replaces": "none (the JAX package leaves _blob_doh to XLA)",
+         "launches_in": "the cue stack's keypoints2d in annotate_views (CLI --task "
+         "all, the large device pass, bench_large_scene on the xl scene)",
+         "shape": f"K={K_MAIN}, {RES}²; small: K=1", "launches": cli_kp_bench,
+         "launches_cli_bench": cli_kp_bench, "launches_cli_large": cli_kp_large,
+         "launches_xl": bench_res["launches_keypoints2d_xl"],
+         "annotate_calls_xl": bench_res["annotate_calls_xl"],
+         "ms": statistics.mean(keypoints[f"k{K_MAIN}"]["ms"]),
+         "plain_ms": statistics.mean(keypoints[f"k{K_MAIN}"]["plain_ms"]),
+         "bound_ms": keypoints[f"k{K_MAIN}"]["bound_ms"],
+         "bound_by": "float operations at the unfused FP32 rate",
+         "design_floor_ms": keypoints[f"k{K_MAIN}"]["design_floor_ms"],
+         "design_floor_by": "this design's corner reads out of shared memory",
+         "library_ms": None, "library": "none: no PyTorch call computes the SURF "
+         "box-filter Hessian", "max_abs_err": max(v["max_abs_err"] for v in keypoints.values()),
+         "share_of_bound": keypoints[f"k{K_MAIN}"]["bound_ms"] / min(keypoints[f"k{K_MAIN}"]["ms"]),
+         "share_of_design_floor": (keypoints[f"k{K_MAIN}"]["design_floor_ms"]
+                                   / min(keypoints[f"k{K_MAIN}"]["ms"])),
+         "ms_small": statistics.mean(keypoints["k1"]["ms"]),
+         "plain_ms_small": statistics.mean(keypoints["k1"]["plain_ms"]), "detail": keypoints},
     ], "large_vps": lvps, "bench_vps": vps, "peak_gib_large": lpeak_gib,
         "s_kernel_build": s_build, "s_large_scene_build": s_large_scene,
         "raycast_tests_per_s": ray_tests / s_ray, "raycast_face_agreement": face_eq,

@@ -134,3 +134,19 @@ def load_host_library(name: str) -> ctypes.CDLL:
     with _BUILD_LOCK:
         build_libraries(hosts=[name])
     return ctypes.CDLL(str(host_library_path(name)))
+
+
+def call_kernel(lib: str, symbol: str, ptrs, ints) -> None:
+    """Call a kernel's C entry point in ``csrc/<lib>.cu`` (pointers...,
+    ints..., stream) on the current device's current stream (the caller has
+    made the inputs' device current); raise on the CUDA error code it
+    returns."""
+    import torch
+
+    fn = getattr(load_kernel_library(lib), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {err}")

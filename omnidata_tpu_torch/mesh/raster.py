@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._build import call_kernel
 from ..core.cameras import Camera, camera_rays, extrinsic_RT, intrinsic_matrix
 from ..utils import profiler
 from .mesh import TriangleMesh
@@ -44,7 +45,6 @@ from .raster_kernels import (
     LANE_MASK,
     STAGE_CAP,
     STREAMED_STAGE_CAP,
-    _call,
     _mt_packed_keys,
     _mt_precompute,
     decode_winners,
@@ -381,7 +381,7 @@ def _admission_kernels(cameras: Camera, mesh: TriangleMesh, tile: int,
         offsets = torch.empty(rows + 1, dtype=torch.int32, device=dev)
         words = (torch.empty((K, n_chunks * chunk), dtype=torch.int32,
                              device=dev) if compact else None)
-        _call("raster_admission", "admission_launch",
+        call_kernel("raster_admission", "admission_launch",
               [mesh.vertices.data_ptr(), mesh.faces.data_ptr(), rt.data_ptr(),
                km.data_ptr(), None if words is None else words.data_ptr(),
                bits.data_ptr(), ids.data_ptr(), counts.data_ptr(),

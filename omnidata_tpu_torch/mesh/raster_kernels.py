@@ -51,13 +51,13 @@ run one count pass and one sweep kernel, on their two pack layouts.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .._build import call_kernel
 from ..utils import profiler
 
 _BIG = 1e30
@@ -490,27 +490,12 @@ def _check_inputs(name, ids, counts, offsets, origins, pack, cols, Fp,
         raise ValueError(f"{name}: no kernel for {dev}")
 
 
-def _call(lib: str, symbol: str, ptrs, ints) -> None:
-    """Call a kernel's C entry point (pointers..., ints..., stream) on the
-    current device's current stream (the caller has made the inputs'
-    device current); raise on the CUDA error code it returns."""
-    from .._build import load_kernel_library
-
-    fn = getattr(load_kernel_library(lib), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{lib} kernel launch failed: CUDA error {err}")
-
-
 def _launch(lib: str, symbol: str, ptrs, ints, rows, P, cols, dev):
     """Allocate the outputs and call a kernel's C entry point (pointers...,
-    packed, acc, ints..., stream) as ``_call`` does."""
+    packed, acc, ints..., stream) as ``call_kernel`` does."""
     packed = torch.empty((rows, P), dtype=torch.int32, device=dev)
     acc = torch.empty((rows, cols, P), dtype=torch.float32, device=dev)
-    _call(lib, symbol, [*ptrs, packed.data_ptr(), acc.data_ptr()], ints)
+    call_kernel(lib, symbol, [*ptrs, packed.data_ptr(), acc.data_ptr()], ints)
     return packed, acc
 
 
@@ -613,7 +598,7 @@ def _sweep_launch(wrapper, symbol, ids, counts, offsets, origins, pack,
             max_seg = -(-nc // seg)  # the longest list's
             counted = torch.empty(rows * (1 + max_seg), dtype=torch.int32, device=dev)
             staged, seg_counts = counted[:rows], counted[rows:]
-            _call("raster_compact", "raster_count_launch",
+            call_kernel("raster_compact", "raster_count_launch",
                   [*_ptrs(ids, offsets, counts, bbox_words), order, ends,
                    n_items, next_item, staged.data_ptr(), seg_counts.data_ptr()],
                   [rows, P, *shape, seg])

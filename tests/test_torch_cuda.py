@@ -17,17 +17,24 @@ evaluation metrics, normal TTA, one forward of each multi-task
 architecture and of HRNet-W18, and one multi-task step with its per-task
 gradient norms; each MiDaS net's forward (also midas_v21 on a transformed
 640x480 image) and the refocus augmentation; the per-view renderer, the
-per-view annotator on kernel A and the sharded annotator.
+per-view annotator on kernel A and the sharded annotator. And the keypoints2d
+kernel bit for bit against its plain version on the same CUDA tensors, at
+the cell's shape, at one view, on ragged and small images, past its staged
+halo and at the most scales one launch takes, with its launch count, its
+profiler counter and the inputs its entry point refuses.
 
 CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips without a card. The file imports no JAX, so on a machine with a card
 and without JAX it runs on its own:
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q``.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+from omnidata_tpu_torch._build import call_kernel
 from omnidata_tpu_torch.core.cameras import Camera, extrinsic_RT, look_at_rotation
 from omnidata_tpu_torch.mesh import from_arrays, room, uv_sphere
 from omnidata_tpu_torch.mesh import raster as traster
@@ -428,11 +435,11 @@ def test_admission_refuses_what_the_kernels_do_not_take(admission_scene):
     assert traster.admission.launches == before
     buf = torch.zeros(64, dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA error"):
-        tk._call("raster_admission", "admission_launch", [buf.data_ptr()] * 9,
-                 [100, 100, 1, 128, 32, 128, 2, 8])  # 100 faces: 1 chunk
+        call_kernel("raster_admission", "admission_launch", [buf.data_ptr()] * 9,
+                    [100, 100, 1, 128, 32, 128, 2, 8])  # 100 faces: 1 chunk
     with pytest.raises(RuntimeError, match="CUDA error"):  # ids past an int
-        tk._call("raster_admission", "admission_launch", [buf.data_ptr()] * 9,
-                 [100, 100, 2, 2048, 8, 128, 1, 2**15])
+        call_kernel("raster_admission", "admission_launch", [buf.data_ptr()] * 9,
+                    [100, 100, 2, 2048, 8, 128, 1, 2**15])
     traster.admission(cams, mesh, 32, 128, 48)  # no error left behind
     torch.cuda.synchronize()
 
@@ -1110,3 +1117,88 @@ def test_predict_batches_graphs_equal_the_eager_predictor(card, dtype):
                  "predict.model", "pipeline.fetch"):
         assert spans[name]["count"] == 3 and spans[name]["device_ms"] > 0, name
     assert spans["dpt.encoder"]["parents"] == ["predict.model"]
+
+
+def _keypoint_gray(kind, dev):
+    """Seeded grey images in [0, 1]: ("rand", N, H, W) uniform, or
+    ("smooth",) test_torch_cues' _smooth_gray(7), 8x8 blocks plus texture."""
+    if kind[0] == "smooth":
+        rng = np.random.RandomState(7)
+        base = rng.rand(2, 6, 8).repeat(8, 1).repeat(8, 2)
+        g = np.clip(base + 0.1 * rng.rand(2, 48, 64), 0, 1).astype(np.float32)
+        return torch.as_tensor(g, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(sum(kind[1:]))
+    return torch.rand(kind[1:], generator=gen, device=dev)
+
+
+def _assert_same_bits(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    assert float((got - want).abs().max()) == 0.0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", [("rand", 32, 512, 512), ("rand", 1, 512, 512),
+                                  ("rand", 3, 97, 130), ("rand", 2, 40, 40),
+                                  ("smooth",)],
+                         ids=["cell_32x512", "k1_512", "ragged_97x130",
+                              "under_reach_40", "smooth_jax_test"])
+def test_keypoints2d_kernel_equals_the_plain_version_bitwise(card, kind):
+    """keypoints2d on the card (the integral image's cumsums, then the
+    kernel) against keypoints2d_reference on the same CUDA tensors: max abs
+    error 0, every bit equal; one launch a call."""
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+
+    gray = _keypoint_gray(kind, card)
+    before = kp.keypoints2d.launches
+    got = kp.keypoints2d(gray)
+    assert kp.keypoints2d.launches == before + 1
+    _assert_same_bits(got, kp.keypoints2d_reference(gray))
+
+
+@pytest.mark.parametrize("sigmas", [(1.0, 60.0, 7), (2.0, 30.0, 16)],
+                         ids=["past_the_halo", "sixteen_scales"])
+def test_keypoints2d_kernel_other_scales_bitwise(card, sigmas):
+    """Scales past the staged halo (reach up to 90, read from device memory)
+    and the 16 scales one launch takes: bit for bit with the plain version,
+    one launch a call."""
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+
+    gray = _keypoint_gray(("rand", 2, 200, 150), card)
+    before = kp.keypoints2d.launches
+    got = kp.keypoints2d(gray, *sigmas)
+    assert kp.keypoints2d.launches == before + 1
+    _assert_same_bits(got, kp.keypoints2d_reference(gray, *sigmas))
+
+
+def test_keypoints2d_kernel_counts_images_fused(card):
+    """Under a recording profiler each call counts its N images in
+    keypoints2d.images_fused and one launch."""
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+    from omnidata_tpu_torch.utils import profiler
+
+    gray = _keypoint_gray(("rand", 3, 64, 64), card)
+    before = kp.keypoints2d.launches
+    profiler.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        kp.keypoints2d(gray)
+        kp.keypoints2d(gray[:2])
+    got = profiler.summary()["counters"]
+    profiler.reset()
+    assert got["keypoints2d.images_fused"]["total"] == 5
+    assert kp.keypoints2d.launches == before + 2
+
+
+def test_keypoints2d_kernel_refuses_what_it_does_not_take(card):
+    """The entry point called directly raises on a float64, a non-contiguous
+    or a CPU integral image and on more than 16 scales, and launches
+    nothing."""
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+
+    ii = kp.integral_image(_keypoint_gray(("rand", 2, 64, 64), card))
+    before = kp.keypoints2d.launches
+    for bad in (ii.double(), ii.transpose(1, 2), ii.cpu()):
+        with pytest.raises(ValueError):
+            kp.keypoints2d_kernel(bad)
+    with pytest.raises(ValueError, match="num_sigma 17"):
+        kp.keypoints2d_kernel(ii, 1.0, 30.0, 17)
+    assert kp.keypoints2d.launches == before

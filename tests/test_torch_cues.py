@@ -3,6 +3,8 @@ the same float inputs (numpy seeds). Tolerances: atol 1e-5 on float outputs
 (float32, different convolution/summation order); integer labels meet the
 integer-label rule of tests/test_mesh.py (max diff <= 1 on < 2% of pixels,
 or <= 32 on < 0.1%)."""
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -140,3 +142,71 @@ def test_keypoints2d_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
     _assert_labels(tenc.img_as_uint16(torch.clamp(got, 0.0, 1.0)),
                    np.asarray(jenc.img_as_uint16(jnp.clip(want, 0.0, 1.0))))
+
+
+def test_keypoints2d_on_the_cpu_launches_and_counts_nothing():
+    """A CPU call takes the plain version: no kernel launch, and no
+    keypoints2d.images_fused under a recording profiler."""
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+    from omnidata_tpu_torch.utils import profiler
+
+    g = torch.as_tensor(_smooth_gray(7))
+    before = kp.keypoints2d.launches
+    profiler.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = kp.keypoints2d(g)
+    counters = profiler.summary()["counters"]
+    profiler.reset()
+    assert kp.keypoints2d.launches - before == 0
+    assert counters.get("keypoints2d.images_fused", {"total": 0})["total"] == 0
+    assert torch.equal(got, kp.keypoints2d_reference(g))
+
+
+@pytest.mark.parametrize("sigmas", [(1.0, 30.0, 10), (2.0, 60.0, 7), (1.0, 5.0, 3)])
+def test_keypoints2d_kernel_scale_rows_match_the_plain_reads(monkeypatch, sigmas):
+    """The kernel's per-scale rows: size, s2, s3, s3 // 2 and the float32
+    weight as the plain version computes them, and a reach equal to the
+    largest |offset| of a corner that hessian_det_appx reads."""
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+
+    offsets = []
+    real = kp._box_sum
+
+    def recording(padded, H, W, r0, c0, rl, cl):
+        offsets.append(max(abs(o) for o in (r0 - 1, c0 - 1, r0 + rl - 1, c0 + cl - 1)))
+        return real(padded, H, W, r0, c0, rl, cl)
+
+    monkeypatch.setattr(kp, "_box_sum", recording)
+    padded = kp._pad_integral(kp.integral_image(torch.rand(1, 8, 8)))
+    rows = kp._scale_rows(*sigmas)
+    assert len(rows) == sigmas[2]
+    for row, sigma in zip(rows, np.linspace(*sigmas)):
+        offsets.clear()
+        kp.hessian_det_appx(padded, 8, 8, float(sigma))
+        size = int(3 * float(sigma))
+        s3 = size // 3
+        w = np.float32(1.0 / (size * size))
+        assert list(row[:4]) == [size, (size - 1) // 2, s3, s3 // 2]
+        assert row[4] == max(offsets) and len(offsets) == 8
+        assert row[5] == w.view(np.int32)
+
+
+def test_keypoints2d_kernel_refuses_a_reach_past_the_pad():
+    """A scale reaching past the plain version's pad of 128 is refused
+    before any launch, where the plain version's slices would not fit."""
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+
+    kp._scale_rows(1.0, 85.0, 2)  # size 255, reach 128: inside
+    with pytest.raises(ValueError, match="past the pad"):
+        kp._scale_rows(1.0, 86.0, 2)
+
+
+@pytest.mark.parametrize("num_sigma", [0, 17])
+def test_keypoints2d_kernel_refuses_scales_it_does_not_take(num_sigma):
+    """The kernel takes 1 to 16 scales in its one launch: any other count is
+    refused before a launch."""
+    kp = importlib.import_module("omnidata_tpu_torch.cues.keypoints2d")
+
+    assert len(kp._scale_rows(1.0, 30.0, 16)) == 16
+    with pytest.raises(ValueError, match=f"num_sigma {num_sigma} must be 1 to 16"):
+        kp._scale_rows(1.0, 30.0, num_sigma)
